@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's image-in comprehension turn once on one NVIDIA
-GPU, at the full SEED-X-I width, and check its two CUDA kernels.
+"""Drive the PyTorch port on one NVIDIA GPU at the full SEED-X-I width:
+the image-in comprehension turn and batched / continuous / HTTP serving,
+and check its three CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -7,22 +8,36 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
 1. environment: torch / CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
-2. build: both kernels from ``seedx_tpu_torch/csrc`` (nvcc, sm_90a);
-3. kernels: each against its plain PyTorch version at the turn's shapes
-   (max abs / rel error against a stated tolerance; median of 10 timed
-   runs after warm-up, CUDA events); a tiny stack on the card against the
-   same weights on the CPU (plain versions);
+2. build: the three kernels from ``seedx_tpu_torch/csrc`` (one nvcc each,
+   started together, sm_90a);
+3. kernels: each against its plain PyTorch version at the shapes of the
+   turn and of batched decode (max abs / rel error against a stated
+   tolerance; median of 10 timed runs after warm-up, CUDA events), beside
+   its bound (the larger of bytes / 3.35 TB/s and operations / the tensor
+   cores' peak for the input type) and, where one exists, the time of the
+   PyTorch call computing the same function; then a tiny stack on the card
+   against the same weights on the CPU (plain versions): ViT features,
+   prefill logits and batched decode steps;
 4. the turn: ViT-bigG/14-448 (bf16) and the SEED-X agent (LLaMA2-13B,
    int4 weights, int8 KV cache, 64-query resamplers) with random weights
    drawn on the card from a seed; three ``comprehend`` requests on images
    of three aspect ratios and one ``generate`` request ending in ``<img>``
-   (the forced 65-token chunk and the output resampler); launch counters
-   reset just before and read just after;
-5. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
+   (the forced 65-token chunk and the output resampler);
+5. serving on the same runtime: a ``ServingEngine`` flush of 8 requests,
+   ``ContinuousEngine`` with 8 slots over 16 requests, dense and then paged
+   (the paged token streams must equal the dense ones), a torch.profiler
+   window over one decode chunk at 1 and at 8 live slots (device busy
+   share), and ``SeedXServer`` answering 4 concurrent HTTP requests on
+   127.0.0.1;
+6. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
    line ``{"ok": true, "device": {...}}``.
 
-In the kernels line, ``max_abs_err`` is the largest over the kernel's
-shapes, ``ms`` and ``plain_ms`` the sums of one call at each shape.
+Every path of phases 4-5 runs with the launch counters set to 0 just
+before it and read just after, and fails unless each kernel it runs was
+launched.  In the kernels line ``launches`` is the sum over those runs,
+``max_abs_err`` the largest over the kernel's shapes, and ``ms``,
+``plain_ms`` and ``bound_ms`` sums of one call at each shape;
+``library_ms`` sums the shapes named in ``library_shapes``.
 """
 
 from __future__ import annotations
@@ -31,9 +46,20 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, 700 W
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}    # dense tensor-core peaks
+SPIN_CYCLES = 20_000_000      # ~10 ms at the H100's 1.98 GHz boost clock
+KERNELS = (("flash_fwd", "seedx_tpu_torch/csrc/flash_fwd.cu",
+            "seedx_tpu/ops/flash_attention.py:43"),
+           ("int4_w4a8", "seedx_tpu_torch/csrc/int4_w4a8.cu",
+            "seedx_tpu/ops/int4_matmul.py:49"),
+           ("decode_attn", "seedx_tpu_torch/csrc/decode_attn.cu",
+            "seedx_tpu/ops/decode_attention.py:115"))
 
 
 def log(msg: str) -> None:
@@ -49,9 +75,12 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, flush=None, warmup: int = 3, iters: int = 10) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` runs (CUDA events);
-    ``flush`` (a buffer rewritten before each run) evicts the 50 MB L2 so
-    weights stream from HBM as they do in the 40-layer decode."""
+    """Median device milliseconds of ``fn`` over ``iters`` runs (CUDA
+    events).  A spin kernel queued before the start event keeps the card
+    busy while the host queues ``fn``, so the time is the device's, not the
+    host's launch overhead.  ``flush`` (a buffer rewritten before each run)
+    evicts the 50 MB L2 so weights and caches stream from HBM as they do
+    in the 40-layer loop."""
     import torch
 
     for _ in range(warmup):
@@ -60,6 +89,7 @@ def cuda_ms(fn, flush=None, warmup: int = 3, iters: int = 10) -> float:
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -70,29 +100,65 @@ def cuda_ms(fn, flush=None, warmup: int = 3, iters: int = 10) -> float:
     return statistics.median(times)
 
 
-def check_kernels(dev):
-    """Phase 3: each kernel against its plain version at the slice shapes."""
+def bound(n_bytes: float, n_ops: float, kind: str):
+    """(least ms the card could take, what bounds it)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def counters():
+    from seedx_tpu_torch.ops.decode_attention import ragged_decode_attention
+    from seedx_tpu_torch.ops.flash_attention import flash_fwd
+    from seedx_tpu_torch.ops.int4_matmul import int4_matmul
+
+    return {"flash_fwd": flash_fwd, "int4_w4a8": int4_matmul,
+            "decode_attn": ragged_decode_attention}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def row(kernel, shape, ok, err, ms, plain_ms, bnd, library_ms=None):
+    return {"kernel": kernel, "shape": shape, "ok": ok, "err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": library_ms}
+
+
+def fmt_row(r, extra: str = "") -> str:
+    lib = ("none" if r["library_ms"] is None
+           else f"{r['library_ms']:.4f} ms")
+    return (f"kernel {r['kernel']} {r['shape']}: max_abs_err {r['err']:.3e}"
+            f"{extra} {'ok' if r['ok'] else 'FAIL'} kernel {r['ms']:.4f} ms "
+            f"plain {r['plain_ms']:.4f} ms library {lib} bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def check_flash(dev, g):
     import torch
+    import torch.nn.functional as F
 
     from seedx_tpu_torch.ops import flash_attention as fa
-    from seedx_tpu_torch.ops import int4_matmul as i4
-    from seedx_tpu_torch.utils.quantize import quantize_kernel_int4
 
-    g = torch.Generator(device=dev).manual_seed(1234)
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     rows = []
-
-    # flash: (name, B, Sq, Skv, H, causal, start, end, q_offset); D = 128
-    # (ViT-bigG's 104 is zero-padded to 128 by the dispatch)
+    # (name, B, Sq, Skv, H, causal, start, end, q_offset); D = 128 (ViT-
+    # bigG's 104 is zero-padded to 128 by the dispatch)
     for name, b, sq, skv, h, causal, start, end, qoff in (
             ("vit_5tiles", 5, 1024, 1024, 16, False, 0, 1024, 0),
             ("prefill_512", 1, 512, 544, 40, True, 300, 512, 0),
             ("chunk_65", 1, 65, 544, 40, True, 300, 577, 512)):
-        q, k, v = (torch.randn((b, s, h, 128), generator=g, device=dev
+        d = 128
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev
                                ).to(torch.bfloat16) for s in (sq, skv, skv))
         st = torch.full((b,), start, dtype=torch.int32, device=dev)
         en = torch.full((b,), end, dtype=torch.int32, device=dev)
-        args = (q, k, v, st, en, qoff, causal, 128 ** -0.5)
+        args = (q, k, v, st, en, qoff, causal, d ** -0.5)
         out, lse = fa.flash_fwd(*args)
         ref, lse_ref = fa.flash_fwd_plain(*args)
         torch.cuda.synchronize()
@@ -103,20 +169,47 @@ def check_kernels(dev):
         tol = 2e-2      # bf16 output of O(1): a few ULPs + per-tile rescale
         ok = (err <= tol and lse_err <= 1e-3
               and torch.equal(lse > -1e30, live))
-        ms = cuda_ms(lambda: fa.flash_fwd(*args))
-        plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(*args))
-        log(f"kernel flash_fwd {name} B{b} Sq{sq} Skv{skv} H{h} D128 "
-            f"causal={causal}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
-            f"lse_err {lse_err:.3e} tol {tol:g} {'ok' if ok else 'FAIL'} "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        rows.append(("flash_fwd", ok, err, ms, plain_ms))
+        # the function's work on this data: the (q, k) pairs the window and
+        # the causal mask leave, and each input read / output written once
+        k_pos = torch.arange(skv)
+        mask = (k_pos >= min(start, skv)) & (k_pos < min(end, skv))
+        if causal:
+            q_pos = qoff + torch.arange(sq)
+            pairs_mask = mask[None, :] & (k_pos[None, :] <= q_pos[:, None])
+        else:
+            pairs_mask = mask[None, :].expand(sq, skv)
+        pairs = int(pairs_mask.sum())
+        window = int(mask.sum())
+        n_bytes = b * h * d * 2 * (2 * sq + 2 * window) + b * h * sq * 4
+        bnd = bound(n_bytes, 4 * b * h * d * pairs, "bf16")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        am = (None if not causal else
+              pairs_mask.to(dev)[None, None].expand(b, 1, sq, skv))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=am, scale=d ** -0.5))
+        r = row("flash_fwd", f"{name} B{b} Sq{sq} Skv{skv} H{h} D{d} "
+                f"causal={causal} window=[{start},{end})", ok, err,
+                cuda_ms(lambda: fa.flash_fwd(*args)),
+                cuda_ms(lambda: fa.flash_fwd_plain(*args)), bnd, lib)
+        log(fmt_row(r, f" max_rel_err {rel:.3e} lse_err {lse_err:.3e} "
+                       f"tol {tol:g}"))
+        rows.append(r)
+    return rows
 
+
+def check_int4(dev, g, flush):
+    import torch
+
+    from seedx_tpu_torch.ops import int4_matmul as i4
+    from seedx_tpu_torch.utils.quantize import quantize_kernel_int4
+
+    rows = []
     for n_in, n_out in ((5120, 5120), (5120, 13824), (13824, 5120)):
         w = torch.randn((n_in, n_out), generator=g, device=dev) * 0.02
         packed, scale = quantize_kernel_int4(w)
         del w
-        for r in (1, 65, 512):
-            x = torch.randn((r, n_in), generator=g,
+        for r_ in (1, 65, 512):
+            x = torch.randn((r_, n_in), generator=g,
                             device=dev).to(torch.bfloat16)
             out = i4.int4_matmul(x, packed, scale)
             ref = i4.int4_matmul_plain(x, packed, scale)
@@ -126,48 +219,219 @@ def check_kernels(dev):
             # exact int32 group dots; fp32 split-K order differs; one bf16
             # rounding: two bf16 ULPs of the output magnitude
             tol = 2 * 2 ** -7 * mag
-            ok = err <= tol
-            ms = cuda_ms(lambda: i4.int4_matmul(x, packed, scale), flush)
-            plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, packed, scale),
-                               flush)
-            log(f"kernel int4_w4a8 rows{r} {n_in}->{n_out}: max_abs_err "
-                f"{err:.3e} max_rel_err {err / mag:.3e} tol {tol:.3e} "
-                f"{'ok' if ok else 'FAIL'} kernel {ms:.4f} ms plain "
-                f"{plain_ms:.4f} ms")
-            rows.append(("int4_w4a8", ok, err, ms, plain_ms))
+            n_bytes = (x.numel() * 2 + packed.numel() + scale.numel() * 4
+                       + r_ * n_out * 2)
+            # no PyTorch call computes W4A8 over this nibble packing
+            r = row("int4_w4a8", f"rows{r_} {n_in}->{n_out}", err <= tol,
+                    err,
+                    cuda_ms(lambda: i4.int4_matmul(x, packed, scale), flush),
+                    cuda_ms(lambda: i4.int4_matmul_plain(x, packed, scale),
+                            flush),
+                    bound(n_bytes, 2 * r_ * n_in * n_out, "int8"))
+            log(fmt_row(r, f" max_rel_err {err / mag:.3e} tol {tol:.3e}"))
+            rows.append(r)
+    return rows
+
+
+# B 8 windows: a full row, one-token rows, an empty row, ragged rows
+WINDOWS_8 = ((0, 1280), (5, 6), (3, 3), (100, 900), (0, 1), (640, 1100),
+             (7, 1000), (200, 1280))
+
+
+def check_decode(dev, g, flush):
+    import torch
+    import torch.nn.functional as F
+
+    from seedx_tpu_torch.models.llama import quantize_kv
+    from seedx_tpu_torch.ops import decode_attention as da
+
+    rows = []
+    # (name, B, S, Hq, Hkv, D, int8, page, windows)
+    for name, b, s, hq, hkv, d, int8, page, wins in (
+            ("int8_b1", 1, 1280, 40, 40, 128, True, 0, ((0, 300),)),
+            ("int8_b8", 8, 1280, 40, 40, 128, True, 0, WINDOWS_8),
+            ("bf16_b8", 8, 1280, 40, 40, 128, False, 0, WINDOWS_8),
+            ("int8_paged_b8", 8, 1280, 40, 40, 128, True, 128, WINDOWS_8),
+            ("bf16_gqa_b8", 8, 1280, 40, 8, 128, False, 0, WINDOWS_8),
+            ("int8_d32_b8", 8, 1280, 4, 4, 32, True, 0, WINDOWS_8)):
+        q = torch.randn((b, hq, d), generator=g,
+                        device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev
+                            ).to(torch.bfloat16) for _ in range(2))
+        kw = {}
+        if int8:
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            kw = dict(k_scale=ks[..., 0].contiguous(),
+                      v_scale=vs[..., 0].contiguous())
+        dense_k, dense_v = k.reshape(b, s, -1), v.reshape(b, s, -1)
+        k, v = dense_k, dense_v
+        if page:
+            n_tiles = s // page
+            perm = torch.randperm(2 * b * n_tiles, generator=g, device=dev)
+            tables = perm[:b * n_tiles].reshape(b, n_tiles).to(torch.int32)
+            prow = (tables.long()[:, :, None] * page
+                    + torch.arange(page, device=dev)).reshape(b, s)
+
+            def pool(x):
+                out = torch.zeros((2 * b * n_tiles * page,) + x.shape[2:],
+                                  dtype=x.dtype, device=dev)
+                out[prow] = x
+                return out
+
+            k, v = pool(k), pool(v)
+            kw = {n: pool(t) for n, t in kw.items()}
+            kw.update(block_tables=tables.contiguous(), page=page)
+        st = torch.tensor([w[0] for w in wins], dtype=torch.int32,
+                          device=dev)
+        en = torch.tensor([w[1] for w in wins], dtype=torch.int32,
+                          device=dev)
+        out = da.ragged_decode_attention(q, k, v, st, en, **kw)
+        ref = da.ragged_decode_attention_plain(q, k, v, st, en, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        mag = ref.float().abs().max().item()
+        empty = en <= st
+        tol = 2e-2      # bf16 output of O(1), as for the flash kernel
+        ok = err <= tol and bool((out[empty] == 0).all())
+        n_pos = int(torch.clamp(en - st, min=0).sum())
+        item = 1 if int8 else 2
+        n_bytes = (2 * q.numel() * 2 + 2 * n_pos * hkv * d * item
+                   + (2 * n_pos * hkv * 2 if int8 else 0) + 8 * b
+                   + (kw["block_tables"].numel() * 4 if page else 0))
+        bnd = bound(n_bytes, 4 * n_pos * hq * d, "int8" if int8 else "bf16")
+        path = None
+        if int8 and not page:
+            # the path K3 replaces (decode_attention="never"): dequantize
+            # the whole layer cache, then plain attention under the mask
+            path = cuda_ms(lambda: never_path(q, k, v, kw["k_scale"],
+                                              kw["v_scale"], st, en), flush)
+        lib = None
+        if not int8 and not page:
+            # the same function as one library call: SDPA over the dense
+            # cache with a boolean window mask (an empty row gives NaN
+            # there, zeros here)
+            pos = torch.arange(s, device=dev)
+            am = ((pos >= st[:, None]) & (pos < en[:, None]))[:, None, None]
+            kt = dense_k.view(b, s, hkv, d).transpose(1, 2)
+            vt = dense_v.view(b, s, hkv, d).transpose(1, 2)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, attn_mask=am,
+                enable_gqa=hq != hkv), flush)
+        r = row("decode_attn", f"{name} B{b} S{s} Hq{hq} Hkv{hkv} D{d} "
+                f"{'int8' if int8 else 'bf16'}"
+                f"{f' page{page}' if page else ''} positions {n_pos}", ok,
+                err, cuda_ms(lambda: da.ragged_decode_attention(
+                    q, k, v, st, en, **kw), flush),
+                cuda_ms(lambda: da.ragged_decode_attention_plain(
+                    q, k, v, st, en, **kw), flush), bnd, lib)
+        extra = ("" if path is None
+                 else f" dequantize-then-attend path {path:.4f} ms")
+        log(fmt_row(r, f" max_rel_err {err / mag:.3e} tol {tol:g}") + extra)
+        rows.append(r)
+    return rows
+
+
+def never_path(q, k, v, ks, vs, starts, ends):
+    """The one-token step of models/llama.py with decode_attention
+    "never": the int8 layer cache dequantized to bf16, then plain
+    attention over all positions under the window mask."""
+    import torch
+
+    from seedx_tpu_torch.ops.attention import dot_product_attention
+
+    b, s, f = k.shape
+    hkv = ks.shape[-1]
+    d = f // hkv
+    kk = k.reshape(b, s, hkv, d).to(torch.bfloat16) * ks[..., None]
+    vv = v.reshape(b, s, hkv, d).to(torch.bfloat16) * vs[..., None]
+    pos = torch.arange(s, device=k.device)
+    valid = (pos >= starts[:, None]) & (pos < ends[:, None])
+    return dot_product_attention(q[:, None], kk, vv, kv_valid=valid,
+                                 impl="plain")[:, 0]
+
+
+def check_kernels(dev):
+    """Phase 3: each kernel against its plain version at the path shapes."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(1234)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    rows = check_flash(dev, g) + check_int4(dev, g, flush)
+    rows += check_decode(dev, g, flush)
     del flush
     return rows
 
 
 def check_tiny_stack(dev):
     """A tiny int4 + int8-KV stack on the card (kernels) against the same
-    weights on the CPU (plain versions): ViT features and prefill logits."""
+    weights on the CPU (plain versions): ViT features, prefill logits, and
+    the logits of four batched decode steps over left-padded prompts (the
+    ragged decode kernel at head_dim 32 against its plain version)."""
     import torch
     from PIL import Image
 
     from seedx_tpu_torch.inference.apps import _prepare_image_prompt
     from seedx_tpu_torch.inference.runtime import SeedXRuntime
+    from seedx_tpu_torch.models.llama import init_kv_cache
 
     rts = {d: SeedXRuntime.debug(seed=7, device=d, quantization="int4",
-                                 kv_quantization="int8")
+                                 kv_quantization="int8",
+                                 decode_attention="force")
            for d in ("cpu", dev)}
     rts[dev].vit.load_state_dict(rts["cpu"].vit.state_dict())
     rts[dev].agent.load_state_dict(rts["cpu"].agent.state_dict())
     rng = np.random.default_rng(7)
     img = Image.fromarray((rng.random((90, 150, 3)) * 255).astype(np.uint8))
+    tok = rts["cpu"].tokenizer
+    prompts = ["Hi", "Tell me about the red bicycle by the lake.",
+               "What is two plus two?"]
+    p_len, steps = 64, 4
+    ids = np.zeros((3, p_len), np.int64)
+    mask = np.zeros((3, p_len), bool)
+    for i, t in enumerate(prompts):
+        x = [tok.bos_token_id] + tok.encode(t)
+        ids[i, p_len - len(x):] = x
+        mask[i, p_len - len(x):] = True
     res = {}
     for d, rt in rts.items():
-        ids, cmp, emb, ecm, ppos = _prepare_image_prompt(rt, img, "Why?")
+        reset_counts()
+        pr_ids, cmp, emb, ecm, ppos = _prepare_image_prompt(rt, img, "Why?")
         with torch.no_grad():
             pe = rt.agent.embed_with_images(
-                torch.as_tensor(ids, device=d)[None], emb,
+                torch.as_tensor(pr_ids, device=d)[None], emb,
                 torch.as_tensor(cmp, device=d)[None],
                 torch.as_tensor(ecm, device=d), ppos)
-            pos = torch.arange(len(ids), device=d)[None]
+            pos = torch.arange(len(pr_ids), device=d)[None]
             logits, _, _ = rt.agent.llm_step(pe, pos)
-        res[d] = (emb.float().cpu(), logits.float().cpu())
+            # batched decode: prefill 3 left-padded prompts into a cache,
+            # then 4 one-token steps with the same fed tokens on both sides
+            m = torch.as_tensor(mask, device=d)
+            cache = init_kv_cache(rt.agent_cfg.llm, 3, p_len + steps,
+                                  device=d)
+            positions = torch.clamp(torch.cumsum(m.long(), -1) - 1, min=0)
+            valid = torch.cat([m, torch.zeros((3, steps), dtype=torch.bool,
+                                              device=d)], 1)
+            rt.agent.llm_step(rt.agent.embed_ids(torch.as_tensor(
+                ids, device=d)), positions, valid, cache, 0)
+            step_logits = []
+            for n in range(steps):
+                valid[:, p_len + n] = True
+                tok_n = torch.full((3, 1), 300 + 7 * n, device=d)
+                out, _, _ = rt.agent.llm_step(
+                    rt.agent.embed_ids(tok_n), positions[:, -1:] + 1 + n,
+                    valid, cache, p_len + n)
+                step_logits.append(out[:, 0].float().cpu())
+        res[d] = (emb.float().cpu(), logits.float().cpu(),
+                  torch.stack(step_logits))
+        if d != "cpu":
+            launches = read_counts()["decode_attn"]
+            n_layers = rt.agent_cfg.llm.num_layers
+            if launches != n_layers * steps:
+                raise AssertionError(f"tiny stack: decode_attn launched "
+                                     f"{launches} times, want "
+                                     f"{n_layers * steps}")
     worst = 0.0
-    for i, what in enumerate(("vit", "prefill_logits")):
+    for i, what in enumerate(("vit", "prefill_logits", "decode_logits")):
         ref, got = res["cpu"][i], res[dev][i]
         rel = ((got - ref).abs().max() / ref.abs().max()).item()
         worst = max(worst, rel)
@@ -177,21 +441,29 @@ def check_tiny_stack(dev):
     tol = 5e-2
     if not worst <= tol:
         raise AssertionError(f"tiny stack disagrees: {worst:.3e} > {tol}")
-    log(f"tiny stack: ok (tol {tol})")
+    log(f"tiny stack: ok (tol {tol}; decode_attn launched "
+        f"{rts[dev].agent_cfg.llm.num_layers * steps} times in the decode "
+        f"steps)")
 
 
-def run_turn(dev):
-    """Phase 4: the full-width turn through the public entry points."""
+def path_counts(name: str, needed=("flash_fwd", "int4_w4a8", "decode_attn")):
+    """Read the counters after a path and fail unless each kernel it runs
+    was launched."""
+    counts = read_counts()
+    log(f"{name}: launches {json.dumps(counts)}")
+    for k in needed:
+        if counts[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by {name}")
+    return counts
+
+
+def build_runtime(dev):
     import torch
-    from PIL import Image
 
-    from seedx_tpu_torch.inference.apps import comprehend
     from seedx_tpu_torch.inference.runtime import SeedXRuntime
     from seedx_tpu_torch.models.agent import AgentConfig
     from seedx_tpu_torch.models.llama import llama2_13b
     from seedx_tpu_torch.models.vit import qwen_vitg_448
-    from seedx_tpu_torch.ops.flash_attention import flash_fwd
-    from seedx_tpu_torch.ops.int4_matmul import int4_matmul
 
     t0 = time.perf_counter()
     agent_cfg = AgentConfig(
@@ -203,6 +475,22 @@ def run_turn(dev):
     log(f"turn: built ViT-bigG/14-448 bf16 + LLaMA2-13B int4/int8-KV agent "
         f"on the card in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return rt
+
+
+def check_tokens(tokens, vocab_size: int, budget: int) -> None:
+    toks = np.asarray(tokens)
+    if not (toks.size and toks.size <= budget and toks.min() >= 0
+            and toks.max() < vocab_size):
+        raise AssertionError(f"bad token stream {toks[:8]}")
+
+
+def run_turn(rt):
+    """Phase 4: the full-width turn through the public entry points."""
+    import torch
+    from PIL import Image
+
+    from seedx_tpu_torch.inference.apps import comprehend
 
     rng = np.random.default_rng(0)
     images = [Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8))
@@ -212,8 +500,7 @@ def run_turn(dev):
         "[INST] Generate an image: a red bicycle by a lake [/INST]\n<img>")
 
     torch.cuda.reset_peak_memory_stats()
-    flash_fwd.launches = 0
-    int4_matmul.launches = 0
+    reset_counts()
     outs = []
     for i, img in enumerate(images):
         t = {}
@@ -228,21 +515,16 @@ def run_turn(dev):
     t = {}
     gen = rt.generate(img_ids, max_new_tokens=72, timings=t)
     torch.cuda.synchronize()
-    counts = {"flash_fwd": flash_fwd.launches,
-              "int4_w4a8": int4_matmul.launches}
+    counts = path_counts("turn")
     log(f"request 3 generate <img>: prefill {t['prefill'] * 1e3:.1f} ms, "
         f"decode {t['decode'] * 1e3:.1f} ms for {t['decode_tokens']} tokens "
         f"in {t['decode_forwards']} forwards")
     log(f"turn: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"turn: launches {json.dumps(counts)}")
 
     vocab = tok.vocab
     for out in outs:
-        toks = np.asarray(out["tokens"])
-        if not (toks.size and toks.min() >= 0
-                and toks.max() < agent_cfg.llm.vocab_size):
-            raise AssertionError(f"bad token stream {toks[:8]}")
+        check_tokens(out["tokens"], rt.agent_cfg.llm.vocab_size, 32)
     forced = list(range(vocab.img_token_start, vocab.img_token_start + 64))
     if list(gen["tokens"][:65]) != forced + [vocab.eoi]:
         raise AssertionError("the <img> request did not emit the forced span")
@@ -253,10 +535,283 @@ def run_turn(dev):
                              f"{None if feat is None else feat.shape}")
     log(f"turn: outputs ok (token ids in range, forced span, img_gen_feat "
         f"{tuple(feat.shape)} finite)")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the turn")
     return counts
+
+
+def engine_line(name, n_req, n_tok, wall, ms_step, counts) -> None:
+    import torch
+
+    log(f"{name}: {n_req} requests, {n_tok} generated tokens in "
+        f"{wall:.2f} s ({n_tok / wall:.2f} tok/s), decode {ms_step}, "
+        f"decode_attn launches {counts['decode_attn']}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def run_serving(rt):
+    """Phase 5: the serving engines at full width on the turn's runtime."""
+    import base64
+    import io
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+    from PIL import Image
+
+    from seedx_tpu_torch.inference import continuous, serving
+    from seedx_tpu_torch.inference.apps import _prepare_image_prompt
+    from seedx_tpu_torch.inference.server import SeedXServer
+
+    vocab_size = rt.agent_cfg.llm.vocab_size
+    rng = np.random.default_rng(1)
+    images = [Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8))
+              for w, h in ((448, 448), (896, 448), (448, 896), (896, 896))]
+    tok = rt.tokenizer
+    questions = ["Describe the image.", "What colors do you see?",
+                 "Is there a person?", "What is in the corner?"]
+    texts = ["Write a short poem about the sea.",
+             "What is the capital of France?", "List three colors.",
+             "Explain in one sentence why the sky is blue."]
+    raw = [[tok.bos_token_id] + tok.encode(f"[INST] {t} [/INST]\n")
+           for t in texts]
+    totals = {k: 0 for k in read_counts()}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] += n
+
+    # -- ServingEngine: one flush of 8 requests, bucket groups of <= 8
+    groups = []
+    base_generate = serving.generate_batch
+
+    def timed_generate(model, tokenizer, requests, gen_cfg=None):
+        t = {}
+        out = base_generate(model, tokenizer, requests, gen_cfg=gen_cfg,
+                            timings=t)
+        groups.append((len(requests), t))
+        return out
+
+    serving.generate_batch = timed_generate
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        eng = serving.ServingEngine(rt, max_batch_size=8, max_new_tokens=32)
+        for img, q in zip(images, questions):
+            eng.submit_comprehend(img, q)
+        for ids in raw:
+            eng.submit_raw({"input_ids": ids})
+        outs = eng.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        serving.generate_batch = base_generate
+    add(path_counts("serving batched"))
+    for out in outs:
+        check_tokens(out["tokens"], vocab_size, 32)
+    steps = ", ".join(f"B{b} {t['decode'] / t['decode_forwards'] * 1e3:.2f} "
+                      f"ms/step over {t['decode_forwards']} steps"
+                      for b, t in groups)
+    engine_line("serving batched", len(outs),
+                sum(len(o["tokens"]) for o in outs), wall, steps,
+                read_counts())
+
+    # -- ContinuousEngine: 8 slots, 16 requests with budgets 8..64
+    requests = []
+    for img, q in zip(images, questions):
+        ids, cm, emb, ecm, pp = _prepare_image_prompt(rt, img, q)
+        requests.append({"input_ids": ids, "image_embeds": emb,
+                         "embeds_cmp_mask": ecm, "ids_cmp_mask": cm,
+                         "patch_positions": pp})
+    requests += [{"input_ids": ids} for ids in raw]
+    requests = requests * 2
+    budgets = [8 + (56 * i) // 15 for i in range(16)]
+    decode = {"s": 0.0, "steps": 0}
+    base_chunk = continuous._decode_chunk
+
+    def timed_chunk(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n = base_chunk(*a, **kw)
+        torch.cuda.synchronize()
+        decode["s"] += time.perf_counter() - t1
+        decode["steps"] += n
+        return n
+
+    streams = {}
+    continuous._decode_chunk = timed_chunk
+    try:
+        for paged in (False, True):
+            name = f"serving continuous {'paged' if paged else 'dense'}"
+            decode.update(s=0.0, steps=0)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            eng = continuous.ContinuousEngine(
+                rt, slots=8, max_new_tokens=128, chunk_steps=16,
+                prompt_buckets=(128, 256, 512), paged=paged, page_size=128)
+            ids = [eng.submit(r, max_new_tokens=b)
+                   for r, b in zip(requests, budgets)]
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            add(path_counts(name))
+            streams[paged] = [list(res[i]["tokens"]) for i in ids]
+            for s_, b in zip(streams[paged], budgets):
+                check_tokens(s_, vocab_size, b)
+            st = eng.stats()
+            engine_line(name, len(ids), sum(map(len, streams[paged])), wall,
+                        f"B8 {decode['s'] / decode['steps'] * 1e3:.2f} "
+                        f"ms/step over {decode['steps']} steps in "
+                        f"{st['chunks']} chunks", read_counts())
+            if paged and st["kv_tiles_free"] != st["kv_tiles_total"]:
+                raise AssertionError(f"paged pool leaked pages: {st}")
+            del eng
+    finally:
+        continuous._decode_chunk = base_chunk
+    if streams[True] != streams[False]:
+        bad = [i for i, (a, b) in enumerate(zip(streams[True],
+                                                streams[False])) if a != b]
+        raise AssertionError(f"paged token streams differ from dense at "
+                             f"requests {bad}")
+    log("serving continuous: paged token streams equal dense for all 16 "
+        "requests; every page returned to the pool")
+
+    for slots in (1, 8):
+        profile_decode(rt, requests, slots)
+
+    # -- SeedXServer: 4 concurrent POSTs on 127.0.0.1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    server = SeedXServer(rt, max_batch_size=8, max_new_tokens=16)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler())
+    serve_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serve_thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    buf = io.BytesIO()
+    images[1].save(buf, format="PNG")
+    img_b64 = base64.b64encode(buf.getvalue()).decode("ascii")
+    bodies = [("/v1/comprehend", {"image": img_b64, "question": q})
+              for q in questions[:2]]
+    bodies += [("/v1/raw", {"input_ids": ids}) for ids in raw[:2]]
+    replies = {}
+
+    def post(i, path, body):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            replies[i] = (r.status, json.loads(r.read()))
+
+    t0 = time.perf_counter()
+    posts = [threading.Thread(target=post, args=(i, p, b))
+             for i, (p, b) in enumerate(bodies)]
+    try:
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join(300)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = server.stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+        serve_thread.join(60)
+    add(path_counts("serving http"))
+    if sorted(replies) != [0, 1, 2, 3] or any(
+            s != 200 or not isinstance(r.get("text"), str)
+            for s, r in replies.values()):
+        raise AssertionError(f"http replies: {replies}")
+    log(f"serving http: 4 concurrent POSTs answered 200 in {wall:.2f} s "
+        f"in {stats['batches']} engine batches, decode_attn launches "
+        f"{read_counts()['decode_attn']}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; server stats "
+        f"{json.dumps(stats)}")
+    return totals
+
+
+def profile_decode(rt, requests, slots: int) -> None:
+    """Device busy share of a steady decode window: one 16-step chunk of
+    the continuous engine with every slot live and nothing waiting, under
+    torch.profiler (its own overhead lengthens the wall time, so the share
+    is a lower bound)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from seedx_tpu_torch.inference.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(rt, slots=slots, max_new_tokens=128,
+                           chunk_steps=16, prompt_buckets=(128, 256, 512))
+    for r in requests[:slots]:
+        eng.submit(r, max_new_tokens=64)
+    eng.step()             # admission and a first chunk, outside the window
+    before = eng.stats()["decode_steps"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    steps = eng.stats()["decode_steps"] - before
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        log(f"profile B{slots} decode: the profiler saw no device events; "
+            f"busy share not measured")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"profile B{slots} decode: {steps} steps, {wall:.1f} ms wall "
+        f"(profiled), device busy {busy:.1f} ms = {100 * busy / wall:.1f}%, "
+        f"{len(events) / steps:.0f} device events per step; top: "
+        + "; ".join(f"{name[:48]} {t:.2f} ms x{n}"
+                    for name, (t, n) in top))
+
+
+def build_kernels():
+    """Phase 2: one nvcc per source, all started together."""
+    from seedx_tpu_torch.ops import _build
+    from seedx_tpu_torch.ops import decode_attention as da
+    from seedx_tpu_torch.ops import flash_attention as fa
+    from seedx_tpu_torch.ops import int4_matmul as i4
+
+    libs = {"flash_fwd": fa.library, "int4_w4a8": i4.library,
+            "decode_attn": da.library}
+    errors = {}
+
+    def build(name):
+        try:
+            libs[name]()
+        except Exception as e:   # reported below; the run then fails
+            errors[name] = e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(n,)) for n in libs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError(f"kernel build failed: {errors}")
+    log(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name in libs:
+        secs, report = _build.build_log[name]
+        regs = sorted({ln.split(":", 1)[1].strip() for ln in
+                       report.splitlines() if "registers" in ln})
+        spills = sum(int(ln.split("bytes spill stores")[0].split(",")[-1])
+                     for ln in report.splitlines()
+                     if "bytes spill stores" in ln)
+        log(f"build {name}: nvcc {secs:.2f} s; {len(regs)} kernel variants"
+            f"{'; ' + ' | '.join(regs) if regs else ' (cached)'}; spill "
+            f"stores {spills} bytes in all")
 
 
 def main() -> int:
@@ -274,39 +829,39 @@ def main() -> int:
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
-    from seedx_tpu_torch.ops import _build
-    from seedx_tpu_torch.ops import flash_attention as fa
-    from seedx_tpu_torch.ops import int4_matmul as i4
-
-    for name, lib in (("flash_fwd", fa.library), ("int4_w4a8", i4.library)):
-        t0 = time.perf_counter()
-        lib()
-        secs, report = _build.build_log[name]
-        regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
-        log(f"build {name}: {time.perf_counter() - t0:.2f} s "
-            f"(nvcc {secs:.2f} s; {'; '.join(regs) or 'cached'})")
-
+    build_kernels()
     rows = check_kernels(dev)
-    if not all(ok for _, ok, *_ in rows):
+    if not all(r["ok"] for r in rows):
         raise AssertionError("a kernel disagrees with its plain version")
     check_tiny_stack(dev)
 
-    counts = run_turn(dev)
+    rt = build_runtime(dev)
+    launches = run_turn(rt)
+    for k, n in run_serving(rt).items():
+        launches[k] += n
 
     kernels = []
-    for name, source, replaces in (
-            ("flash_fwd", "seedx_tpu_torch/csrc/flash_fwd.cu",
-             "seedx_tpu/ops/flash_attention.py:43"),
-            ("int4_w4a8", "seedx_tpu_torch/csrc/int4_w4a8.cu",
-             "seedx_tpu/ops/int4_matmul.py:49")):
-        mine = [r for r in rows if r[0] == name]
+    for name, source, replaces in KERNELS:
+        mine = [r for r in rows if r["kernel"] == name]
+        lib = [r for r in mine if r["library_ms"] is not None]
+        b_bytes = sum(r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
+        b_ops = sum(r["bound_ms"] for r in mine
+                    if r["bound_by"] == "operations")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": max(r[2] for r in mine),
-            "ms": sum(r[3] for r in mine),
-            "plain_ms": sum(r[4] for r in mine)})
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["err"] for r in mine),
+            "ms": sum(r["ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": b_bytes + b_ops,
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": sum(r["library_ms"] for r in lib) if lib else None,
+            "library_shapes": [r["shape"] for r in lib],
+            "shapes": len(mine)})
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Inference apps (reference: seedx_tpu/inference/apps.py): the image-in
-comprehension turn.  ``ground``, ``text_to_image``, ``edit_image`` and the
-reconstruction apps need the SDXL adapter and are not ported yet.
+comprehension turn and grounding (``comprehend`` plus box parsing and
+drawing).  ``text_to_image``, ``edit_image`` and the reconstruction apps
+need the SDXL adapter and are not ported yet.
 """
 
 from __future__ import annotations
@@ -50,4 +51,33 @@ def comprehend(rt: SeedXRuntime, image, question: str,
                       ids_cmp_mask=cmp_mask, patch_positions=ppos,
                       max_new_tokens=max_new_tokens, timings=timings)
     out["clean_text"] = prompts.strip_markup(out["text"])
+    return out
+
+
+def draw_boxes(image, boxes_pixels, width: int = 2):
+    """Render pixel corner boxes onto a copy of the image (green, 2px --
+    reference: eval_img2text_seed_x_i.py:16-36 ``visualize_bbox``)."""
+    from PIL import ImageDraw
+
+    vis = image.copy()
+    drawer = ImageDraw.Draw(vis)
+    for (x1, y1, x2, y2) in boxes_pixels:
+        drawer.rectangle([x1, y1, x2, y2], outline=(0, 255, 0), width=width)
+    return vis
+
+
+def ground(rt: SeedXRuntime, image, question: str,
+           max_new_tokens: int = 512,
+           timings: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
+    """Comprehension + bounding-box extraction + box rendering
+    (reference: eval_img2text_seed_x_i.py:182-231)."""
+    out = comprehend(rt, image, question, max_new_tokens=max_new_tokens,
+                     timings=timings)
+    boxes = prompts.extract_boxes(out["text"])
+    out["boxes"] = boxes
+    out["boxes_image"] = None
+    if boxes is not None:
+        w, h = image.size
+        out["boxes_pixels"] = prompts.boxes_to_pixels(boxes, w, h)
+        out["boxes_image"] = draw_boxes(image, out["boxes_pixels"])
     return out

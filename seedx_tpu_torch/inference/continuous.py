@@ -1,0 +1,461 @@
+"""Continuous (slot-based) batching: rolling admission into a live decode
+(reference: seedx_tpu/inference/continuous.py, its default non-fused
+path).
+
+``ServingEngine.flush`` batches, but every request of a batch starts and
+finishes together, so one long answer holds the whole batch.  This engine
+keeps a fixed pool of B *slots*:
+
+  * each slot owns rows of one preallocated KV cache sized
+    ``max(prompt_buckets) + max_new_tokens`` -- or, with ``paged=True``, a
+    shared pool of fixed-size pages and a per-slot block table, so a
+    request holds only ``ceil((p_len + budget) / page)`` pages;
+  * prompts prefill, right-padded to a prompt bucket, into a fresh
+    mini-cache that is copied into a free slot's rows (or pages);
+  * decode advances every slot together in chunks of up to
+    ``chunk_steps`` steps; each row has its own position, cache depth and
+    kv window ``[0, pos]``, so the one-token step reads each row's window
+    only (the ragged decode kernel; paged through the block tables);
+  * finished rows freeze (their writes land in their own rows, or, once
+    harvested, in the reserved dump page 0) and are harvested and refilled
+    between chunks.
+
+Greedy by default; ``do_sample`` draws from a ``torch.Generator`` seeded
+with ``seed`` (the JAX engine's ``jax.random`` stream gives other numbers).
+Not ported yet: fused (chunked) prefill (``fused_prefill``, which needs
+the ragged kernel's multi-query mode) and ``warmup``, which only
+precompiles XLA programs.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from seedx_tpu_torch.models.generation import (GenerationConfig, _sample,
+                                               _trim_and_spans, build_result,
+                                               constrain_image_tokens)
+from seedx_tpu_torch.models.llama import init_kv_cache, init_paged_kv_pool
+
+
+@torch.no_grad()
+def _prefill(model, embeds, p_lens, bucket: int):
+    """Right-padded prompts [b, bucket, D] -> (mini_cache [L, b, bucket,
+    ...], last_logits [b, V] fp32, last_hidden [b, D]): one forward for
+    every admitted request of a bucket."""
+    b = embeds.shape[0]
+    dev = embeds.device
+    cache = init_kv_cache(model.cfg.llm, b, bucket, device=dev)
+    positions = torch.arange(bucket, device=dev).repeat(b, 1)
+    kv_valid = torch.arange(bucket, device=dev)[None, :] < p_lens[:, None]
+    logits, hidden, _ = model.llm_step(embeds, positions, kv_valid, cache, 0)
+    rows = torch.arange(b, device=dev)
+    last = p_lens.long() - 1
+    return cache, logits[rows, last].float(), hidden[rows, last]
+
+
+def _arm(state, row: int, p_len: int, last_logits, last_hidden,
+         last_token: int, budget: int) -> None:
+    """Point slot ``row`` at a freshly prefilled request."""
+    state["pos"][row] = p_len
+    state["n"][row] = 0
+    state["prev_logits"][row] = last_logits
+    state["prev_hidden"][row] = last_hidden
+    state["prev_token"][row] = last_token
+    state["running"][row] = True
+    state["budget"][row] = budget
+    state["out_tokens"][row] = 0
+
+
+def _admit(state, row, mini_cache, src_row, p_len, last_logits, last_hidden,
+           last_token, budget) -> None:
+    """Copy row ``src_row`` of a prefill mini-cache into slot ``row``
+    (positions [0, bucket)) and arm the slot."""
+    bucket = mini_cache[0].shape[2]
+    for big, mini in zip(state["cache"], mini_cache):
+        big[:, row, :bucket] = mini[:, src_row]
+    _arm(state, row, p_len, last_logits[src_row], last_hidden[src_row],
+         last_token, budget)
+
+
+def _admit_paged(state, row, mini_cache, src_row, p_len, last_logits,
+                 last_hidden, last_token, budget, tile_ids, page: int
+                 ) -> None:
+    """Paged admission: copy the prefilled mini-cache into pool pages and
+    point slot ``row``'s block table at them.  ``tile_ids`` [s_max // page]
+    covers the slot's whole logical range; entries the request does not
+    need hold 0, the reserved dump page.  Pages beyond the prompt bucket
+    stay as they are: decode writes each position before its window
+    exposes it."""
+    bucket = mini_cache[0].shape[2]
+    dev = state["pos"].device
+    tiles = torch.as_tensor(np.asarray(tile_ids), dtype=torch.int32,
+                            device=dev)
+    n_copy = bucket // page
+    rows = (tiles[:n_copy, None].long() * page
+            + torch.arange(page, device=dev)).reshape(-1)
+    for pool, mini in zip(state["cache"], mini_cache):
+        pool[:, rows] = mini[:, src_row, :n_copy * page]
+    state["tables"][row] = tiles
+    _arm(state, row, p_len, last_logits[src_row], last_hidden[src_row],
+         last_token, budget)
+
+
+@torch.no_grad()
+def _decode_chunk(model, state, gen_cfg: GenerationConfig, vocab, k: int,
+                  s_max: int, generator: Optional[torch.Generator] = None
+                  ) -> int:
+    """Advance every running slot by up to ``k`` steps (all slots run the
+    forward; frozen rows compute masked garbage).  Returns the steps
+    run."""
+    b, t = state["out_tokens"].shape
+    n_img = gen_cfg.num_img_gen_tokens
+    dev = state["pos"].device
+    rows = torch.arange(b, device=dev)
+    span = torch.arange(s_max, device=dev)
+    steps = 0
+    while steps < k and bool(state["running"].any()):
+        running = state["running"]
+        constrained = constrain_image_tokens(
+            state["prev_token"], state["prev_logits"], vocab, n_img)
+        token = _sample(constrained, gen_cfg, generator)
+        token = torch.where(running, token, gen_cfg.pad_token_id)
+
+        # collect (read-modify-write so frozen rows keep their cells)
+        n_w = torch.clamp(state["n"], max=t - 1)
+        cur_tok = state["out_tokens"][rows, n_w]
+        state["out_tokens"][rows, n_w] = torch.where(running, token, cur_tok)
+        cur_hid = state["out_hidden"][rows, n_w]
+        state["out_hidden"][rows, n_w] = torch.where(
+            running[:, None], state["prev_hidden"], cur_hid)
+
+        ended = token == gen_cfg.eos_token_id
+        n_new = torch.where(running, state["n"] + 1, state["n"])
+        still = running & ~ended & (n_new < state["budget"])
+
+        pos = state["pos"]
+        kv_valid = span[None, :] <= pos[:, None]
+        # a frozen row may sit at pos == s_max; its garbage write stays in
+        # range (its own last row, or the dump page once harvested)
+        logits, hidden, _ = model.llm_step(
+            model.embed_ids(token[:, None]), pos[:, None], kv_valid,
+            state["cache"], torch.clamp(pos, max=s_max - 1),
+            block_tables=state.get("tables"))
+
+        keep = running[:, None]
+        state["prev_logits"] = torch.where(keep, logits[:, 0].float(),
+                                           state["prev_logits"])
+        state["prev_hidden"] = torch.where(keep, hidden[:, 0],
+                                           state["prev_hidden"])
+        state["prev_token"] = torch.where(running, token,
+                                          state["prev_token"])
+        state["n"] = n_new
+        state["running"] = still
+        state["pos"] = torch.where(running, pos + 1, pos)
+        steps += 1
+    return steps
+
+
+class ContinuousEngine:
+    """Rolling-admission decode over a fixed slot pool.
+
+    Usage::
+
+        eng = ContinuousEngine(rt, slots=8, max_new_tokens=256)
+        ids = [eng.submit(req) for req in requests]   # generate_batch schema
+        results = eng.run()                           # {id: result dict}
+
+    ``submit`` may also be called between ``eng.step()`` calls: requests
+    admit into slots as they free.
+    """
+
+    def __init__(self, rt, slots: int = 8, max_new_tokens: int = 256,
+                 chunk_steps: int = 16,
+                 prompt_buckets=(128, 256, 512, 1024),
+                 do_sample: bool = False, temperature: float = 0.7,
+                 top_p: float = 0.5, seed: int = 0,
+                 paged: bool = False, page_size: int = 128,
+                 pool_tokens: int = 0):
+        """``paged=True`` replaces the dense per-slot KV reservation
+        (slots x (max bucket + max_new_tokens) rows) with a shared pool of
+        ``page_size``-row pages and per-slot block tables; ``pool_tokens``
+        (default: the dense footprint) sizes it.  Needs an int4 agent with
+        ``decode_attention`` on (the ragged kernel reads the pages)."""
+        self.rt = rt
+        self.model = rt.agent
+        self.vocab = rt.tokenizer.vocab
+        self.gen_cfg = GenerationConfig(
+            max_new_tokens=max_new_tokens,
+            num_img_gen_tokens=rt.agent_cfg.num_img_out_tokens,
+            eos_token_id=rt.tokenizer.eos_token_id,
+            pad_token_id=rt.tokenizer.pad_token_id,
+            prompt_buckets=tuple(prompt_buckets),
+            do_sample=do_sample, temperature=temperature, top_p=top_p)
+        self.slots = slots
+        self.chunk_steps = chunk_steps
+        self._pending: List[tuple] = []     # (req_id, request, budget)
+        self._slot_req: List[Optional[int]] = [None] * slots
+        self._results: Dict[int, Dict[str, Any]] = {}
+        self._count = 0
+        self._completed = 0
+        self._generated_tokens = 0
+        self._chunks = 0
+        self._steps = 0
+
+        cfg = self.model.cfg.llm
+        dev = next(self.model.buffers()).device
+        self.device = dev
+        self._generator = None
+        if do_sample:
+            self._generator = torch.Generator(device=dev)
+            self._generator.manual_seed(seed)
+        t = max_new_tokens
+        s_max = max(self.gen_cfg.prompt_buckets) + t
+        self._s_max = s_max
+        self.paged = paged
+        if paged:
+            if cfg.quantization != "int4" or cfg.decode_attention == "never":
+                raise ValueError("paged KV requires quantization='int4' "
+                                 "with decode_attention on")
+            if s_max % page_size or any(b % page_size
+                                        for b in self.gen_cfg.prompt_buckets):
+                raise ValueError("page_size must divide every prompt bucket "
+                                 "and max bucket + max_new_tokens")
+            self.page = page_size
+            n_tiles = max(pool_tokens or slots * s_max, 2 * page_size
+                          ) // page_size
+            self._pool_tiles = n_tiles
+            # tile 0 is the reserved dump target for unused copy slots
+            self._free_tiles = list(range(1, n_tiles))
+            self._slot_tiles: List[Optional[list]] = [None] * slots
+            cache = init_paged_kv_pool(cfg, n_tiles * page_size, device=dev)
+        else:
+            cache = init_kv_cache(cfg, slots, s_max, device=dev)
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.state = {
+            "cache": cache,
+            "pos": torch.zeros((slots,), **i64),
+            "n": torch.zeros((slots,), **i64),
+            "prev_logits": torch.zeros((slots, cfg.vocab_size),
+                                       dtype=torch.float32, device=dev),
+            "prev_hidden": torch.zeros((slots, cfg.hidden_size),
+                                       dtype=cfg.dtype, device=dev),
+            "prev_token": torch.full((slots,), self.gen_cfg.pad_token_id,
+                                     **i64),
+            "running": torch.zeros((slots,), dtype=torch.bool, device=dev),
+            "budget": torch.full((slots,), t, **i64),
+            "out_tokens": torch.zeros((slots, t), **i64),
+            "out_hidden": torch.zeros((slots, t, cfg.hidden_size),
+                                      dtype=cfg.dtype, device=dev),
+        }
+        if paged:
+            self.state["tables"] = torch.zeros(
+                (slots, s_max // page_size), dtype=torch.int32, device=dev)
+
+    # ---- submission ------------------------------------------------------
+
+    def submit(self, request: Dict[str, Any],
+               max_new_tokens: Optional[int] = None) -> int:
+        """Queue a request (generate_batch schema); returns its id.
+        ``max_new_tokens`` caps THIS request (<= the engine-wide budget):
+        rows with small budgets free their slots early."""
+        max_bucket = max(self.gen_cfg.prompt_buckets)
+        if len(request["input_ids"]) > max_bucket:
+            raise ValueError(
+                f"prompt length {len(request['input_ids'])} exceeds the "
+                f"largest prompt bucket {max_bucket}")
+        rid = self._count
+        self._count += 1
+        budget = min(max_new_tokens or self.gen_cfg.max_new_tokens,
+                     self.gen_cfg.max_new_tokens)
+        if self.paged:
+            n_t = self._tiles_needed(request, budget)
+            if n_t > self._pool_tiles - 1:
+                raise ValueError(
+                    f"request needs {n_t} KV tiles but the pool has "
+                    f"{self._pool_tiles - 1}; raise pool_tokens")
+        self._pending.append((rid, request, budget))
+        return rid
+
+    # ---- internals -------------------------------------------------------
+
+    def _prefill_group(self, requests, bucket):
+        """One prefill for every request of a prompt bucket; prompts are
+        right-padded (every slot row starts its cache at 0)."""
+        b = len(requests)
+        dev = self.device
+        pad_id = self.gen_cfg.pad_token_id
+        ids_padded = np.full((b, bucket), pad_id, np.int64)
+        cmp_padded = np.zeros((b, bucket), bool)
+        p_lens = np.ones((b,), np.int64)
+        any_cmp = False
+        img_parts, ecm_parts, pp_parts = [], [], []
+        for i, r in enumerate(requests):
+            ids = r["input_ids"]
+            p = len(ids)
+            ids_padded[i, :p] = np.asarray(ids, np.int64)
+            p_lens[i] = p
+            cm = r.get("ids_cmp_mask")
+            if cm is not None:
+                cmp_padded[i, :p] = np.asarray(cm, bool)
+                any_cmp = True
+            if r.get("image_embeds") is not None:
+                img_parts.append(torch.as_tensor(r["image_embeds"],
+                                                 device=dev))
+                ecm_parts.append(np.asarray(r["embeds_cmp_mask"], bool))
+                pp_parts.append(r.get("patch_positions"))
+        image_embeds = torch.cat(img_parts) if img_parts else None
+        ecm = (torch.as_tensor(np.concatenate(ecm_parts), device=dev)
+               if ecm_parts else None)
+        ppos = None
+        if img_parts and any(p is not None for p in pp_parts):
+            # requests without patch positions get the thumbnail's center
+            ppos = torch.cat([
+                torch.as_tensor(p, dtype=torch.float32, device=dev)
+                if p is not None
+                else torch.full((img.shape[0], 2), 0.5, device=dev)
+                for p, img in zip(pp_parts, img_parts)])
+        with torch.no_grad():
+            embeds = self.model.embed_with_images(
+                torch.as_tensor(ids_padded, device=dev), image_embeds,
+                torch.as_tensor(cmp_padded, device=dev) if any_cmp else None,
+                ecm, ppos)
+        return _prefill(self.model, embeds,
+                        torch.as_tensor(p_lens, device=dev), bucket)
+
+    def _tiles_needed(self, request, budget) -> int:
+        return -(-(len(request["input_ids"]) + budget) // self.page)
+
+    def _admit_pending(self):
+        free = [i for i, r in enumerate(self._slot_req) if r is None]
+        if not free or not self._pending:
+            return
+        take, self._pending = (self._pending[:len(free)],
+                               self._pending[len(free):])
+        if self.paged:
+            # best-effort FCFS: defer requests the page pool can't hold yet
+            # (their pages free as running slots harvest)
+            admitted, deferred, avail = [], [], len(self._free_tiles)
+            for item in take:
+                n_t = self._tiles_needed(item[1], item[2])
+                if n_t <= avail:
+                    avail -= n_t
+                    admitted.append(item)
+                else:
+                    deferred.append(item)
+            self._pending = deferred + self._pending
+            take = admitted
+        by_bucket: Dict[int, list] = {}
+        for item in take:
+            p_len = len(item[1]["input_ids"])
+            bucket = next((x for x in self.gen_cfg.prompt_buckets
+                           if x >= p_len), p_len)
+            by_bucket.setdefault(bucket, []).append(item)
+        for bucket, items in by_bucket.items():
+            minis, lgs, lhs = self._prefill_group([r for _, r, _ in items],
+                                                  bucket)
+            for j, (rid, request, budget) in enumerate(items):
+                row = free.pop(0)
+                args = (self.state, row, minis, j, len(request["input_ids"]),
+                        lgs, lhs, int(request["input_ids"][-1]), budget)
+                if self.paged:
+                    n_t = self._tiles_needed(request, budget)
+                    tiles = [self._free_tiles.pop() for _ in range(n_t)]
+                    self._slot_tiles[row] = tiles
+                    ids = np.zeros((self._s_max // self.page,), np.int32)
+                    ids[:n_t] = tiles
+                    _admit_paged(*args, ids, page=self.page)
+                else:
+                    _admit(*args)
+                self._slot_req[row] = rid
+
+    def _harvest(self):
+        running = self.state["running"].cpu().numpy()
+        done_rows = [i for i, rid in enumerate(self._slot_req)
+                     if rid is not None and not running[i]]
+        if not done_rows:
+            return
+        n = self.state["n"].cpu().numpy()
+        # a copy: on the CPU .numpy() would alias the live state, which the
+        # slot's next request overwrites
+        out_tokens = self.state["out_tokens"].cpu().numpy().copy()
+        n_img = self.gen_cfg.num_img_gen_tokens
+        span_list = []
+        rows_meta = []
+        for i in done_rows:
+            tokens, eoi = _trim_and_spans(out_tokens[i, :n[i]], self.gen_cfg,
+                                          self.vocab)
+            rows_meta.append((i, tokens, eoi))
+            span_list.extend((i, j) for j in eoi)
+        img_gen_all = None
+        if span_list:
+            spans = torch.stack([self.state["out_hidden"][i, j - n_img:j]
+                                 for i, j in span_list])
+            with torch.no_grad():
+                img_gen_all = self.model.decode_image_feats(spans)
+        consumed = 0
+        for i, tokens, eoi in rows_meta:
+            feat = None
+            if eoi:
+                feat = img_gen_all[consumed:consumed + len(eoi)]
+                consumed += len(eoi)
+            self._results[self._slot_req[i]] = build_result(
+                tokens, eoi, feat, self.rt.tokenizer, self.vocab, n_img)
+            self._slot_req[i] = None
+            self._completed += 1
+            self._generated_tokens += len(tokens)
+            if self.paged and self._slot_tiles[i]:
+                self._free_tiles.extend(self._slot_tiles[i])
+                self._slot_tiles[i] = None
+        if self.paged:
+            # retarget harvested rows at the dump page: a frozen slot keeps
+            # issuing (masked-garbage) KV writes every chunk, and its freed
+            # pages may go to a live request before this slot is re-admitted
+            self.state["tables"][done_rows] = 0
+
+    # ---- driving ---------------------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        """Engine counters (host values only: reading them never waits on
+        the device)."""
+        out = {"submitted": self._count,
+               "pending": len(self._pending),
+               "active_slots": sum(r is not None for r in self._slot_req),
+               "slots": self.slots,
+               "completed": self._completed,
+               "generated_tokens": self._generated_tokens,
+               "chunks": self._chunks,
+               "decode_steps": self._steps}
+        if self.paged:
+            out["kv_tiles_free"] = len(self._free_tiles)
+            out["kv_tiles_total"] = self._pool_tiles - 1
+        return out
+
+    def step(self) -> int:
+        """Admit -> one decode chunk -> harvest.  Returns #results ready."""
+        self._admit_pending()
+        if any(r is not None for r in self._slot_req):
+            self._steps += _decode_chunk(
+                self.model, self.state, self.gen_cfg, self.vocab,
+                self.chunk_steps, self._s_max, self._generator)
+            self._chunks += 1
+        self._harvest()
+        return len(self._results)
+
+    def run(self) -> Dict[int, Dict[str, Any]]:
+        """Drain the queue; returns {request_id: result}."""
+        while self._pending or any(r is not None for r in self._slot_req):
+            before_pending = len(self._pending)
+            before_chunks = self._chunks
+            self.step()
+            if (len(self._pending) == before_pending and before_pending
+                    and self._chunks == before_chunks):
+                # nothing admitted AND nothing ran: the pool can never
+                # satisfy the head request (submit() bounds single
+                # requests, so this is sizing/fragmentation)
+                raise RuntimeError(
+                    "paged KV pool too small to admit pending requests")
+        out, self._results = self._results, {}
+        return out

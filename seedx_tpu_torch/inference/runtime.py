@@ -1,12 +1,13 @@
 """SeedXRuntime: tokenizer, image transform, ViT and agent bundled once
 (reference: seedx_tpu/inference/runtime.py).
 
-``SeedXRuntime.debug()`` builds the tiny random stack so the apps run
-anywhere; ``SeedXRuntime.random()`` builds any configuration with random
-weights made on the device from a seed, quantizing the int4 agent one
-layer at a time so no full-precision 13B tree ever exists.  Loading
-released checkpoints (``from_checkpoints`` / ``from_pretrained``) and the
-SDXL adapter are not ported yet.
+``SeedXRuntime.debug()`` builds the tiny random stack;
+``SeedXRuntime.random()`` builds any configuration with random weights
+made on the device from a seed, quantizing the int4 agent one layer at a
+time so no full-precision 13B tree ever exists.  Both build on the card
+(``cuda``) unless the caller passes ``device="cpu"``.  Loading released
+checkpoints (``from_checkpoints`` / ``from_pretrained``) and the SDXL
+adapter are not ported yet (``adapter`` stays None).
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from seedx_tpu_torch.data.anyres import (grid_pinpoints_from_strings,
                                          process_anyres_image)
 from seedx_tpu_torch.data.transforms import get_transform
 from seedx_tpu_torch.models.agent import AgentConfig, ContinuousLVLM
-from seedx_tpu_torch.models.generation import GenerationConfig, generate
+from seedx_tpu_torch.models.generation import (GenerationConfig, generate,
+                                               generate_batch)
 from seedx_tpu_torch.models.layers import init_normal_
 from seedx_tpu_torch.models.llama import llama_debug
 from seedx_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
@@ -46,14 +48,16 @@ class SeedXRuntime:
     # Pad every anyres tile stack up to the next bucket before the ViT
     # runs (fewer distinct shapes); callers see exact shapes either way.
     tile_buckets: Optional[Sequence[int]] = None
+    adapter: Any = None        # the SDXL adapter (image out): not ported
 
     # ---- constructors ------------------------------------------------------
 
     @classmethod
     def random(cls, vit_cfg: ViTConfig, agent_cfg: AgentConfig,
-               seed: int = 0, device=None, **kw) -> "SeedXRuntime":
-        """Random weights from ``seed``, drawn on ``device``."""
-        device = torch.device(device or "cpu")
+               seed: int = 0, device="cuda", **kw) -> "SeedXRuntime":
+        """Random weights from ``seed``, drawn on ``device`` (the card
+        unless the caller asks for ``"cpu"``)."""
+        device = torch.device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         vit = init_normal_(VisionTransformer(vit_cfg, device).eval(), gen)
@@ -65,16 +69,18 @@ class SeedXRuntime:
 
     @classmethod
     def debug(cls, seed: int = 0, image_size: int = 56,
-              dtype: torch.dtype = torch.bfloat16, device=None,
-              quantization: str = "none",
-              kv_quantization: str = "none") -> "SeedXRuntime":
-        """Tiny random stack with the JAX package's ``debug()`` geometry."""
+              dtype: torch.dtype = torch.bfloat16, device="cuda",
+              quantization: str = "none", kv_quantization: str = "none",
+              decode_attention: str = "auto") -> "SeedXRuntime":
+        """Tiny random stack with the JAX package's ``debug()`` geometry,
+        on the card unless ``device="cpu"``."""
         vit_cfg = vit_tiny_debug(image_size=image_size, output_dim=64,
                                  dtype=dtype)
         llm_cfg = llama_debug(hidden_size=128, intermediate_size=256,
                               num_layers=2, num_heads=4, num_kv_heads=4,
                               dtype=dtype, quantization=quantization,
-                              kv_quantization=kv_quantization)
+                              kv_quantization=kv_quantization,
+                              decode_attention=decode_attention)
         agent_cfg = AgentConfig(llm=llm_cfg, vit_dim=64, resampler_heads=4,
                                 num_img_in_tokens=64,
                                 num_img_out_tokens=vit_cfg.n_queries,
@@ -142,3 +148,17 @@ class SeedXRuntime:
                         ids_cmp_mask=ids_cmp_mask,
                         patch_positions=patch_positions, gen_cfg=gen_cfg,
                         generator=generator, timings=timings)
+
+    def generate_batch(self, requests, max_new_tokens: int = 512,
+                       generator: Optional[torch.Generator] = None,
+                       timings: Optional[Dict[str, float]] = None, **kw):
+        """Batched serving: one prefill + decode loop over many request
+        dicts (schema: ``models/generation.generate_batch``)."""
+        gen_cfg = GenerationConfig(
+            max_new_tokens=max_new_tokens,
+            num_img_gen_tokens=self.agent_cfg.num_img_out_tokens,
+            eos_token_id=self.tokenizer.eos_token_id,
+            pad_token_id=self.tokenizer.pad_token_id, **kw)
+        return generate_batch(self.agent, self.tokenizer, requests,
+                              gen_cfg=gen_cfg, generator=generator,
+                              timings=timings)

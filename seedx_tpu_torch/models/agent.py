@@ -116,10 +116,12 @@ class ContinuousLVLM(nn.Module):
         return self.llm.embed(input_ids)
 
     def llm_step(self, inputs_embeds, positions, kv_valid=None, cache=None,
-                 cache_index: int = 0):
-        """One LLM forward (prefill or decode): (logits, hidden, cache)."""
+                 cache_index=0, block_tables=None):
+        """One LLM forward (prefill or decode): (logits, hidden, cache).
+        ``cache_index`` may be a [B] tensor of per-row positions and
+        ``block_tables`` a paged pool's tables (see LlamaForCausalLM)."""
         return self.llm(inputs_embeds, positions, kv_valid, cache,
-                        cache_index)
+                        cache_index, block_tables)
 
     def decode_image_feats(self, hidden_states: torch.Tensor) -> torch.Tensor:
         """Output resampler over generated spans [num_imgs, n_out, hidden]

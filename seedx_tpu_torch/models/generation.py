@@ -3,7 +3,12 @@ seedx_tpu/models/generation.py; src/models/mllm/seed_x.py:130-223).
 
 Prompts are left-padded into length buckets; one prefill writes a
 preallocated KV cache and a Python loop decodes one token per step with
-an early exit once every row has emitted EOS.  The constrained image-token
+an early exit once every row has emitted EOS.  Each decode step's kv mask
+is one contiguous window per row (left pad to the newest token), so the
+step reads only that window through the ragged decode kernel
+(``LlamaConfig.decode_attention``).  ``constrain_image_tokens``,
+``_sample``, ``_trim_and_spans`` and ``build_result`` are shared with the
+continuous engine (inference/continuous.py).  The constrained image-token
 decoder forces ``<img_00000>..<img_(n-1)></img>`` once ``<img>`` is
 emitted; when every live row sits at ``<img>``, that forced span runs as
 one (n+1)-token forward into the cache (the "chunk"), whose hidden states

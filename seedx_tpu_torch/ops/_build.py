@@ -5,6 +5,8 @@ Each ``csrc/*.cu`` file exposes plain C entry points.  It is compiled with
 ``seedx_tpu_torch/_build/`` (listed in ``.gitignore``) at first use, named
 by a hash of its source and flags so an edit rebuilds, and loaded with
 ``ctypes``.  Nothing here runs at import time; the CPU tests never build.
+Different kernels may build at once from several threads (one ``nvcc``
+each); a second caller of the same kernel waits for the first.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                 # guards _name_locks
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent building, ptxas report); empty for a cached library
 build_log: Dict[str, tuple] = {}
@@ -46,6 +49,8 @@ def load_library(name: str, source: str,
     """Compile ``csrc/<source>`` (once per content) and bind ``signatures``:
     {function: [argtypes...]}, every function returning a C int error."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         path = os.path.join(CSRC, source)

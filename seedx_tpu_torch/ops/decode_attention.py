@@ -1,0 +1,184 @@
+"""Ragged (and optionally paged) decode attention: CUDA kernel + its plain
+PyTorch version (reference: seedx_tpu/ops/decode_attention.py, the Pallas
+kernel ``_decode_kernel`` in its one-query-per-row mode).
+
+One query token per batch row attends only the valid window
+``[starts[b], ends[b])`` of that row's KV cache, in the flat layout of
+``models/llama.py``: ``[B, S, Hkv * D]`` (or, paged, a shared pool
+``[P * page, Hkv * D]`` whose logical tile j of row b is pool tile
+``block_tables[b, j]``).  The cache holds bf16 values, or int8 codes with
+per-(position, head) scales ``[B, S, Hkv]`` (pool: ``[P * page, Hkv]``).
+Query head h reads kv head ``h // G`` (G = Hq / Hkv).  The output is
+``[B, Hq, D]`` in q's dtype; a row with an empty window gives zeros.
+
+The JAX function takes a ``layer`` scalar so its kernel can read one
+layer of the stacked cache without a copy; here ``cache[li]`` is a view,
+so there is no such argument.  Its scale operands are lane-padded to 128
+(a Mosaic DMA rule); here they stay ``Hkv`` wide.  The multi-query "stair"
+mode (fused prefill) is not ported yet.
+
+Kernel source and design note: ``seedx_tpu_torch/csrc/decode_attn.cu``.
+``ragged_decode_attention`` launches it for CUDA tensors and runs
+``ragged_decode_attention_plain`` for CPU tensors; there is no other
+fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from seedx_tpu_torch.ops._build import check, load_library
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {"decode_attn": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P]}
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUPS = 8
+
+
+def library() -> ctypes.CDLL:
+    return load_library("decode_attn", "decode_attn.cu", _SIGNATURES)
+
+
+def _geometry(q, k_cache, block_tables, page):
+    """(B, Hq, D, Hkv, G, logical cache length) with the contract checks
+    shared by both versions."""
+    b, hq, d = q.shape
+    f = k_cache.shape[-1]
+    if f % d or hq % (f // d):
+        raise ValueError(f"ragged_decode_attention: q {tuple(q.shape)} does "
+                         f"not fit a cache row of {f}")
+    hkv = f // d
+    if block_tables is not None:
+        if page <= 0 or k_cache.dim() != 2 or k_cache.shape[0] % page:
+            raise ValueError("ragged_decode_attention: a paged pool is "
+                             "[P * page, Hkv * D] with page > 0")
+        if block_tables.shape[0] != b:
+            raise ValueError("ragged_decode_attention: block_tables rows "
+                             "must match the batch")
+        s = block_tables.shape[1] * page
+    else:
+        if k_cache.dim() != 3 or k_cache.shape[0] != b:
+            raise ValueError("ragged_decode_attention: a dense cache is "
+                             "[B, S, Hkv * D]")
+        s = k_cache.shape[1]
+    return b, hq, d, hkv, hq // hkv, s
+
+
+def _logical_rows(x, block_tables, page, s):
+    """Dense [B, S, ...] view of a cache or scale leaf (a gather through
+    the block tables for a paged pool)."""
+    if block_tables is None:
+        return x
+    pos = torch.arange(s, device=x.device)
+    rows = (block_tables.long()[:, pos // page] * page + pos % page)
+    return x[rows]
+
+
+def ragged_decode_attention_plain(q, k_cache, v_cache, starts, ends, *,
+                                  k_scale=None, v_scale=None,
+                                  block_tables=None, page: int = 0
+                                  ) -> torch.Tensor:
+    """The kernel's contract in plain torch, with the JAX kernel's
+    arithmetic: q and k as bf16 values, fp32 dot products, the softmax
+    scale and then the k scale applied after the dot, fp32 softmax over
+    the window, ``p * v_scale`` rounded to bf16 before it weights v, and
+    ``acc / max(l, 1e-30)`` in q's dtype.  The softmax scale is
+    1/sqrt(D), the only one the model uses."""
+    b, hq, d, hkv, g, s = _geometry(q, k_cache, block_tables, page)
+    k = _logical_rows(k_cache, block_tables, page, s).reshape(b, s, hkv, d)
+    v = _logical_rows(v_cache, block_tables, page, s).reshape(b, s, hkv, d)
+    qg = q.to(torch.bfloat16).float().reshape(b, hkv, g, d)
+    sc = torch.einsum("bkgd,bskd->bkgs", qg,
+                      k.to(torch.bfloat16).float()) * d ** -0.5
+    if k_scale is not None:
+        ks = _logical_rows(k_scale, block_tables, page, s)
+        sc = sc * ks.to(torch.bfloat16).float().permute(0, 2, 1)[:, :, None]
+    pos = torch.arange(s, device=q.device)
+    valid = ((pos[None] >= starts.to(q.device).long()[:, None])
+             & (pos[None] < ends.to(q.device).long()[:, None]))
+    valid = valid[:, None, None, :]
+    sc = torch.where(valid, sc, float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(sc - torch.where(valid.any(-1, True),
+                                                      m, 0.0)), 0.0)
+    l_sum = p.sum(dim=-1)
+    if v_scale is not None:
+        vs = _logical_rows(v_scale, block_tables, page, s)
+        p = p * vs.float().permute(0, 2, 1)[:, :, None]
+    acc = torch.einsum("bkgs,bskd->bkgd", p.to(torch.bfloat16).float(),
+                       v.float())
+    out = acc / torch.clamp(l_sum, min=1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def ragged_decode_attention(q, k_cache, v_cache, starts, ends, *,
+                            k_scale=None, v_scale=None, block_tables=None,
+                            page: int = 0) -> torch.Tensor:
+    """One-token-per-row attention reading only ``[starts, ends)`` of each
+    row.  Wrapper: kernel for CUDA tensors, plain version for CPU
+    tensors."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("ragged_decode_attention: give both scales or "
+                         "neither")
+    if not q.is_cuda:
+        return ragged_decode_attention_plain(
+            q, k_cache, v_cache, starts, ends, k_scale=k_scale,
+            v_scale=v_scale, block_tables=block_tables, page=page)
+    b, hq, d, hkv, g, s = _geometry(q, k_cache, block_tables, page)
+    int8 = k_scale is not None
+    want = torch.int8 if int8 else torch.bfloat16
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"ragged_decode_attention: q must be bf16 on CUDA, "
+                         f"got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"ragged_decode_attention: head_dim must be one of "
+                         f"{HEAD_DIMS}, got {d}")
+    if g > MAX_GROUPS:
+        raise ValueError(f"ragged_decode_attention: at most {MAX_GROUPS} q "
+                         f"heads per kv head, got {g}")
+    tensors = [("q", q, torch.bfloat16), ("k_cache", k_cache, want),
+               ("v_cache", v_cache, want)]
+    if int8:
+        tensors += [("k_scale", k_scale, torch.bfloat16),
+                    ("v_scale", v_scale, torch.bfloat16)]
+    tensors += [("starts", starts, torch.int32), ("ends", ends, torch.int32)]
+    if block_tables is not None:
+        tensors.append(("block_tables", block_tables, torch.int32))
+    for name, t, dt in tensors:
+        # q and the codes are read in vectors of up to 8 bytes; scales,
+        # windows and tables one element at a time
+        if (t.dtype != dt or t.device != q.device or not t.is_contiguous()
+                or (name in ("q", "k_cache", "v_cache")
+                    and t.data_ptr() % 16)):
+            raise ValueError(f"ragged_decode_attention: {name} must be a "
+                             f"contiguous {dt} tensor on {q.device} (q and "
+                             f"caches 16-byte aligned), got {t.dtype} on "
+                             f"{t.device}")
+    if v_cache.shape != k_cache.shape:
+        raise ValueError("ragged_decode_attention: k and v caches differ")
+    if int8 and (k_scale.shape != k_cache.shape[:-1] + (hkv,)
+                 or v_scale.shape != k_scale.shape):
+        raise ValueError(f"ragged_decode_attention: scales must be "
+                         f"{tuple(k_cache.shape[:-1]) + (hkv,)}")
+    if starts.shape != (b,) or ends.shape != (b,):
+        raise ValueError(f"ragged_decode_attention: starts/ends must be [{b}]")
+    out = torch.empty_like(q)
+    paged = block_tables is not None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = library().decode_attn(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr() if int8 else None,
+        v_scale.data_ptr() if int8 else None,
+        starts.data_ptr(), ends.data_ptr(),
+        block_tables.data_ptr() if paged else None, out.data_ptr(),
+        b, hq, hkv, d, s, block_tables.shape[1] if paged else 0,
+        page if paged else 0, int(int8), d ** -0.5, stream)
+    check(err, "decode_attn")
+    ragged_decode_attention.launches += 1
+    return out
+
+
+ragged_decode_attention.launches = 0

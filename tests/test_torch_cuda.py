@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, at the shapes of the image-in comprehension turn.
+card, at the shapes of the image-in comprehension turn and of batched
+decode.
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  This file
 imports no JAX, so it runs on a machine that has none; the suite's
@@ -11,6 +12,7 @@ tests/test_torch_cuda.py``.
 import pytest
 import torch
 
+from seedx_tpu_torch.ops import decode_attention as tdecode
 from seedx_tpu_torch.ops import flash_attention as tflash
 from seedx_tpu_torch.ops import int4_matmul as tint4
 from seedx_tpu_torch.utils import quantize as tquant
@@ -66,3 +68,71 @@ def test_int4_kernel_matches_plain(cuda_device, rows, n_in, n_out):
     # then one bf16 rounding: two bf16 ULPs of the output magnitude
     tol = 2 * 2 ** -7 * ref.float().abs().max().item()
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+def _quantize_rows(x):
+    """Per-(position, head) int8 codes and bf16 scales (llama.quantize_kv)."""
+    amax = x.float().abs().amax(dim=-1, keepdim=True)
+    sc = torch.clamp(amax, min=1e-6) / 127.0
+    return torch.round(x.float() / sc).to(torch.int8), sc.to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,d,int8,paged,windows", [
+    (1, 1280, 40, 40, 128, True, False, [(0, 300)]),
+    (8, 1280, 40, 40, 128, True, False,
+     [(0, 1280), (5, 6), (3, 3), (100, 900), (0, 1), (1279, 1280),
+      (640, 1100), (7, 1000)]),
+    (8, 1280, 40, 40, 128, False, False,
+     [(0, 1280), (5, 6), (3, 3), (100, 900), (0, 1), (1279, 1280),
+      (640, 1100), (7, 1000)]),
+    (4, 1280, 40, 40, 128, True, True, [(0, 1280), (9, 10), (0, 0),
+                                       (300, 1001)]),
+    (3, 512, 40, 8, 128, False, False, [(0, 512), (17, 300), (2, 2)]),
+    (3, 200, 8, 2, 64, True, True, [(0, 200), (33, 34), (5, 150)]),
+    (2, 96, 4, 4, 32, True, False, [(0, 96), (10, 55)]),
+    (2, 96, 4, 4, 32, False, True, [(4, 90), (0, 0)])])
+def test_decode_kernel_matches_plain(cuda_device, b, s, hq, hkv, d, int8,
+                                     paged, windows):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    dev = cuda_device
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, hkv, d), generator=g, device=dev)
+    v = torch.randn((b, s, hkv, d), generator=g, device=dev)
+    kw = {}
+    if int8:
+        (k, ks), (v, vs) = _quantize_rows(k), _quantize_rows(v)
+        kw = dict(k_scale=ks[..., 0], v_scale=vs[..., 0])
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    k, v = k.reshape(b, s, hkv * d), v.reshape(b, s, hkv * d)
+    if paged:
+        page = 32 if s % 32 == 0 else 8
+        n_tiles = s // page
+        perm = torch.randperm(2 * b * n_tiles, generator=g, device=dev)
+        tables = perm[:b * n_tiles].reshape(b, n_tiles).to(torch.int32)
+        rows = (tables.long()[:, :, None] * page
+                + torch.arange(page, device=dev)).reshape(b, s)
+
+        def pool(x):
+            out = torch.zeros((2 * b * n_tiles * page,) + x.shape[2:],
+                              dtype=x.dtype, device=dev)
+            out[rows] = x
+            return out
+
+        k, v = pool(k), pool(v)
+        kw = {n: pool(t) for n, t in kw.items()}
+        kw.update(block_tables=tables.contiguous(), page=page)
+    starts = torch.tensor([w[0] for w in windows], dtype=torch.int32,
+                          device=dev)
+    ends = torch.tensor([w[1] for w in windows], dtype=torch.int32,
+                        device=dev)
+    out = tdecode.ragged_decode_attention(q, k, v, starts, ends, **kw)
+    ref = tdecode.ragged_decode_attention_plain(q, k, v, starts, ends, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (b, hq, d)
+    # bf16 output of O(1): one bf16 ULP of |out| plus fp32 summation order
+    # and the per-warp online-softmax rescale, as for the flash kernel
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+    empty = (ends <= starts).nonzero()[:, 0]
+    assert (out[empty] == 0).all()

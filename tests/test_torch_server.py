@@ -1,0 +1,175 @@
+"""The port's HTTP front-end (``seedx_tpu_torch/inference/server.py``)
+over real HTTP on 127.0.0.1, and ``eval_cli serve`` with both engines,
+against the tiny debug runtime on the CPU."""
+
+import base64
+import io
+import json
+import threading
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from seedx_tpu_torch.inference import eval_cli
+from seedx_tpu_torch.inference.runtime import SeedXRuntime
+from seedx_tpu_torch.inference.server import SeedXServer
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def served():
+    rt = SeedXRuntime.debug(device="cpu")
+    server = SeedXServer(rt, max_new_tokens=4, request_timeout=300.0)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler())
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    yield server, f"http://127.0.0.1:{httpd.server_address[1]}"
+    httpd.shutdown()
+    httpd.server_close()
+    server.shutdown()
+    t.join(30)
+    assert not t.is_alive() and not server._dispatcher.is_alive()
+
+
+def _post(url, path, payload, raw=None):
+    data = raw if raw is not None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def _get(url, path):
+    with urllib.request.urlopen(url + path, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _image_b64(seed=0):
+    rng = np.random.default_rng(seed)
+    img = Image.fromarray((rng.random((72, 56, 3)) * 255).astype(np.uint8))
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode("ascii")
+
+
+def test_healthz_and_stats(served):
+    _, url = served
+    assert _get(url, "/healthz") == {"ok": True}
+    assert {"served", "errors", "batches", "queued"} <= _get(
+        url, "/v1/stats").keys()
+
+
+def test_comprehend_raw_ground_generate(served):
+    _, url = served
+    out = _post(url, "/v1/comprehend",
+                {"image": _image_b64(), "question": "What is this?"})
+    assert isinstance(out["text"], str) and out["images"] is None
+    assert isinstance(_post(url, "/v1/comprehend",
+                            {"question": "Hello?"})["text"], str)
+    assert isinstance(_post(url, "/v1/raw",
+                            {"input_ids": [1, 2, 3]})["text"], str)
+    ground = _post(url, "/v1/ground", {"image": _image_b64(1),
+                                       "question": "Where is the cat?"})
+    assert isinstance(ground["text"], str) and "boxes_pixels" in ground
+    gen = _post(url, "/v1/generate", {"caption": "a red car"})
+    assert gen["images"] is None and "has_img_output" in gen
+
+
+def test_concurrent_requests_micro_batch(served, monkeypatch):
+    """Requests that queue while the dispatcher is busy are flushed as one
+    batch: hold the first flush until three more requests are queued."""
+    server, url = served
+    entered, gate = threading.Event(), threading.Event()
+    flush = server.engine.flush
+
+    def held_flush():
+        entered.set()
+        assert gate.wait(60)
+        return flush()
+
+    monkeypatch.setattr(server.engine, "flush", held_flush)
+    before = server.stats()
+    results = {}
+
+    def hit(i):
+        results[i] = _post(url, "/v1/comprehend",
+                           {"question": f"Question {i}?"})
+
+    threads = [threading.Thread(target=hit, args=(0,))]
+    threads[0].start()
+    assert entered.wait(60)     # the dispatcher holds the first job
+    threads += [threading.Thread(target=hit, args=(i,)) for i in (1, 2, 3)]
+    for t in threads[1:]:
+        t.start()
+    for _ in range(600):
+        if server.stats()["queued"] == 3:
+            break
+        threading.Event().wait(0.05)
+    assert server.stats()["queued"] == 3
+    gate.set()
+    for t in threads:
+        t.join(300)
+        assert not t.is_alive()
+    assert sorted(results) == [0, 1, 2, 3]
+    after = server.stats()
+    assert after["served"] - before["served"] == 4
+    assert after["batches"] - before["batches"] == 2    # 1 + the other 3
+
+
+def test_bad_requests_fail_without_killing_server(served):
+    _, url = served
+    for path, payload, raw in (
+            ("/v1/edit", {"instruction": "no image supplied"}, None),
+            ("/v1/comprehend", None, b"{not json"),
+            ("/v1/ground", {"question": "no image"}, None),
+            ("/v1/raw", {"input_ids": []}, None)):
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(url, path, payload, raw)
+        assert e.value.code == 400, path
+    for path in ("/v1/nope", "/v1/chat"):
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(url, path, {"session": "s1", "message": "hi"})
+        assert e.value.code == 404
+    assert _get(url, "/healthz") == {"ok": True}
+    assert isinstance(_post(url, "/v1/raw", {"input_ids": [1, 2]})["text"],
+                      str)
+
+
+def test_serve_cli_both_engines(tmp_path, monkeypatch, capsys):
+    """`eval_cli serve`: JSONL requests in, JSONL results out, for the
+    bucket-batched and the continuous engine, with the same texts."""
+    shared = SeedXRuntime.debug(device="cpu", dtype=torch.float32)
+    monkeypatch.setattr(eval_cli, "_load_runtime", lambda a: shared)
+    img_path = tmp_path / "src.png"
+    rng = np.random.default_rng(2)
+    Image.fromarray((rng.random((60, 48, 3)) * 255).astype(np.uint8)).save(
+        img_path)
+    reqs = [{"kind": "raw", "text": "hello"},
+            {"kind": "t2i", "caption": "a cat"},
+            {"kind": "comprehend", "image": str(img_path),
+             "question": "what?"},
+            {"kind": "edit", "image": str(img_path),
+             "instruction": "make it blue"}]
+    f = tmp_path / "reqs.jsonl"
+    f.write_text("\n".join(json.dumps(r) for r in reqs) + "\n")
+
+    per_engine = {}
+    for engine in ("batched", "continuous"):
+        rc = eval_cli.main(["serve", "--requests", str(f), "--engine",
+                            engine, "--debug", "--device", "cpu",
+                            "--max_new_tokens", "6", "--slots", "2"])
+        assert rc == 0
+        rows = [json.loads(ln)
+                for ln in capsys.readouterr().out.strip().splitlines()]
+        assert [r["id"] for r in rows] == [0, 1, 2, 3]
+        per_engine[engine] = rows
+    for a, b in zip(per_engine["batched"], per_engine["continuous"]):
+        assert a["text"] == b["text"]
+        assert a["num_gen_imgs"] == b["num_gen_imgs"]
+        assert a["images"] is None and b["images"] is None

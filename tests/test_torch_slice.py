@@ -104,7 +104,7 @@ def _f32_jax_runtime():
 @pytest.fixture(scope="module")
 def runtimes():
     rt_j = _f32_jax_runtime()
-    rt_t = TorchRuntime.debug(dtype=torch.float32)
+    rt_t = TorchRuntime.debug(dtype=torch.float32, device="cpu")
     load_jax_params(rt_t.vit, _numpy_tree(rt_j.vit_params))
     load_jax_params(rt_t.agent, _numpy_tree(rt_j.agent_params))
     return rt_j, rt_t
@@ -136,9 +136,23 @@ def test_comprehend_matches_jax(runtimes):
     assert out_t["text"] == out_j["text"]
 
 
-def _tiny_int4_agents():
+def test_ground_and_draw_boxes_match_jax(runtimes):
+    rt_j, rt_t = runtimes
+    img = _image(120, 90, seed=120)
+    out_j = japps.ground(rt_j, img, "What is this?", max_new_tokens=4)
+    out_t = tapps.ground(rt_t, img, "What is this?", max_new_tokens=4)
+    assert out_t["text"] == out_j["text"]
+    assert out_t["boxes"] == out_j["boxes"]
+    box = [(10, 20, 60, 100), (0, 0, 89, 119)]
+    np.testing.assert_array_equal(np.asarray(tapps.draw_boxes(img, box)),
+                                  np.asarray(japps.draw_boxes(img, box)))
+
+
+def _tiny_int4_agents(ragged: bool = False):
     """The tiny agent with int4 projections and an int8 KV cache, 64-token
-    output spans (so an <img> prompt runs the 65-token chunk)."""
+    output spans (so an <img> prompt runs the 65-token chunk).  ``ragged``
+    forces the ragged decode attention on (JAX also forces its stacked
+    decode loop, whose one-token step is where its ragged kernel runs)."""
     kw = dict(hidden_size=128, intermediate_size=256, num_layers=2,
               num_heads=4, num_kv_heads=4)
     cfg_j = jagent.AgentConfig(llm=jllama_debug(dtype=jnp.float32, **kw),
@@ -157,10 +171,12 @@ def _tiny_int4_agents():
     params = _numpy_tree(params)
     params["llm"] = quantize_llama_params(params["llm"], mode="int4")
     q = dict(quantization="int4", kv_quantization="int8")
+    force = dict(decode_attention="force") if ragged else {}
     cfg_j = dataclasses.replace(cfg_j, llm=jllama_debug(
-        dtype=jnp.float32, **kw, **q))
+        dtype=jnp.float32, **kw, **q, **force,
+        **(dict(stacked_decode="force") if ragged else {})))
     cfg_t = tagent.AgentConfig(llm=tllama_debug(dtype=torch.float32, **kw,
-                                                **q),
+                                                **q, **force),
                                vit_dim=64, resampler_heads=4,
                                dtype=torch.float32)
     agent_t = load_jax_params(tagent.ContinuousLVLM(cfg_t).eval(), params)
@@ -321,6 +337,17 @@ def test_host_copies_match_jax_package(keep_ratio):
     np.testing.assert_array_equal(tprompts.cmp_mask_from_ids(ids),
                                   jprompts.cmp_mask_from_ids(ids))
     assert tprompts.strip_markup(text) == jprompts.strip_markup(text)
+    assert (tprompts.generation_prompt("a cat")
+            == jprompts.generation_prompt("a cat"))
+    assert tprompts.GENERATION_PROMPT == jprompts.GENERATION_PROMPT
+    assert tprompts.LOC_SCALE == jprompts.LOC_SCALE
+    reply = ("a cat <box_start><loc-112><loc-56><loc-40><loc-20><box_end> "
+             "and <box_start><loc-0><loc-223><loc-7><loc-9><box_end>")
+    for t in (reply, "no boxes"):
+        assert tprompts.extract_boxes(t) == jprompts.extract_boxes(t)
+    boxes = tprompts.extract_boxes(reply)
+    assert (tprompts.boxes_to_pixels(boxes, 90, 120)
+            == jprompts.boxes_to_pixels(boxes, 90, 120))
     grids = ("1x1", "1x2", "1x3", "2x1", "3x1", "1x4", "4x1", "2x2")
     for hw in ((120, 90), (60, 200), (56, 56)):
         img = _image(*hw, seed=hw[1])
@@ -336,7 +363,12 @@ def test_host_copies_match_jax_package(keep_ratio):
 
 def test_port_imports_no_jax():
     code = ("import sys, seedx_tpu_torch, seedx_tpu_torch.inference.apps, "
-            "seedx_tpu_torch.utils.convert; "
+            "seedx_tpu_torch.utils.convert, "
+            "seedx_tpu_torch.ops.decode_attention, "
+            "seedx_tpu_torch.inference.serving, "
+            "seedx_tpu_torch.inference.continuous, "
+            "seedx_tpu_torch.inference.server, "
+            "seedx_tpu_torch.inference.eval_cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'seedx_tpu')]; "
             "assert not bad, bad")
