@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU at the full SEED-X-I width:
-the image-in comprehension turn and batched / continuous / HTTP serving,
-and check its three CUDA kernels.
+the image-in comprehension turn, batched / continuous (fused prefill too)
+/ HTTP serving, and multi-turn chat with a KV prefix cache, and check its
+three CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -11,37 +12,57 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 2. build: the three kernels from ``seedx_tpu_torch/csrc`` (one nvcc each,
    started together, sm_90a);
 3. kernels: each against its plain PyTorch version at the shapes of the
-   turn and of batched decode (max abs / rel error against a stated
-   tolerance; median of 10 timed runs after warm-up, CUDA events), beside
-   its bound (the larger of bytes / 3.35 TB/s and operations / the tensor
-   cores' peak for the input type) and, where one exists, the time of the
-   PyTorch call computing the same function; then a tiny stack on the card
-   against the same weights on the CPU (plain versions): ViT features,
-   prefill logits and batched decode steps;
+   turn, of batched decode and of the fused step's stair (K3's multi-query
+   mode) (max abs / rel error against a stated tolerance; median of 10
+   timed runs after warm-up, CUDA events), beside its bound (the larger
+   of bytes / 3.35 TB/s and operations / the tensor cores' peak for the
+   input type) and, where one exists, the time of the PyTorch call
+   computing the same function; then a tiny stack on the card against the
+   same weights on the CPU (plain versions): ViT features, prefill logits
+   and batched decode steps;
 4. the turn: ViT-bigG/14-448 (bf16) and the SEED-X agent (LLaMA2-13B,
    int4 weights, int8 KV cache, 64-query resamplers) with random weights
    drawn on the card from a seed; three ``comprehend`` requests on images
    of three aspect ratios and one ``generate`` request ending in ``<img>``
    (the forced 65-token chunk and the output resampler);
 5. serving on the same runtime: a ``ServingEngine`` flush of 8 requests,
-   ``ContinuousEngine`` with 8 slots over 16 requests, dense and then paged
-   (the paged token streams must equal the dense ones), a torch.profiler
+   ``ContinuousEngine`` with 8 slots over 16 requests, dense, paged, fused
+   dense and fused paged (paged streams must equal dense ones, fused paged
+   fused dense); then the non-fused dense engine's tokens are forced
+   (``Teacher``) through the fused engine, packed and windowed (dense and
+   paged), and through the batched loop: each fused run's logits must lie
+   within ``LOGIT_FACTOR`` times the batched loop's difference from the
+   engine, windowed paged must equal windowed dense, and where the greedy
+   fused and non-fused streams part the gap is logged; a torch.profiler
    window over one decode chunk at 1 and at 8 live slots (device busy
    share), and ``SeedXServer`` answering 4 concurrent HTTP requests on
    127.0.0.1;
-6. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
+6. chat: three turns (an image in the first) through a ``ChatSession``
+   with the KV prefix cache and one without (the cache must be reused),
+   a cached session forced along the uncached replies (its logits held to
+   the same limit), then two ``/v1/chat`` POSTs on one session;
+7. parity: the agent cut to ``PARITY_LAYERS`` layers at the same width and
+   seed runs phase 5's 16 requests non-fused and fused, and phase 6's chat
+   turns; the streams must be equal or part only at a tie (``TIE_ULPS``
+   bf16 steps of the forced logits);
+8. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
    line ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-5 runs with the launch counters set to 0 just
+Every path of phases 4-7 runs with the launch counters set to 0 just
 before it and read just after, and fails unless each kernel it runs was
-launched.  In the kernels line ``launches`` is the sum over those runs,
-``max_abs_err`` the largest over the kernel's shapes, and ``ms``,
-``plain_ms`` and ``bound_ms`` sums of one call at each shape;
-``library_ms`` sums the shapes named in ``library_shapes``.
+launched (the fused engines: K3 in its multi-query mode).  In the kernels
+line ``launches`` is the sum over the main path's runs of phases 4-6 (the
+turn, the serving engines and HTTP, the chat sessions); the forced runs
+and phase 7 print theirs on a line of their own.  ``max_abs_err`` is the
+largest over the kernel's shapes, and ``ms``, ``plain_ms`` and
+``bound_ms`` sums of one call at each shape; ``library_ms`` sums the
+shapes named in ``library_shapes``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -54,6 +75,29 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, 700 W
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}    # dense tensor-core peaks
 SPIN_CYCLES = 20_000_000      # ~10 ms at the H100's 1.98 GHz boost clock
+# the continuous engine of every serving run: 8 slots of 512 + 128
+ENGINE = dict(slots=8, max_new_tokens=128, chunk_steps=16,
+              prompt_buckets=(128, 256, 512), page_size=128)
+# fused serving: the continuous engine's chunked prefill, 16 prompt tokens
+# a step beside the 8 slots' decode tokens
+FUSED = {"fused_prefill": True, "prefill_width": 16}
+# two greedy streams may part only where the logits of the two tokens, from
+# one of the paths teacher-forced along the other's tokens, are within this
+# many bf16 steps of the logit scale
+TIE_ULPS = 8
+# The random 13B amplifies rounding differences past that rule between
+# any two arithmetic paths of the port: W4A8 re-quantizes every
+# projection's input to int8, so a one-ulp difference flips codes, and the
+# flips compound with depth (at 40 layers the batched flush and the
+# continuous engine, both non-fused, part by up to 30 bf16 steps).  So at
+# full depth the paths are held by their logits instead: teacher-forced
+# along the non-fused engine's tokens, a path's logits must lie within
+# LOGIT_FACTOR times the noise floor, the largest logit difference between
+# the batched loop and the non-fused engine forced along the same tokens.
+# The tie rule on streams is enforced on the agent cut to PARITY_LAYERS
+# layers at the same width and seed, and only logged at full depth.
+LOGIT_FACTOR = 2.0
+PARITY_LAYERS = 2
 KERNELS = (("flash_fwd", "seedx_tpu_torch/csrc/flash_fwd.cu",
             "seedx_tpu/ops/flash_attention.py:43"),
            ("int4_w4a8", "seedx_tpu_torch/csrc/int4_w4a8.cu",
@@ -119,10 +163,23 @@ def counters():
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
+    k3 = counters()["decode_attn"]
+    k3.mode_launches = {m: 0 for m in k3.mode_launches}
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in counters().items()}
+    """Each kernel's launches since the last reset, and K3's by mode
+    ("decode_attn one_query": a 3-D q; "decode_attn multi_query": the
+    stair)."""
+    counts = {name: fn.launches for name, fn in counters().items()}
+    for mode, n in counters()["decode_attn"].mode_launches.items():
+        counts[f"decode_attn {mode}"] = n
+    return counts
+
+
+def k3_modes():
+    """K3's launches since the last reset, by mode."""
+    return dict(counters()["decode_attn"].mode_launches)
 
 
 def row(kernel, shape, ok, err, ms, plain_ms, bnd, library_ms=None):
@@ -331,6 +388,116 @@ def check_decode(dev, g, flush):
     return rows
 
 
+# The stair mix of a fused serving step at 8 slots, S 512 + 128: three
+# rows prefilling w tokens at offsets 0 / 64 / 300 (slot 0's end = offset
+# + 1), five rows decoding (width 1; their other slots compute garbage the
+# engine discards), one of them near the cache end so its stair clamps.
+STAIR_ENDS_8 = (1, 65, 301, 520, 600, 130, 410, 639)
+
+
+def stair_ends(ends, w: int, s: int):
+    """Per row, the ends of its w query slots: slot i ends at
+    min(end + i, S)."""
+    return [[min(e + i, s) for i in range(w)] for e in ends]
+
+
+def check_stair(dev, g, flush):
+    """K3's multi-query ("stair") mode at the fused step's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from seedx_tpu_torch.models.llama import quantize_kv
+    from seedx_tpu_torch.ops import decode_attention as da
+
+    rows = []
+    b, s, d = 8, 640, 128
+    # (name, Hq, Hkv, int8, page, w)
+    for name, hq, hkv, int8, page, w in (
+            ("stair_int8_w8", 40, 40, True, 0, 8),
+            ("stair_int8_w16", 40, 40, True, 0, 16),
+            ("stair_int8_paged_w8", 40, 40, True, 128, 8),
+            ("stair_int8_paged_w16", 40, 40, True, 128, 16),
+            ("stair_bf16_gqa_w8", 40, 8, False, 0, 8),
+            ("stair_int8_w1", 40, 40, True, 0, 1)):
+        q = torch.randn((b, w, hq, d), generator=g,
+                        device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev
+                            ).to(torch.bfloat16) for _ in range(2))
+        kw = {}
+        if int8:
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            kw = dict(k_scale=ks[..., 0].contiguous(),
+                      v_scale=vs[..., 0].contiguous())
+        dense_k, dense_v = k.reshape(b, s, -1), v.reshape(b, s, -1)
+        k, v = dense_k, dense_v
+        if page:
+            n_tiles = s // page
+            perm = torch.randperm(2 * b * n_tiles, generator=g, device=dev)
+            tables = perm[:b * n_tiles].reshape(b, n_tiles).to(torch.int32)
+            prow = (tables.long()[:, :, None] * page
+                    + torch.arange(page, device=dev)).reshape(b, s)
+
+            def pool(x):
+                out = torch.zeros((2 * b * n_tiles * page,) + x.shape[2:],
+                                  dtype=x.dtype, device=dev)
+                out[prow] = x
+                return out
+
+            k, v = pool(k), pool(v)
+            kw = {n: pool(t) for n, t in kw.items()}
+            kw.update(block_tables=tables.contiguous(), page=page)
+        st = torch.zeros((b,), dtype=torch.int32, device=dev)
+        en = torch.tensor(STAIR_ENDS_8, dtype=torch.int32, device=dev)
+        out = da.ragged_decode_attention(q, k, v, st, en, **kw)
+        ref = da.ragged_decode_attention_plain(q, k, v, st, en, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        mag = ref.float().abs().max().item()
+        tol = 2e-2      # bf16 output of O(1), as for the one-query mode
+        ok = err <= tol
+        extra = ""
+        if w == 1:
+            one = da.ragged_decode_attention(q[:, 0].contiguous(), k, v, st,
+                                             en, **kw)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(out[:, 0], one))
+            ok = ok and same
+            extra = f" equals the one-query call: {same}"
+        ends_i = stair_ends(STAIR_ENDS_8, w, s)
+        item = 1 if int8 else 2
+        # each row's longest stair window read once (codes + scales), q
+        # and out once; the work is each query's own window
+        longest = sum(max(e) for e in ends_i)
+        n_bytes = (2 * q.numel() * 2 + 2 * longest * hkv * d * item
+                   + (2 * longest * hkv * 2 if int8 else 0) + 8 * b
+                   + (kw["block_tables"].numel() * 4 if page else 0))
+        pairs = sum(sum(e) for e in ends_i)
+        bnd = bound(n_bytes, 4 * d * hq * pairs, "int8" if int8 else "bf16")
+        lib = None
+        if not int8 and not page:
+            # one library call for the same function: SDPA over the dense
+            # cache with a boolean stair mask
+            pos = torch.arange(s, device=dev)
+            e_t = torch.tensor(ends_i, device=dev)            # [B, w]
+            am = (pos[None, None] < e_t[:, :, None])[:, None]  # [B,1,w,S]
+            kt = dense_k.view(b, s, hkv, d).transpose(1, 2)
+            vt = dense_v.view(b, s, hkv, d).transpose(1, 2)
+            qt = q.transpose(1, 2)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=am, enable_gqa=hq != hkv), flush)
+        r = row("decode_attn", f"{name} B{b} w{w} S{s} Hq{hq} Hkv{hkv} D{d} "
+                f"{'int8' if int8 else 'bf16'}"
+                f"{f' page{page}' if page else ''} stair ends "
+                f"{list(STAIR_ENDS_8)} positions {pairs}", ok, err,
+                cuda_ms(lambda: da.ragged_decode_attention(
+                    q, k, v, st, en, **kw), flush),
+                cuda_ms(lambda: da.ragged_decode_attention_plain(
+                    q, k, v, st, en, **kw), flush), bnd, lib)
+        log(fmt_row(r, f" max_rel_err {err / mag:.3e} tol {tol:g}{extra}"))
+        rows.append(r)
+    return rows
+
+
 def never_path(q, k, v, ks, vs, starts, ends):
     """The one-token step of models/llama.py with decode_attention
     "never": the int8 layer cache dequantized to bf16, then plain
@@ -358,6 +525,7 @@ def check_kernels(dev):
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     rows = check_flash(dev, g) + check_int4(dev, g, flush)
     rows += check_decode(dev, g, flush)
+    rows += check_stair(dev, g, flush)
     del flush
     return rows
 
@@ -457,7 +625,225 @@ def path_counts(name: str, needed=("flash_fwd", "int4_w4a8", "decode_attn")):
     return counts
 
 
-def build_runtime(dev):
+# launches of the check runs (teacher-forced runs, the parity agent): read
+# like the main path's, printed on their own line, not in the kernels line
+CHECKS = {}
+
+
+def add_counts(into, counts) -> None:
+    for k, n in counts.items():
+        into[k] = into.get(k, 0) + n
+
+
+class Teacher:
+    """Teacher forcing through a greedy decode loop.  While active it
+    stands in for ``_sample`` in ``module`` (``models.generation``: the
+    batched loop and chat; ``inference.continuous``: the engine).  On each
+    call ``where(call)`` gives every row's key (a request; -1 for none) and
+    the index of the token it samples (an int, or a tensor of one per row).
+    A row whose key has a sequence in ``seqs`` takes that sequence's token,
+    any other row its argmax.  The constrained logits of every call are
+    kept by (key, index), a later call winning: a slot that is still
+    prefilling records garbage, which its first decode step overwrites."""
+
+    def __init__(self, module, where, seqs=None):
+        self.module, self.where, self.seqs = module, where, seqs or {}
+        self.calls = []
+        self._table = self._index = None
+
+    def __enter__(self):
+        self.base = self.module._sample
+        self.module._sample = self._sample
+        return self
+
+    def __exit__(self, *exc):
+        self.module._sample = self.base
+        self.where = None      # it may hold an engine and its KV cache
+
+    def _sample(self, logits, cfg, generator):
+        import torch
+
+        keys, idx = self.where(len(self.calls))
+        dev = logits.device
+        k = torch.as_tensor(keys, device=dev)
+        i = idx if torch.is_tensor(idx) else torch.full_like(k, idx)
+        token = torch.argmax(logits, dim=-1)
+        if self.seqs:
+            if self._table is None:
+                # [requests, longest] forced tokens, -1 past each sequence
+                self._table = torch.full(
+                    (max(self.seqs) + 1, max(map(len, self.seqs.values()))),
+                    -1, dtype=torch.int64, device=dev)
+                for key, seq in self.seqs.items():
+                    self._table[key, :len(seq)] = torch.as_tensor(seq)
+            r, t = self._table.shape
+            f = self._table[k.clamp(0, r - 1), i.clamp(0, t - 1)]
+            token = torch.where((k >= 0) & (k < r) & (i < t) & (f >= 0), f,
+                                token)
+        self.calls.append((list(keys), i.clone(), logits.clone()))
+        return token
+
+    def along(self, key: int, n: int):
+        """[n, V] logits the rows of request ``key`` were given at token
+        indices 0..n-1."""
+        import torch
+
+        if self._index is None:
+            self._index = {}
+            for c, (keys, idx, _) in enumerate(self.calls):
+                for r, (kk, ii) in enumerate(zip(keys, idx.tolist())):
+                    if kk >= 0:
+                        self._index[(kk, ii)] = (c, r)
+        miss = [j for j in range(n) if (key, j) not in self._index]
+        if miss:
+            raise AssertionError(f"no logits for request {key} at tokens "
+                                 f"{miss[:4]}")
+        return torch.stack([self.calls[c][2][r] for c, r in
+                            (self._index[(key, j)] for j in range(n))])
+
+
+def engine_rows(eng):
+    """``Teacher.where`` for a ``ContinuousEngine``: each slot's request
+    id and the index of the token it samples next."""
+    return lambda call: ([-1 if r is None else r for r in eng._slot_req],
+                         eng.state["n"])
+
+
+def forcing_sequence(stream, tokenizer):
+    """A greedy stream as a sequence to force: cut at its first ``<img>``,
+    which EOS replaces (after ``<img>`` the batched loop runs the forced
+    span as one chunk, which no per-token forcing follows)."""
+    seq = [int(x) for x in stream]
+    boi = tokenizer.vocab.boi
+    return (seq[:seq.index(boi)] + [tokenizer.eos_token_id] if boi in seq
+            else seq)
+
+
+def logit_diff(ref, got, seqs) -> float:
+    """The largest |logit| difference between two teacher-forced runs over
+    every token of every forced sequence."""
+    return max((ref.along(k, len(s)) - got.along(k, len(s))).abs().max()
+               .item() for k, s in seqs.items())
+
+
+def forced_engine(rt, requests, budgets, seqs, label: str, **kw):
+    """The continuous engine over ``requests``, teacher-forced along
+    ``seqs`` (request i along ``seqs[i]``); returns its ``Teacher``.  Every
+    request must come out as its sequence."""
+    import torch
+
+    from seedx_tpu_torch.inference import continuous
+
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = continuous.ContinuousEngine(rt, **ENGINE, **kw)
+    with Teacher(continuous, engine_rows(eng), seqs) as t:
+        ids = [eng.submit(r, max_new_tokens=b)
+               for r, b in zip(requests, budgets)]
+        res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [i for i in ids if [int(x) for x in res[i]["tokens"]] != seqs[i]]
+    if bad:
+        raise AssertionError(f"{label}: forcing failed for requests {bad}")
+    counts = path_counts(label, ("int4_w4a8", "decode_attn"))
+    if kw.get("fused_prefill") and k3_modes()["multi_query"] <= 0:
+        raise AssertionError(f"{label}: K3 never ran its multi-query mode")
+    add_counts(CHECKS, counts)
+    st = eng.stats()
+    if kw.get("paged") and st["kv_tiles_free"] != st["kv_tiles_total"]:
+        raise AssertionError(f"{label}: paged pool leaked pages: {st}")
+    log(f"{label}: {st['mixed_steps']} mixed and {st['decode_steps']} "
+        f"decode steps in {wall:.2f} s (forcing included)")
+    return t
+
+
+@contextlib.contextmanager
+def stair_shift(shift: int):
+    """A deliberately broken fused step: the stair's ends moved by
+    ``shift`` keys in every multi-query call of the layer loop."""
+    import torch
+
+    from seedx_tpu_torch.models import llama
+
+    base = llama.ragged_decode_attention
+
+    def shifted(q, k, v, starts, ends, *a, **kw):
+        if q.dim() == 4:
+            ends = torch.maximum(ends + shift, starts)
+        return base(q, k, v, starts, ends, *a, **kw)
+
+    llama.ragged_decode_attention = shifted
+    try:
+        yield
+    finally:
+        llama.ragged_decode_attention = base
+
+
+def forced_batched(rt, requests, seqs):
+    """The batched loop (``generate_batch``, all requests in one batch),
+    teacher-forced along ``seqs``; returns its ``Teacher``."""
+    from seedx_tpu_torch.models import generation
+
+    tok = rt.tokenizer
+    reset_counts()
+    gen_cfg = generation.GenerationConfig(
+        max_new_tokens=max(map(len, seqs.values())),
+        num_img_gen_tokens=rt.agent_cfg.num_img_out_tokens,
+        eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+        prompt_buckets=ENGINE["prompt_buckets"])
+    keys = list(range(len(requests)))
+    with Teacher(generation, lambda call: (keys, call), seqs) as t:
+        outs = generation.generate_batch(rt.agent, tok, requests, gen_cfg)
+    bad = [i for i, o in enumerate(outs)
+           if [int(x) for x in o["tokens"][:len(seqs[i])]] != seqs[i]]
+    if bad:
+        raise AssertionError(f"forced batched: forcing failed for requests "
+                             f"{bad}")
+    add_counts(CHECKS, path_counts("forced batched"))
+    return t
+
+
+def tie_check(label: str, got, want, logits, enforce: bool):
+    """None if the two greedy streams are equal; else the gap between the
+    two tokens where they part, in bf16 steps of the logit scale, read
+    from ``logits`` [n, V] (the path that gave ``got``, teacher-forced
+    along ``want``), which must be a tie (``TIE_ULPS``) when ``enforce``;
+    NaN where they part past the forced tokens (an ``<img>``)."""
+    import math
+
+    got, want = [int(x) for x in got], [int(x) for x in want]
+    if got == want:
+        return None
+    n = min(len(got), len(want))
+    i = next((j for j in range(n) if got[j] != want[j]), n)
+    if i == n:
+        raise AssertionError(f"{label}: streams differ in length only "
+                             f"({len(got)} vs {len(want)} tokens)")
+    if i >= logits.shape[0]:
+        log(f"{label}: streams part at token {i}, past the forced tokens; "
+            f"gap not measured")
+        return float("nan")
+    lg = logits[i]
+    gap = abs(float(lg[got[i]]) - float(lg[want[i]]))
+    scale = float(lg.abs().max())
+    steps = gap / 2.0 ** (math.floor(math.log2(scale)) - 7)
+    log(f"{label}: streams part at token {i} ({got[i]} vs {want[i]}): "
+        f"logit gap {gap:.5g} = {steps:g} bf16 steps at logit scale "
+        f"{scale:.5g} (a tie is <= {TIE_ULPS})")
+    if enforce and steps > TIE_ULPS:
+        raise AssertionError(f"{label}: streams part at token {i} with a "
+                             f"logit gap of {steps:g} bf16 steps: not a tie")
+    return steps
+
+
+def parting_summary(parts) -> str:
+    gaps = [g for g in parts if g is not None and g == g]
+    return (f"equal on {parts.count(None)} of {len(parts)}, largest parting "
+            f"gap {max(gaps or [0]):g} bf16 steps")
+
+
+def build_runtime(dev, num_layers: int = 40):
     import torch
 
     from seedx_tpu_torch.inference.runtime import SeedXRuntime
@@ -467,13 +853,15 @@ def build_runtime(dev):
 
     t0 = time.perf_counter()
     agent_cfg = AgentConfig(
-        llm=llama2_13b(quantization="int4", kv_quantization="int8"),
+        llm=llama2_13b(quantization="int4", kv_quantization="int8",
+                       num_layers=num_layers),
         vit_dim=4096, resampler_heads=32, num_img_in_tokens=64,
         num_img_out_tokens=64)
     rt = SeedXRuntime.random(qwen_vitg_448(), agent_cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"turn: built ViT-bigG/14-448 bf16 + LLaMA2-13B int4/int8-KV agent "
-        f"on the card in {time.perf_counter() - t0:.1f} s, "
+    log(f"built ViT-bigG/14-448 bf16 + LLaMA2-13B int4/int8-KV agent "
+        f"({num_layers} layers) on the card in "
+        f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     return rt
 
@@ -547,21 +935,15 @@ def engine_line(name, n_req, n_tok, wall, ms_step, counts) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def run_serving(rt):
-    """Phase 5: the serving engines at full width on the turn's runtime."""
-    import base64
-    import io
-    import urllib.request
-    from http.server import ThreadingHTTPServer
-
-    import torch
+def serving_inputs(rt):
+    """Phase 5's traffic: 4 images with questions and 4 text prompts, and
+    the continuous engine's 16 requests (those 8 twice, images encoded)
+    with budgets 8..64.  Returns (images, questions, raw ids, requests,
+    budgets)."""
     from PIL import Image
 
-    from seedx_tpu_torch.inference import continuous, serving
     from seedx_tpu_torch.inference.apps import _prepare_image_prompt
-    from seedx_tpu_torch.inference.server import SeedXServer
 
-    vocab_size = rt.agent_cfg.llm.vocab_size
     rng = np.random.default_rng(1)
     images = [Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8))
               for w, h in ((448, 448), (896, 448), (448, 896), (896, 896))]
@@ -573,11 +955,32 @@ def run_serving(rt):
              "Explain in one sentence why the sky is blue."]
     raw = [[tok.bos_token_id] + tok.encode(f"[INST] {t} [/INST]\n")
            for t in texts]
-    totals = {k: 0 for k in read_counts()}
+    requests = []
+    for img, q in zip(images, questions):
+        ids, cm, emb, ecm, pp = _prepare_image_prompt(rt, img, q)
+        requests.append({"input_ids": ids, "image_embeds": emb,
+                         "embeds_cmp_mask": ecm, "ids_cmp_mask": cm,
+                         "patch_positions": pp})
+    requests += [{"input_ids": ids} for ids in raw]
+    return (images, questions, raw, requests * 2,
+            [8 + (56 * i) // 15 for i in range(16)])
 
-    def add(counts):
-        for k, n in counts.items():
-            totals[k] += n
+
+def run_serving(rt):
+    """Phase 5: the serving engines at full width on the turn's runtime."""
+    import base64
+    import io
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from seedx_tpu_torch.inference import continuous, serving
+    from seedx_tpu_torch.inference.server import SeedXServer
+
+    vocab_size = rt.agent_cfg.llm.vocab_size
+    images, questions, raw, requests, budgets = serving_inputs(rt)
+    totals = {}
 
     # -- ServingEngine: one flush of 8 requests, bucket groups of <= 8
     groups = []
@@ -605,7 +1008,7 @@ def run_serving(rt):
         wall = time.perf_counter() - t0
     finally:
         serving.generate_batch = base_generate
-    add(path_counts("serving batched"))
+    add_counts(totals, path_counts("serving batched"))
     for out in outs:
         check_tokens(out["tokens"], vocab_size, 32)
     steps = ", ".join(f"B{b} {t['decode'] / t['decode_forwards'] * 1e3:.2f} "
@@ -616,66 +1019,84 @@ def run_serving(rt):
                 read_counts())
 
     # -- ContinuousEngine: 8 slots, 16 requests with budgets 8..64
-    requests = []
-    for img, q in zip(images, questions):
-        ids, cm, emb, ecm, pp = _prepare_image_prompt(rt, img, q)
-        requests.append({"input_ids": ids, "image_embeds": emb,
-                         "embeds_cmp_mask": ecm, "ids_cmp_mask": cm,
-                         "patch_positions": pp})
-    requests += [{"input_ids": ids} for ids in raw]
-    requests = requests * 2
-    budgets = [8 + (56 * i) // 15 for i in range(16)]
-    decode = {"s": 0.0, "steps": 0}
-    base_chunk = continuous._decode_chunk
+    # per-chunk host time (closed by a synchronize) of both chunk kinds
+    timed = {"decode": [0.0, 0], "mixed": [0.0, 0]}
+    bases = {"decode": continuous._decode_chunk,
+             "mixed": continuous._mixed_chunk}
 
-    def timed_chunk(*a, **kw):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        n = base_chunk(*a, **kw)
-        torch.cuda.synchronize()
-        decode["s"] += time.perf_counter() - t1
-        decode["steps"] += n
-        return n
+    def timer(kind):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n = bases[kind](*a, **kw)
+            torch.cuda.synchronize()
+            timed[kind][0] += time.perf_counter() - t1
+            timed[kind][1] += n
+            return n
+        return run
 
     streams = {}
-    continuous._decode_chunk = timed_chunk
+    variants = (("dense", {}), ("paged", {"paged": True}),
+                ("fused dense", FUSED),
+                ("fused paged", dict(FUSED, paged=True)))
+    continuous._decode_chunk = timer("decode")
+    continuous._mixed_chunk = timer("mixed")
     try:
-        for paged in (False, True):
-            name = f"serving continuous {'paged' if paged else 'dense'}"
-            decode.update(s=0.0, steps=0)
+        for variant, kw in variants:
+            name = f"serving continuous {variant}"
+            for v in timed.values():
+                v[:] = [0.0, 0]
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
             t0 = time.perf_counter()
-            eng = continuous.ContinuousEngine(
-                rt, slots=8, max_new_tokens=128, chunk_steps=16,
-                prompt_buckets=(128, 256, 512), paged=paged, page_size=128)
-            ids = [eng.submit(r, max_new_tokens=b)
-                   for r, b in zip(requests, budgets)]
-            res = eng.run()
+            eng = continuous.ContinuousEngine(rt, **ENGINE, **kw)
+            # the non-fused dense run keeps its logits: the reference the
+            # forced runs below are held to (greedy tokens unchanged)
+            rec = (Teacher(continuous, engine_rows(eng)) if variant == "dense"
+                   else contextlib.nullcontext())
+            with rec as t:
+                ids = [eng.submit(r, max_new_tokens=b)
+                       for r, b in zip(requests, budgets)]
+                res = eng.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            add(path_counts(name))
-            streams[paged] = [list(res[i]["tokens"]) for i in ids]
-            for s_, b in zip(streams[paged], budgets):
+            if variant == "dense":
+                ref = t
+            fused = "fused_prefill" in kw
+            add_counts(totals, path_counts(
+                name, ("int4_w4a8", "decode_attn") if fused
+                else ("flash_fwd", "int4_w4a8", "decode_attn")))
+            modes = k3_modes()
+            if fused and modes["multi_query"] <= 0:
+                raise AssertionError(f"{name}: K3 never ran its multi-query "
+                                     f"mode: {modes}")
+            streams[variant] = [list(res[i]["tokens"]) for i in ids]
+            for s_, b in zip(streams[variant], budgets):
                 check_tokens(s_, vocab_size, b)
             st = eng.stats()
-            engine_line(name, len(ids), sum(map(len, streams[paged])), wall,
-                        f"B8 {decode['s'] / decode['steps'] * 1e3:.2f} "
-                        f"ms/step over {decode['steps']} steps in "
-                        f"{st['chunks']} chunks", read_counts())
-            if paged and st["kv_tiles_free"] != st["kv_tiles_total"]:
+            per = ", ".join(
+                f"{kind} {t_ / n * 1e3:.2f} ms/step over {n} steps"
+                for kind, (t_, n) in timed.items() if n)
+            engine_line(name, len(ids), sum(map(len, streams[variant])),
+                        wall, f"B8 {per} in {st['chunks']} chunks "
+                        f"({st['mixed_chunks']} mixed)", read_counts())
+            if kw.get("paged") and st["kv_tiles_free"] != st["kv_tiles_total"]:
                 raise AssertionError(f"paged pool leaked pages: {st}")
             del eng
     finally:
-        continuous._decode_chunk = base_chunk
-    if streams[True] != streams[False]:
-        bad = [i for i, (a, b) in enumerate(zip(streams[True],
-                                                streams[False])) if a != b]
-        raise AssertionError(f"paged token streams differ from dense at "
-                             f"requests {bad}")
-    log("serving continuous: paged token streams equal dense for all 16 "
-        "requests; every page returned to the pool")
+        continuous._decode_chunk = bases["decode"]
+        continuous._mixed_chunk = bases["mixed"]
+    for a_, b_ in (("paged", "dense"), ("fused paged", "fused dense")):
+        if streams[a_] != streams[b_]:
+            bad = [i for i, (x, y) in enumerate(zip(streams[a_],
+                                                    streams[b_])) if x != y]
+            raise AssertionError(f"{a_} token streams differ from {b_} at "
+                                 f"requests {bad}")
+    log("serving continuous: paged token streams equal dense, fused paged "
+        "equal fused dense, for all 16 requests; every page returned to "
+        "the pool")
+    limit = fused_logits_check(rt, requests, budgets, streams, ref)
 
     for slots in (1, 8):
         profile_decode(rt, requests, slots)
@@ -720,7 +1141,7 @@ def run_serving(rt):
         httpd.server_close()
         server.shutdown()
         serve_thread.join(60)
-    add(path_counts("serving http"))
+    add_counts(totals, path_counts("serving http"))
     if sorted(replies) != [0, 1, 2, 3] or any(
             s != 200 or not isinstance(r.get("text"), str)
             for s, r in replies.values()):
@@ -730,7 +1151,262 @@ def run_serving(rt):
         f"{read_counts()['decode_attn']}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; server stats "
         f"{json.dumps(stats)}")
+    return totals, requests, budgets, limit
+
+
+def fused_logits_check(rt, requests, budgets, streams, ref) -> float:
+    """The fused step at full depth, held by its logits: the non-fused
+    dense engine's tokens are forced through the fused engine (packed;
+    windowed, dense and paged) and through the batched loop, whose
+    difference from the non-fused engine is the noise floor.  Returns the
+    limit (``LOGIT_FACTOR`` x the noise floor); logs the greedy partings
+    of fused and non-fused dense with their gap in the fused logits."""
+    import torch
+
+    seqs = {i: forcing_sequence(s, rt.tokenizer)
+            for i, s in enumerate(streams["dense"])}
+    runs = {}
+    for name, kw in (("fused packed dense", FUSED),
+                     ("fused windowed dense", dict(FUSED, packed=False)),
+                     ("fused windowed paged",
+                      dict(FUSED, packed=False, paged=True))):
+        torch.cuda.empty_cache()
+        runs[name] = forced_engine(rt, requests, budgets, seqs,
+                                   f"forced {name}", **kw)
+    noise = logit_diff(ref, forced_batched(rt, requests, seqs), seqs)
+    limit = LOGIT_FACTOR * noise
+    log(f"logits, 40 layers, teacher-forced along the non-fused dense "
+        f"engine's {sum(map(len, seqs.values()))} tokens: noise floor (the "
+        f"batched loop vs the engine) max |diff| {noise:.5g}; limit "
+        f"{LOGIT_FACTOR:g} x that = {limit:.5g}")
+    for name, t in runs.items():
+        d = logit_diff(ref, t, seqs)
+        log(f"logits, 40 layers: {name} vs non-fused dense max |diff| "
+            f"{d:.5g} ({d / max(noise, 1e-30):.3g} x the noise floor)")
+        if not d <= limit:
+            raise AssertionError(f"{name}: logits differ from the non-fused "
+                                 f"engine's by {d:.5g} > {limit:.5g}")
+    # the limit must catch a broken stair: the fused step's stair shifted
+    # by one key, so each query attends one key too few or one too many
+    for shift in (-1, 1):
+        with stair_shift(shift):
+            t = forced_engine(rt, requests, budgets, seqs,
+                              f"forced fused packed dense, stair shifted "
+                              f"{shift:+d}", **FUSED)
+        d = logit_diff(ref, t, seqs)
+        log(f"logits, 40 layers: the stair shifted {shift:+d} gives max "
+            f"|diff| {d:.5g} ({d / max(noise, 1e-30):.3g} x the noise "
+            f"floor)")
+        if not d > limit:
+            raise AssertionError(f"the logit limit {limit:.5g} misses a "
+                                 f"stair shifted by {shift:+d} ({d:.5g})")
+    wd, wp = runs["fused windowed dense"], runs["fused windowed paged"]
+    if not all(torch.equal(wd.along(k, len(s)), wp.along(k, len(s)))
+               for k, s in seqs.items()):
+        raise AssertionError("fused windowed paged logits differ from "
+                             "fused windowed dense")
+    log("logits, 40 layers: fused windowed paged equal fused windowed "
+        "dense bit for bit")
+    fused = runs["fused packed dense"]
+    parts = [tie_check(f"fused vs dense request {i}",
+                       streams["fused dense"][i], streams["dense"][i],
+                       fused.along(i, len(seqs[i])), enforce=False)
+             for i in range(len(requests))]
+    log(f"serving continuous, 40 layers: fused dense vs non-fused dense "
+        f"streams {parting_summary(parts)} (logged, not held: see "
+        f"LOGIT_FACTOR)")
+    return limit
+
+
+def chat_image():
+    rng = np.random.default_rng(3)
+    from PIL import Image
+
+    return Image.fromarray((rng.random((448, 896, 3)) * 255).astype(
+        np.uint8))
+
+
+def chat_turns(rt, label: str, enforce: bool, limit=None):
+    """Three chat turns (an 896x448 image in the first) through a session
+    with the KV prefix cache and one without; returns the launches, read
+    right after those six sends.  Then a third session with the prefix
+    cache is teacher-forced along the uncached session's replies: its
+    logits give the gap where the greedy replies part, and, given
+    ``limit``, must stay within it of the uncached session's."""
+    import torch
+
+    from seedx_tpu_torch.inference.chat import ChatSession
+    from seedx_tpu_torch.models import generation
+
+    image = chat_image()
+    sends = [("Describe the image in detail.", image),
+             ("What colors stand out?", None),
+             ("Write one sentence about it.", None)]
+    sessions = {"cached": ChatSession(rt, prefix_cache=True,
+                                      cache_capacity=2048),
+                "full": ChatSession(rt, prefix_cache=False)}
+    one_row = (lambda call: ([0], call))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    outs, refs = [], []
+    for turn, (text, img) in enumerate(sends, 1):
+        out = {}
+        for name, sess in sessions.items():
+            t = {}
+            # the uncached session keeps its logits (greedy tokens unchanged)
+            with (Teacher(generation, one_row) if name == "full"
+                  else contextlib.nullcontext()) as rec:
+                out[name] = sess.send(text, image=img, max_new_tokens=32,
+                                      timings=t)
+            if name == "full":
+                refs.append(rec)
+            check_tokens(out[name]["tokens"], rt.agent_cfg.llm.vocab_size,
+                         32)
+            log(f"{label} {name} turn {turn}: prefill "
+                f"{sess.last_prefill_tokens} tokens in "
+                f"{t['prefill'] * 1e3:.1f} ms (reused "
+                f"{sess.last_reused}), decode {t['decode'] * 1e3:.1f} ms "
+                f"for {t['decode_tokens']} tokens")
+        if turn > 1 and sessions["cached"].last_reused <= 0:
+            raise AssertionError(f"{label} turn {turn}: the prefix cache "
+                                 f"was not reused")
+        outs.append(out)
+    counts = path_counts(label)
+    log(f"{label}: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    reset_counts()
+    forced = ChatSession(rt, prefix_cache=True, cache_capacity=2048)
+    compared, worst = True, 0.0
+    for turn, ((text, img), out, ref) in enumerate(zip(sends, outs, refs),
+                                                   1):
+        seq = forcing_sequence(out["full"]["tokens"], rt.tokenizer)
+        with Teacher(generation, one_row, {0: seq}) as t:
+            got = forced.send(text, image=img, max_new_tokens=32)
+        if [int(x) for x in got["tokens"]] != seq:
+            raise AssertionError(f"{label} turn {turn}: forcing failed")
+        lg = t.along(0, len(seq))
+        worst = max(worst, (ref.along(0, len(seq)) - lg).abs().max().item())
+        if compared:
+            gap = tie_check(f"{label} turn {turn}", out["cached"]["tokens"],
+                            out["full"]["tokens"], lg, enforce)
+            if gap is None:
+                log(f"{label} turn {turn}: cached and full-prefill replies "
+                    f"equal ({len(seq)} tokens)")
+            else:
+                compared = False       # the histories differ from here on
+                log(f"{label}: later turns' greedy histories differ after "
+                    f"the parting; not compared")
+        if len(seq) != len(out["full"]["tokens"]):
+            log(f"{label}: the reply of turn {turn} holds <img>; later "
+                f"turns not forced")
+            break
+    add_counts(CHECKS, path_counts(f"{label} forced"))
+    if limit is not None:
+        log(f"{label}: logits of the forced cached session vs the full "
+            f"prefill max |diff| {worst:.5g} (limit {limit:.5g})")
+        if not worst <= limit:
+            raise AssertionError(f"{label}: cached chat logits differ by "
+                                 f"{worst:.5g} > {limit:.5g}")
+    return counts
+
+
+def run_chat(rt, limit: float):
+    """Phase 6: chat turns with and without the KV prefix cache at full
+    depth (their logits held to ``limit``), then two POSTs to /v1/chat on
+    one session."""
+    import base64
+    import io
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from seedx_tpu_torch.inference.server import SeedXServer
+
+    totals = chat_turns(rt, "chat", enforce=False, limit=limit)
+    image = chat_image()
+
+    # -- /v1/chat: two POSTs on one session
+    torch.cuda.empty_cache()
+    reset_counts()
+    server = SeedXServer(rt, max_new_tokens=16)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler())
+    serve_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serve_thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    buf = io.BytesIO()
+    image.save(buf, format="PNG")
+    bodies = [{"session": "smoke", "message": "What is this?",
+               "image": base64.b64encode(buf.getvalue()).decode("ascii"),
+               "max_new_tokens": 16},
+              {"session": "smoke", "message": "And the colors?",
+               "max_new_tokens": 16}]
+    replies = []
+    t0 = time.perf_counter()
+    try:
+        for body in bodies:
+            req = urllib.request.Request(
+                url + "/v1/chat", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                replies.append((r.status, json.loads(r.read())))
+        wall = time.perf_counter() - t0
+        stats = server.stats()
+        reused = server._sessions["smoke"].last_reused
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+        serve_thread.join(60)
+    add_counts(totals, path_counts("chat http"))
+    if (len(replies) != 2 or any(s_ != 200 or r.get("session") != "smoke"
+                                 or not isinstance(r.get("text"), str)
+                                 for s_, r in replies)
+            or stats["chat_sessions"] != 1):
+        raise AssertionError(f"/v1/chat: {replies} {stats}")
+    log(f"chat http: 2 POSTs on one session answered 200 in {wall:.2f} s, "
+        f"second turn reused {reused} cached tokens; server stats "
+        f"{json.dumps(stats)}")
     return totals
+
+
+def run_parity(dev, requests, budgets) -> None:
+    """Phase 7: the tie rule, enforced on an agent of the same width cut to
+    PARITY_LAYERS layers (same seed): the continuous engine's 16 requests
+    non-fused and fused (the gaps from the fused engine teacher-forced
+    along the non-fused streams), and the chat turns with and without the
+    prefix cache.  Its launches go to ``CHECKS``."""
+    import torch
+
+    from seedx_tpu_torch.inference.continuous import ContinuousEngine
+
+    rt = build_runtime(dev, PARITY_LAYERS)
+    streams = {}
+    for variant, kw in (("dense", {}), ("fused dense", FUSED)):
+        reset_counts()
+        eng = ContinuousEngine(rt, **ENGINE, **kw)
+        ids = [eng.submit(r, max_new_tokens=b)
+               for r, b in zip(requests, budgets)]
+        res = eng.run()
+        torch.cuda.synchronize()
+        add_counts(CHECKS, path_counts(
+            f"parity {variant}", ("int4_w4a8", "decode_attn") if kw
+            else ("flash_fwd", "int4_w4a8", "decode_attn")))
+        streams[variant] = [list(res[i]["tokens"]) for i in ids]
+    seqs = {i: forcing_sequence(s, rt.tokenizer)
+            for i, s in enumerate(streams["dense"])}
+    fused = forced_engine(rt, requests, budgets, seqs,
+                          "parity forced fused dense", **FUSED)
+    parts = [tie_check(f"parity {PARITY_LAYERS} layers request {i}",
+                       streams["fused dense"][i], streams["dense"][i],
+                       fused.along(i, len(seqs[i])), enforce=True)
+             for i in range(len(requests))]
+    log(f"parity, {PARITY_LAYERS} layers: fused dense vs non-fused dense "
+        f"streams {parting_summary(parts)}; every parting a tie")
+    add_counts(CHECKS, chat_turns(rt, f"chat {PARITY_LAYERS} layers",
+                                  enforce=True))
 
 
 def profile_decode(rt, requests, slots: int) -> None:
@@ -839,8 +1515,19 @@ def main() -> int:
 
     rt = build_runtime(dev)
     launches = run_turn(rt)
-    for k, n in run_serving(rt).items():
-        launches[k] += n
+    served, requests, budgets, limit = run_serving(rt)
+    add_counts(launches, served)
+    add_counts(launches, run_chat(rt, limit))
+    # the HTTP handler classes hold the servers, and so the runtime, in
+    # reference cycles: collect them before the parity agent is built
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_parity(dev, requests, budgets)
+    log(f"main path (turn, serving, chat): launches {json.dumps(launches)}")
+    log(f"check runs (teacher-forced engines, batched loop and chat; the "
+        f"{PARITY_LAYERS}-layer parity agent): launches "
+        f"{json.dumps(CHECKS)}; not in the kernels line")
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -852,6 +1539,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            **({"launches_by_mode": {
+                m: launches[f"{name} {m}"] for m in ("one_query",
+                                                     "multi_query")}}
+               if name == "decode_attn" else {}),
             "max_abs_err": max(r["err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),

@@ -1,6 +1,5 @@
 """Continuous (slot-based) batching: rolling admission into a live decode
-(reference: seedx_tpu/inference/continuous.py, its default non-fused
-path).
+(reference: seedx_tpu/inference/continuous.py).
 
 ``ServingEngine.flush`` batches, but every request of a batch starts and
 finishes together, so one long answer holds the whole batch.  This engine
@@ -20,11 +19,22 @@ keeps a fixed pool of B *slots*:
     harvested, in the reserved dump page 0) and are harvested and refilled
     between chunks.
 
+Fused (Sarathi-style chunked) prefill, ``fused_prefill=True`` (off by
+default, as in the JAX package): admission only writes the request's
+prompt embeddings into a per-slot buffer, and while any slot is
+mid-prompt the chunk runs *mixed* steps in which decoding rows emit one
+token and prefilling rows consume up to ``prefill_width`` prompt tokens,
+their KV written at per-row offsets (``models/llama.py`` fused step; the
+ragged kernel's multi-query "stair" mode on the card).  With an int4
+agent the step is by default *packed*: P = slots + prefill_width real
+tokens, the prompt chunk shared greedily in row order across the
+prefilling rows; otherwise (or with ``packed=False``) every row gets a
+``prefill_width``-slot window.  The host keeps
+an exact replay of the prompt tokens each slot still has to prefill.
+
 Greedy by default; ``do_sample`` draws from a ``torch.Generator`` seeded
 with ``seed`` (the JAX engine's ``jax.random`` stream gives other numbers).
-Not ported yet: fused (chunked) prefill (``fused_prefill``, which needs
-the ragged kernel's multi-query mode) and ``warmup``, which only
-precompiles XLA programs.
+Not ported: ``warmup``, which only precompiles XLA programs.
 """
 
 from __future__ import annotations
@@ -158,6 +168,142 @@ def _decode_chunk(model, state, gen_cfg: GenerationConfig, vocab, k: int,
     return steps
 
 
+def _admit_fused(state, row: int, embeds, p_len: int, last_token: int,
+                 budget: int, tile_ids=None) -> None:
+    """Fused admission (reference ``_admit_fused``): write the request's
+    padded prompt embeddings [1, p_pad, D] into slot ``row``'s buffer and
+    arm its prefill cursor; no forward runs here.  ``tile_ids`` (paged)
+    points the slot's block table at its pages, through which the mixed
+    steps write the prompt's KV."""
+    dev = state["pos"].device
+    if tile_ids is not None:
+        state["tables"][row] = torch.as_tensor(np.asarray(tile_ids),
+                                               dtype=torch.int32, device=dev)
+    state["prompt_embeds"][row] = embeds[0]
+    state["pos"][row] = 0
+    state["p_pos"][row] = 0
+    state["p_len"][row] = p_len
+    state["n"][row] = 0
+    # the LAST PROMPT token: prefill leaves it in place, so the first
+    # sampled step sees it for the constrained <img> forcing
+    state["prev_token"][row] = last_token
+    state["running"][row] = True
+    state["budget"][row] = budget
+    state["out_tokens"][row] = 0
+
+
+@torch.no_grad()
+def _mixed_chunk(model, state, gen_cfg: GenerationConfig, vocab, k: int,
+                 s_max: int, w: int, packed: bool,
+                 generator: Optional[torch.Generator] = None) -> int:
+    """Advance every slot by up to ``k`` mixed steps (reference
+    ``_mixed_chunk``): decoding rows emit one token a step, prefilling
+    rows consume prompt-buffer tokens; a row whose prompt completes at
+    step i samples from step i + 1 on.  ``packed`` carries P = slots + w
+    real tokens a step (decoding rows' tokens, then a w-token prompt chunk
+    shared greedily in row order); else each row gets a w-slot window.
+    Returns the steps run."""
+    b, t = state["out_tokens"].shape
+    n_img = gen_cfg.num_img_gen_tokens
+    dev = state["pos"].device
+    rows = torch.arange(b, device=dev)
+    span = torch.arange(s_max, device=dev)
+    off = torch.arange(w, device=dev)
+    steps = 0
+    while steps < k and bool(state["running"].any()):
+        running = state["running"]
+        prefilling = running & (state["p_pos"] < state["p_len"])
+        decoding = running & ~prefilling
+
+        constrained = constrain_image_tokens(
+            state["prev_token"], state["prev_logits"], vocab, n_img)
+        token = _sample(constrained, gen_cfg, generator)
+        token = torch.where(decoding, token, gen_cfg.pad_token_id)
+
+        # collect (read-modify-write so non-decoding rows keep their cells)
+        n_w = torch.clamp(state["n"], max=t - 1)
+        cur_tok = state["out_tokens"][rows, n_w]
+        state["out_tokens"][rows, n_w] = torch.where(decoding, token, cur_tok)
+        cur_hid = state["out_hidden"][rows, n_w]
+        state["out_hidden"][rows, n_w] = torch.where(
+            decoding[:, None], state["prev_hidden"], cur_hid)
+
+        ended = token == gen_cfg.eos_token_id
+        n_new = torch.where(decoding, state["n"] + 1, state["n"])
+        still = torch.where(decoding,
+                            decoding & ~ended & (n_new < state["budget"]),
+                            running)
+
+        pos = state["pos"]
+        left = state["p_len"] - state["p_pos"]
+        if packed:
+            # the prompt chunk: w tokens shared greedily in row order (the
+            # host's _prefill_remaining replays this rule exactly)
+            need = torch.where(prefilling, torch.clamp(left, max=w), 0)
+            cum = torch.cumsum(need, 0)
+            alloc = torch.minimum(torch.clamp(w - (cum - need), min=0), need)
+            w_valid = torch.where(decoding, 1, alloc)
+            acum = torch.cumsum(alloc, 0)
+            # prompt token o belongs to the first row whose acum exceeds o
+            r_j = torch.searchsorted(acum, off, right=True)
+            valid_p = off < acum[-1]
+            r_c = torch.clamp(r_j, max=b - 1)
+            slot_p = off - (acum[r_c] - alloc[r_c])
+            emb_p = state["prompt_embeds"][r_c, state["p_pos"][r_c] + slot_p]
+            embeds = torch.cat([model.embed_ids(token).to(emb_p.dtype),
+                                emb_p])                          # [P, D]
+            tok_row = torch.cat([torch.where(decoding, rows, b),
+                                 torch.where(valid_p, r_j, b)])
+            tok_slot = torch.cat([torch.zeros_like(rows), slot_p])
+            positions = pos[torch.clamp(tok_row, max=b - 1)] + tok_slot
+            kv_valid = span[None, :] <= (pos + w_valid - 1)[:, None]
+            logits, hidden, _ = model.llm_step(
+                embeds, positions, kv_valid, state["cache"], pos,
+                block_tables=state.get("tables"), write_widths=w_valid,
+                tok_row=tok_row, tok_slot=tok_slot, packed_window=w)
+            # each row's LAST token: a decoding row's sole token sits at
+            # packed index row, a prefilling row's chunk ends at
+            # b + acum - 1; rows given no token gather what `active` masks
+            last = torch.clamp(torch.where(decoding, rows, b + acum - 1), 0,
+                               b + w - 1)
+            last_logits, last_hidden = logits[last], hidden[last]
+            active = decoding | (prefilling & (alloc > 0))
+        else:
+            # [b, w] window: the prompt slice for prefilling rows, the
+            # sampled token in slot 0 (the rest garbage) for decoding rows
+            prompt_win = state["prompt_embeds"][rows[:, None],
+                                                state["p_pos"][:, None] + off]
+            tok_win = torch.nn.functional.pad(
+                model.embed_ids(token[:, None]).to(prompt_win.dtype),
+                (0, 0, 0, w - 1))
+            embeds = torch.where(prefilling[:, None, None], prompt_win,
+                                 tok_win)
+            w_valid = torch.where(prefilling, torch.clamp(left, max=w),
+                                  decoding.long())
+            positions = pos[:, None] + off
+            kv_valid = span[None, :] <= (pos + w_valid - 1)[:, None]
+            logits, hidden, _ = model.llm_step(
+                embeds, positions, kv_valid, state["cache"], pos,
+                block_tables=state.get("tables"), write_widths=w_valid)
+            last = torch.clamp(w_valid - 1, min=0)
+            last_logits, last_hidden = logits[rows, last], hidden[rows, last]
+            active = prefilling | decoding
+
+        keep = active[:, None]
+        state["prev_logits"] = torch.where(keep, last_logits.float(),
+                                           state["prev_logits"])
+        state["prev_hidden"] = torch.where(keep, last_hidden,
+                                           state["prev_hidden"])
+        state["prev_token"] = torch.where(decoding, token,
+                                          state["prev_token"])
+        state["n"] = n_new
+        state["running"] = still
+        state["pos"] = pos + w_valid
+        state["p_pos"] = state["p_pos"] + torch.where(prefilling, w_valid, 0)
+        steps += 1
+    return steps
+
+
 class ContinuousEngine:
     """Rolling-admission decode over a fixed slot pool.
 
@@ -177,12 +323,20 @@ class ContinuousEngine:
                  do_sample: bool = False, temperature: float = 0.7,
                  top_p: float = 0.5, seed: int = 0,
                  paged: bool = False, page_size: int = 128,
-                 pool_tokens: int = 0):
+                 pool_tokens: int = 0, fused_prefill: bool = False,
+                 prefill_width: int = 8, packed: Optional[bool] = None):
         """``paged=True`` replaces the dense per-slot KV reservation
         (slots x (max bucket + max_new_tokens) rows) with a shared pool of
         ``page_size``-row pages and per-slot block tables; ``pool_tokens``
         (default: the dense footprint) sizes it.  Needs an int4 agent with
-        ``decode_attention`` on (the ragged kernel reads the pages)."""
+        ``decode_attention`` on (the ragged kernel reads the pages).
+
+        ``fused_prefill`` interleaves prompt prefill into the decode chunks,
+        ``prefill_width`` prompt tokens a step (see the module docstring),
+        instead of a bucket prefill on admission; off by default, as in the
+        JAX package.  It composes with ``paged``.  ``packed`` picks the
+        mixed step's layout: True packed, False windowed, None (default)
+        packed for an int4 agent and windowed otherwise."""
         self.rt = rt
         self.model = rt.agent
         self.vocab = rt.tokenizer.vocab
@@ -203,6 +357,8 @@ class ContinuousEngine:
         self._generated_tokens = 0
         self._chunks = 0
         self._steps = 0
+        self._mixed_chunks = 0
+        self._mixed_steps = 0
 
         cfg = self.model.cfg.llm
         dev = next(self.model.buffers()).device
@@ -215,6 +371,16 @@ class ContinuousEngine:
         s_max = max(self.gen_cfg.prompt_buckets) + t
         self._s_max = s_max
         self.paged = paged
+        self.fused = fused_prefill
+        self.prefill_width = prefill_width
+        # by default the packed fused layout for an int4 agent (the JAX
+        # engine's _packed gate: its stacked int4 loop is this port's only
+        # loop)
+        self._packed = (cfg.quantization == "int4" if packed is None
+                        else packed)
+        # host mirror of each slot's prompt tokens still to prefill (exact:
+        # step() replays the device's allocation rule)
+        self._prefill_remaining = [0] * slots
         if paged:
             if cfg.quantization != "int4" or cfg.decode_attention == "never":
                 raise ValueError("paged KV requires quantization='int4' "
@@ -253,6 +419,15 @@ class ContinuousEngine:
         if paged:
             self.state["tables"] = torch.zeros(
                 (slots, s_max // page_size), dtype=torch.int32, device=dev)
+        if self.fused:
+            # + prefill_width rows: a window read past a prompt's end stays
+            # inside the buffer (those slots are discarded)
+            self._p_pad = max(self.gen_cfg.prompt_buckets) + prefill_width
+            self.state["prompt_embeds"] = torch.zeros(
+                (slots, self._p_pad, cfg.hidden_size), dtype=cfg.dtype,
+                device=dev)
+            self.state["p_pos"] = torch.zeros((slots,), **i64)
+            self.state["p_len"] = torch.zeros((slots,), **i64)
 
     # ---- submission ------------------------------------------------------
 
@@ -280,6 +455,34 @@ class ContinuousEngine:
         return rid
 
     # ---- internals -------------------------------------------------------
+
+    def _embed_prompt(self, request):
+        """One request's prompt (ids + spliced image embeddings) padded to
+        the prompt buffer's length -> [1, p_pad, D] (reference
+        ``_embed_prompt``)."""
+        dev = self.device
+        ids = np.full((1, self._p_pad), self.gen_cfg.pad_token_id, np.int64)
+        p = len(request["input_ids"])
+        ids[0, :p] = np.asarray(request["input_ids"], np.int64)
+        cm = request.get("ids_cmp_mask")
+        cmp_padded = None
+        if cm is not None:
+            cmp_padded = np.zeros((1, self._p_pad), bool)
+            cmp_padded[0, :p] = np.asarray(cm, bool)
+        image_embeds = request.get("image_embeds")
+        ecm = ppos = None
+        if image_embeds is not None:
+            image_embeds = torch.as_tensor(image_embeds, device=dev)
+            ecm = torch.as_tensor(np.asarray(request["embeds_cmp_mask"],
+                                             bool), device=dev)
+            pp = request.get("patch_positions")
+            ppos = (torch.as_tensor(pp, dtype=torch.float32, device=dev)
+                    if pp is not None else None)
+        with torch.no_grad():
+            return self.model.embed_with_images(
+                torch.as_tensor(ids, device=dev), image_embeds,
+                torch.as_tensor(cmp_padded, device=dev)
+                if cmp_padded is not None else None, ecm, ppos)
 
     def _prefill_group(self, requests, bucket):
         """One prefill for every request of a prompt bucket; prompts are
@@ -347,6 +550,18 @@ class ContinuousEngine:
                     deferred.append(item)
             self._pending = deferred + self._pending
             take = admitted
+        if self.fused:
+            # admission is a prompt-buffer write; the mixed chunks prefill
+            for rid, request, budget in take:
+                row = free.pop(0)
+                p_len = len(request["input_ids"])
+                _admit_fused(self.state, row, self._embed_prompt(request),
+                             p_len, int(request["input_ids"][-1]), budget,
+                             self._allocate_tiles(row, request, budget)
+                             if self.paged else None)
+                self._slot_req[row] = rid
+                self._prefill_remaining[row] = p_len
+            return
         by_bucket: Dict[int, list] = {}
         for item in take:
             p_len = len(item[1]["input_ids"])
@@ -361,15 +576,22 @@ class ContinuousEngine:
                 args = (self.state, row, minis, j, len(request["input_ids"]),
                         lgs, lhs, int(request["input_ids"][-1]), budget)
                 if self.paged:
-                    n_t = self._tiles_needed(request, budget)
-                    tiles = [self._free_tiles.pop() for _ in range(n_t)]
-                    self._slot_tiles[row] = tiles
-                    ids = np.zeros((self._s_max // self.page,), np.int32)
-                    ids[:n_t] = tiles
-                    _admit_paged(*args, ids, page=self.page)
+                    _admit_paged(*args, self._allocate_tiles(row, request,
+                                                             budget),
+                                 page=self.page)
                 else:
                     _admit(*args)
                 self._slot_req[row] = rid
+
+    def _allocate_tiles(self, row: int, request, budget: int) -> np.ndarray:
+        """Take the pages slot ``row``'s request needs; returns its block
+        table row (unused entries 0, the dump page)."""
+        n_t = self._tiles_needed(request, budget)
+        tiles = [self._free_tiles.pop() for _ in range(n_t)]
+        self._slot_tiles[row] = tiles
+        ids = np.zeros((self._s_max // self.page,), np.int32)
+        ids[:n_t] = tiles
+        return ids
 
     def _harvest(self):
         running = self.state["running"].cpu().numpy()
@@ -427,7 +649,9 @@ class ContinuousEngine:
                "completed": self._completed,
                "generated_tokens": self._generated_tokens,
                "chunks": self._chunks,
-               "decode_steps": self._steps}
+               "decode_steps": self._steps,
+               "mixed_chunks": self._mixed_chunks,
+               "mixed_steps": self._mixed_steps}
         if self.paged:
             out["kv_tiles_free"] = len(self._free_tiles)
             out["kv_tiles_total"] = self._pool_tiles - 1
@@ -437,12 +661,37 @@ class ContinuousEngine:
         """Admit -> one decode chunk -> harvest.  Returns #results ready."""
         self._admit_pending()
         if any(r is not None for r in self._slot_req):
-            self._steps += _decode_chunk(
-                self.model, self.state, self.gen_cfg, self.vocab,
-                self.chunk_steps, self._s_max, self._generator)
+            if self.fused and any(self._prefill_remaining):
+                # a slot is mid-prompt: the mixed (prefill + decode) chunk
+                n = _mixed_chunk(self.model, self.state, self.gen_cfg,
+                                 self.vocab, self.chunk_steps, self._s_max,
+                                 self.prefill_width, self._packed,
+                                 self._generator)
+                self._replay_prefill(n)
+                self._mixed_steps += n
+                self._mixed_chunks += 1
+            else:
+                self._steps += _decode_chunk(
+                    self.model, self.state, self.gen_cfg, self.vocab,
+                    self.chunk_steps, self._s_max, self._generator)
             self._chunks += 1
         self._harvest()
         return len(self._results)
+
+    def _replay_prefill(self, steps: int) -> None:
+        """The device's prompt consumption over ``steps`` mixed steps,
+        replayed on the host (reference ``step()``, continuous.py:890-920):
+        packed, each step shares ``prefill_width`` tokens across the
+        prefilling slots in row order; windowed, each prefilling slot takes
+        up to ``prefill_width``."""
+        w = self.prefill_width
+        rem = self._prefill_remaining
+        for _ in range(steps):
+            budget = w
+            for r in range(len(rem)):
+                take = min(rem[r], budget if self._packed else w)
+                rem[r] -= take
+                budget -= take
 
     def run(self) -> Dict[int, Dict[str, Any]]:
         """Drain the queue; returns {request_id: result}."""

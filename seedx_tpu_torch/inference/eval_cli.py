@@ -1,8 +1,9 @@
 """Command-line entry points of the port (reference:
-seedx_tpu/inference/eval_cli.py).  Only ``serve`` is ported so far:
+seedx_tpu/inference/eval_cli.py): ``serve`` and ``chat``.
 
   python -m seedx_tpu_torch.inference.eval_cli serve --requests reqs.jsonl \\
       --debug [--device cpu] [--engine batched|continuous [--paged]]
+  python -m seedx_tpu_torch.inference.eval_cli chat --debug [--device cpu]
 
 JSONL in (one request per line: ``{"kind": "comprehend", "image": PATH,
 "question": Q}``, ``{"kind": "t2i", "caption": C}``, ``{"kind": "edit",
@@ -11,11 +12,18 @@ JSONL in (one request per line: ``{"kind": "comprehend", "image": PATH,
 by default), one JSONL result per request out, in request order.
 ``--engine batched`` groups requests into prompt buckets
 (``ServingEngine``); ``continuous`` runs a slot pool with rolling
-admission (``ContinuousEngine``, ``--paged`` for the page pool).  The SDXL
-adapter is not ported, so t2i / edit requests give text and ``images:
-null``.  ``--debug`` (or SEEDX_DEBUG=1) runs the tiny random stack; the
-released weights cannot be loaded yet.  The other subcommands (img2text,
-ground, text2img, edit, detokenize, chat) are not ported yet.
+admission (``ContinuousEngine``, ``--paged`` for the page pool).  The
+SDXL adapter is not ported, so t2i / edit requests give text and
+``images: null``.
+
+``chat`` reads one user turn per stdin line (``img:PATH text`` attaches an
+image; ``exit`` or ``quit`` ends) and prints each reply, over one
+``ChatSession`` with its KV prefix cache.
+
+``--debug`` (or SEEDX_DEBUG=1) runs the tiny random stack; the released
+weights cannot be loaded yet.  Everything runs on the card unless
+``--device cpu``.  The other subcommands (img2text, ground, text2img,
+edit, detokenize) are not ported yet.
 """
 
 from __future__ import annotations
@@ -68,7 +76,7 @@ def _request(rt, r):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("command", choices=["serve"])
+    p.add_argument("command", choices=["serve", "chat"])
     p.add_argument("--requests",
                    help="JSONL file of requests (default stdin)")
     p.add_argument("--engine", default="batched",
@@ -94,6 +102,8 @@ def main(argv=None):
     from seedx_tpu_torch.text import prompts
 
     rt = _load_runtime(args)
+    if args.command == "chat":
+        return _chat(rt, args.max_new_tokens)
     if args.requests:
         with open(args.requests) as f:
             reqs = [json.loads(ln) for ln in f if ln.strip()]
@@ -135,6 +145,30 @@ def main(argv=None):
             "id": i, "text": prompts.strip_markup(res["text"]),
             "num_gen_imgs": int(res.get("num_gen_imgs", 0)),
             "images": None}))
+    return 0
+
+
+def _chat(rt, max_new_tokens: int) -> int:
+    """One ChatSession over stdin lines (reference eval_cli.py:196-220)."""
+    from PIL import Image
+
+    from seedx_tpu_torch.inference.chat import ChatSession
+
+    session = ChatSession(rt)
+    print("chat ready: 'img:PATH text' attaches an image, 'exit' quits",
+          flush=True)
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            continue
+        if line in ("exit", "quit"):
+            break
+        image = None
+        if line.startswith("img:"):
+            path, _, line = line[4:].partition(" ")
+            image = Image.open(path).convert("RGB")
+        out = session.send(line, image=image, max_new_tokens=max_new_tokens)
+        print(out["text"], flush=True)
     return 0
 
 

@@ -10,10 +10,13 @@ Endpoints (JSON bodies; images travel as base64 PNG/JPEG):
   POST /v1/generate    {"caption"}
   POST /v1/edit        {"image", "instruction"}
   POST /v1/raw         {"input_ids": [...]}           (pre-tokenized)
+  POST /v1/chat        {"session", "message", "image"?, "max_new_tokens"?}
 
 ``/v1/generate`` and ``/v1/edit`` answer with their text and ``images:
-null`` until the SDXL adapter is ported; ``/v1/chat`` (chat sessions with
-a prefix cache) is not ported yet and answers 404.
+null`` until the SDXL adapter is ported, as does ``/v1/chat``, whose
+replies carry ``session`` too.  Each chat session owns a KV prefix cache on
+the device (``inference/chat.py``); at most ``max_sessions`` live at once,
+the least recently used evicted first.
 
 Threading model: one dispatcher thread owns every device call.  HTTP
 handler threads enqueue jobs and wait on a per-job event.  Everything
@@ -32,6 +35,7 @@ import io
 import json
 import queue
 import threading
+from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
@@ -62,7 +66,10 @@ class SeedXServer:
     """Dispatcher + HTTP plumbing around one ``SeedXRuntime``."""
 
     def __init__(self, rt, max_batch_size: int = 8,
-                 max_new_tokens: int = 512, request_timeout: float = 600.0):
+                 max_new_tokens: int = 512, request_timeout: float = 600.0,
+                 max_sessions: int = 8):
+        """``max_sessions`` bounds the live chat sessions (LRU eviction):
+        each holds a preallocated KV cache on the device."""
         from seedx_tpu_torch.inference.serving import ServingEngine
 
         self.rt = rt
@@ -70,6 +77,8 @@ class SeedXServer:
                                     max_new_tokens=max_new_tokens)
         self.request_timeout = request_timeout
         self._queue: "queue.Queue[Optional[_Job]]" = queue.Queue()
+        self._sessions: "OrderedDict[str, Any]" = OrderedDict()
+        self._max_sessions = max(1, max_sessions)
         self._served = 0
         self._errors = 0
         self._batches = 0
@@ -167,10 +176,41 @@ class SeedXServer:
                 "has_img_output": bool(out.get("has_img_output")),
             })
 
+    def _run_chat(self, job: _Job):
+        from seedx_tpu_torch.inference.chat import ChatSession
+
+        p = job.payload
+        try:
+            sid, message = str(p["session"]), p["message"]
+            image = _decode_image(p["image"]) if p.get("image") else None
+        except KeyError as e:
+            return self._finish(job, error=f"missing field {e}", status=400)
+        except (ValueError, OSError) as e:   # not base64 / not an image
+            return self._finish(job, error=f"bad image: {e}", status=400)
+        try:
+            sess = self._sessions.get(sid)
+            if sess is None:
+                # evict before allocating: a session's KV cache is device
+                # memory, never freed implicitly
+                while len(self._sessions) >= self._max_sessions:
+                    self._sessions.popitem(last=False)
+                sess = self._sessions[sid] = ChatSession(self.rt)
+            else:
+                self._sessions.move_to_end(sid)
+            out = sess.send(message, image=image,
+                            max_new_tokens=p.get("max_new_tokens", 512),
+                            spec_k=p.get("spec_k", 0))
+        except Exception as e:
+            return self._finish(job, error=f"{type(e).__name__}: {e}")
+        self._finish(job, result={"session": sid, "text": out["text"],
+                                  "images": None})
+
     def _run_single(self, job: _Job):
         from seedx_tpu_torch.inference import apps
 
         p = job.payload
+        if job.kind == "chat":
+            return self._run_chat(job)
         if job.kind != "ground":
             return self._finish(job, error=f"unknown kind {job.kind}",
                                 status=400)
@@ -206,7 +246,8 @@ class SeedXServer:
         with self._lock:
             return {"served": self._served, "errors": self._errors,
                     "batches": self._batches,
-                    "queued": self._queue.qsize()}
+                    "queued": self._queue.qsize(),
+                    "chat_sessions": len(self._sessions)}
 
     def shutdown(self, timeout: float = 60.0):
         """Stop the dispatcher after the jobs already queued."""
@@ -243,7 +284,8 @@ class SeedXServer:
                          "/v1/ground": "ground",
                          "/v1/generate": "generate",
                          "/v1/edit": "edit",
-                         "/v1/raw": "raw"}
+                         "/v1/raw": "raw",
+                         "/v1/chat": "chat"}
                 kind = kinds.get(self.path)
                 if kind is None:
                     return self._reply(404, {"error": "not found"})

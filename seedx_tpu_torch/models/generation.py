@@ -14,8 +14,10 @@ emitted; when every live row sits at ``<img>``, that forced span runs as
 one (n+1)-token forward into the cache (the "chunk"), whose hidden states
 feed the output resampler.  The JAX package segments its jitted
 while-loops only to keep ``lax.cond`` out of the loop body; a Python loop
-needs no such structure.  Speculative decoding, ``script_ids``, beam search
-and the prefix-cached path are not ported yet.
+needs no such structure.  ``generate_tokens_cached`` (multi-turn chat)
+prefills only a prompt's new suffix into a persistent cache and runs the
+same decode loop.  Speculative decoding, ``script_ids`` and beam search are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -106,7 +108,6 @@ def generate_tokens(model: ContinuousLVLM, prompt_embeds: torch.Tensor,
     b, p, _ = prompt_embeds.shape
     dev = prompt_embeds.device
     t = gen_cfg.max_new_tokens
-    n_img = gen_cfg.num_img_gen_tokens
     cache = init_kv_cache(model.cfg.llm, b, p + t, device=dev)
 
     clock = PhaseClock(dev, timings)
@@ -117,12 +118,38 @@ def generate_tokens(model: ContinuousLVLM, prompt_embeds: torch.Tensor,
                          dim=-1)
     logits, hidden, _ = model.llm_step(prompt_embeds, positions, kv_valid,
                                        cache, 0)
-    prev_logits = logits[:, -1].float()
-    prev_hidden = hidden[:, -1]
-    prev_pos = positions[:, -1]
-    prev_token = last_prompt_token.to(dev, torch.int64)
     clock.mark("prefill")
 
+    def valid_upto(n_valid: int) -> torch.Tensor:
+        valid = kv_valid.clone()
+        valid[:, p:p + n_valid] = True
+        return valid
+
+    out, steps, n = _decode_loop(
+        model, cache, valid_upto, p, logits[:, -1].float(), hidden[:, -1],
+        positions[:, -1], last_prompt_token.to(dev, torch.int64), gen_cfg,
+        vocab, generator)
+    clock.mark("decode")
+    if timings is not None:
+        timings["decode_forwards"] = steps
+        timings["decode_tokens"] = n
+    return out
+
+
+def _decode_loop(model: ContinuousLVLM, cache, valid_upto, base: int,
+                 prev_logits, prev_hidden, prev_pos, prev_token,
+                 gen_cfg: GenerationConfig, vocab: MultimodalVocab,
+                 generator: Optional[torch.Generator]):
+    """The decode loop shared by ``generate_tokens`` and
+    ``generate_tokens_cached``: one token per forward with an EOS exit,
+    the constrained image span, and the forced (n+1)-token chunk once every
+    live row sits at ``<img>``.  Output token n is written to cache
+    position ``base + n``; ``valid_upto(m)`` is the kv mask with the first
+    m generated positions valid.  Returns (out dict, forwards, tokens)."""
+    b = prev_logits.shape[0]
+    dev = prev_logits.device
+    t = gen_cfg.max_new_tokens
+    n_img = gen_cfg.num_img_gen_tokens
     out_tokens = torch.full((b, t), gen_cfg.pad_token_id, dtype=torch.int64,
                             device=dev)
     out_hidden = torch.zeros((b, t, prev_hidden.shape[-1]),
@@ -145,10 +172,9 @@ def generate_tokens(model: ContinuousLVLM, prompt_embeds: torch.Tensor,
             c = n_img + 1
             ids = forced_ids[None, :].expand(b, c)
             pos = prev_pos[:, None] + 1 + torch.arange(c, device=dev)[None, :]
-            valid = kv_valid.clone()
-            valid[:, p:p + n + c] = True
             logits, hidden, _ = model.llm_step(model.embed_ids(ids), pos,
-                                               valid, cache, p + n)
+                                               valid_upto(n + c), cache,
+                                               base + n)
             out_tokens[:, n:n + c] = ids
             out_hidden[:, n] = prev_hidden
             out_hidden[:, n + 1:n + c] = hidden[:, :n_img]
@@ -170,22 +196,61 @@ def generate_tokens(model: ContinuousLVLM, prompt_embeds: torch.Tensor,
         out_hidden[:, n] = prev_hidden
         out_finished[:, n] = finished
         pos = prev_pos + 1
-        valid = kv_valid.clone()
-        valid[:, p:p + n + 1] = True
         logits, hidden, _ = model.llm_step(model.embed_ids(token[:, None]),
-                                           pos[:, None], valid, cache, p + n)
+                                           pos[:, None], valid_upto(n + 1),
+                                           cache, base + n)
         prev_logits = logits[:, 0].float()
         prev_hidden = hidden[:, 0]
         prev_pos = pos
         prev_token = token
         n += 1
         steps += 1
+    return ({"tokens": out_tokens, "hidden": out_hidden,
+             "finished": out_finished}, steps, n)
+
+
+@torch.no_grad()
+def generate_tokens_cached(model: ContinuousLVLM, cache, seg_embeds,
+                           seg_start: int, seg_len: int,
+                           last_prompt_token: int, gen_cfg: GenerationConfig,
+                           vocab: MultimodalVocab = DEFAULT_VOCAB,
+                           generator: Optional[torch.Generator] = None,
+                           timings: Optional[Dict[str, float]] = None):
+    """Prefix-cached single-prompt generation for multi-turn chat
+    (reference ``generate_tokens_cached``, generation.py:537-739).
+
+    ``cache`` [L, 1, C, ...] already holds valid KV at positions
+    [0, seg_start); ``seg_embeds`` [1, Sb, D] is the prompt's new suffix,
+    right-padded, of which ``seg_len`` tokens are real.  Only the suffix
+    is prefilled, at ``seg_start``; attending to the cached prefix gives
+    what a full prefill would.  Stale KV past ``seg_start + seg_len`` (the
+    last turn's reply, re-serialized) is overwritten or masked.  Decode
+    then runs ``generate_tokens``' loop, writing at absolute positions so
+    the next turn can extend the prefix.  Returns (out dict, cache,
+    seg_start + seg_len + tokens decoded); the cache is updated in
+    place.  ``timings`` as in ``generate_tokens``."""
+    dev = seg_embeds.device
+    c = cache[0].shape[2]
+    sb = seg_embeds.shape[1]
+    clock = PhaseClock(dev, timings)
+    positions = (seg_start + torch.arange(sb, device=dev))[None]
+    kv_valid = (torch.arange(c, device=dev) < seg_start + seg_len)[None]
+    logits, hidden, _ = model.llm_step(seg_embeds, positions, kv_valid,
+                                       cache, seg_start)
+    clock.mark("prefill")
+    p_total = seg_start + seg_len
+    span = torch.arange(c, device=dev)
+    out, steps, n = _decode_loop(
+        model, cache, lambda n_valid: (span < p_total + n_valid)[None],
+        p_total, logits[:, seg_len - 1].float(), hidden[:, seg_len - 1],
+        torch.full((1,), p_total - 1, dtype=torch.int64, device=dev),
+        torch.full((1,), last_prompt_token, dtype=torch.int64, device=dev),
+        gen_cfg, vocab, generator)
     clock.mark("decode")
     if timings is not None:
         timings["decode_forwards"] = steps
         timings["decode_tokens"] = n
-    return {"tokens": out_tokens, "hidden": out_hidden,
-            "finished": out_finished}
+    return out, cache, p_total + n
 
 
 class PhaseClock:

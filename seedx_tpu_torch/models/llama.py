@@ -11,8 +11,21 @@ tables, updated in place at ``cache_index`` (the JAX package returns a new
 cache; here the caller's tensors are written, which saves a copy of the
 cache per step).  A one-token step with a kv window reads only that window
 through ``ops/decode_attention.ragged_decode_attention`` (see
-``LlamaConfig.decode_attention``).  Not ported yet: the fused
-prefill+decode step (``write_widths``) and its packed form.
+``LlamaConfig.decode_attention``).
+
+The continuous engine's fused prefill+decode step (reference:
+``decode_stacked.py`` ``decode_layers_stacked`` on its mixed branch and
+``decode_layers_packed``) comes in two layouts.  *Windowed*: x is
+``[B, w, hidden]``, row b's slots ``[0, write_widths[b])`` are real tokens
+written at ``[cache_index[b], ...)`` and the rest are dropped, never
+clamped.  *Packed*: x is ``[P, hidden]``, P = B + w real tokens, each with
+its row (``tok_row``; B marks an invalid token) and its slot in the row's
+window (``tok_slot``); projections, MLP and norms run over the P tokens
+and q is scattered into the ``[B, w]`` window for attention.  Either way
+query slot i of row b attends the causal stair ``[start_b, pos_b + i]``:
+through the ragged kernel's multi-query mode when the kv window goes to
+the kernel, else through the plain attention with a per-row causal
+``q_offset`` (as the JAX package's XLA path does).
 """
 
 from __future__ import annotations
@@ -49,11 +62,11 @@ class LlamaConfig:
     # "int4" (nibble-packed projections, int8 embedding + lm_head)
     quantization: str = "none"
     kv_quantization: str = "none"   # "none" | "int8"
-    # One-token decode steps through the ragged kernel (reads only each
-    # row's window [start, end) of the cache): "auto" = on CUDA tensors, at
-    # every batch size; "force" = also on CPU tensors (its plain version,
-    # for parity tests); "never" = dequantize the whole cache and attend
-    # with the plain path.  Paged KV needs it on.
+    # One-token decode steps and the fused step's stair through the ragged
+    # kernel (reads only each row's window of the cache): "auto" = on CUDA
+    # tensors, at every batch size; "force" = also on CPU tensors (its
+    # plain version, for parity tests); "never" = dequantize the whole
+    # cache and attend with the plain path.  Paged KV needs it on.
     decode_attention: str = "auto"
     attention_impl: str = "auto"    # "auto" | "plain" | "flash"
     dtype: torch.dtype = torch.bfloat16
@@ -155,15 +168,12 @@ class LlamaLayers(nn.Module):
         self.down_proj = dense(cfg.intermediate_size, d)
 
     def block(self, li: int, x, cache: Optional[KVCache], cos, sin,
-              kv_valid, cache_index, window=None, block_tables=None,
-              page: int = 0) -> torch.Tensor:
+              kv_valid, cache_index, step: Optional["_Step"] = None
+              ) -> torch.Tensor:
         """One decoder layer (reference LlamaBlock, llama.py:180-309):
-        x [B, S, hidden]; with a cache, k/v are written at [cache_index,
-        cache_index + S) of layer ``li`` (a [B] ``cache_index`` writes one
-        position per row; with ``block_tables`` through the row's pages of
-        the pool) and attention reads the layer cache under ``kv_valid`` --
-        or, given ``window`` (starts, ends), only that window of each row,
-        through the ragged decode kernel."""
+        x [B, S, hidden] (the packed fused step: [1, P, hidden]); with a
+        cache, ``step`` says where layer ``li``'s new k/v rows go and how
+        the queries attend (see ``_Step``)."""
         cfg = self.cfg
         b, s, _ = x.shape
         nh, hd = cfg.num_kv_heads, cfg.head_dim
@@ -179,18 +189,6 @@ class LlamaLayers(nn.Module):
                                          causal=True, impl=cfg.attention_impl)
         else:
             layer = tuple(c[li] for c in cache)
-            per_row = torch.is_tensor(cache_index) and cache_index.dim() == 1
-            if per_row:
-                # one position per row (s == 1): [B] rows of the cache, or
-                # pool rows through the block tables (decode_stacked.py:185)
-                ci = cache_index.long()
-                rows = torch.arange(b, device=x.device)
-                at = ((block_tables.long()[rows, ci // page] * page
-                       + ci % page,) if block_tables is not None
-                      else (rows, ci))
-            else:
-                at = (slice(None), slice(int(cache_index),
-                                         int(cache_index) + s))
             if len(layer) == 4:            # int8 codes + per-entry scales
                 kq, ksc = quantize_kv(k)
                 vq, vsc = quantize_kv(v)
@@ -198,31 +196,94 @@ class LlamaLayers(nn.Module):
             else:
                 new = (k, v)
             for buf, val in zip(layer, new):
-                val = val.to(buf.dtype).reshape(b, s, -1)
-                buf[at] = val[:, 0] if per_row else val
-            if window is not None:
+                step.store(buf, val)
+            if step.window is not None:
                 scales = ({"k_scale": layer[2], "v_scale": layer[3]}
                           if len(layer) == 4 else {})
-                attn = ragged_decode_attention(
-                    q[:, 0].contiguous(), layer[0], layer[1], *window,
-                    block_tables=block_tables, page=page, **scales)[:, None]
+                qw = step.to_window(q)
+                out = ragged_decode_attention(
+                    qw if step.stair else qw[:, 0].contiguous(), layer[0],
+                    layer[1], *step.window, block_tables=step.block_tables,
+                    page=step.page, **scales)
+                attn = step.from_window(out if step.stair else out[:, None])
             else:
-                max_len = layer[0].shape[1]
-                kk = layer[0].reshape(b, max_len, nh, hd).to(cfg.dtype)
-                vv = layer[1].reshape(b, max_len, nh, hd).to(cfg.dtype)
+                bw, max_len = layer[0].shape[:2]
+                kk = layer[0].reshape(bw, max_len, nh, hd).to(cfg.dtype)
+                vv = layer[1].reshape(bw, max_len, nh, hd).to(cfg.dtype)
                 if len(layer) == 4:
                     kk = kk * layer[2][..., None].to(cfg.dtype)
                     vv = vv * layer[3][..., None].to(cfg.dtype)
-                attn = dot_product_attention(
-                    q, kk, vv, kv_valid=kv_valid, causal=s > 1,
-                    q_offset=cache_index if s > 1 else None,
-                    impl="plain" if s == 1 else cfg.attention_impl)
+                if step.stair:
+                    # per-row causal: query slot i of row b sees positions
+                    # <= cache_index[b] + i (decode_stacked.py:266-273)
+                    attn = step.from_window(dot_product_attention(
+                        step.to_window(q), kk, vv, kv_valid=kv_valid,
+                        causal=True,
+                        q_offset=cache_index, impl="plain"))
+                else:
+                    attn = dot_product_attention(
+                        q, kk, vv, kv_valid=kv_valid, causal=s > 1,
+                        q_offset=cache_index if s > 1 else None,
+                        impl="plain" if s == 1 else cfg.attention_impl)
 
         x = x + self.o_proj(attn.reshape(b, s, cfg.num_heads * hd), li)
         h = self.post_attention_layernorm(x, li)
         gate = self.gate_proj(h, li)
         up = self.up_proj(h, li)
         return x + self.down_proj(F.silu(gate) * up, li)
+
+
+@dataclasses.dataclass
+class _Step:
+    """Where one forward writes its new k/v rows and how its queries read
+    the cache; built once per forward, used by every layer.
+
+    ``at`` indexes the new rows in a layer buffer ([B, S, F], or a pool
+    [P * page, F]); ``keep`` (a LongTensor) picks the rows of the
+    flattened new k/v that are written, so dropped slots never touch the
+    cache (torch has no drop-mode scatter); ``flat`` is False only for the
+    [B, s] block write at a scalar offset.  ``window`` (starts, ends) sends
+    attention to the ragged kernel; ``stair`` marks the fused step, whose
+    queries form a [B, w] window: the x rows themselves (windowed), or
+    the valid packed tokens ``q_keep`` scattered there at (``q_row``,
+    ``q_slot``) and every token gathered back from (``row_c``, ``slot``)
+    (packed)."""
+
+    at: tuple
+    keep: Optional[torch.Tensor] = None
+    flat: bool = True
+    window: Optional[tuple] = None
+    stair: bool = False
+    block_tables: Optional[torch.Tensor] = None
+    page: int = 0
+    # (q_keep, q_row, q_slot, row_c, slot, B, w)
+    packed: Optional[tuple] = None
+
+    def store(self, buf: torch.Tensor, val: torch.Tensor) -> None:
+        if not self.flat:
+            buf[self.at] = val.to(buf.dtype).reshape(buf.shape[0], -1,
+                                                     buf.shape[-1])
+            return
+        val = val.to(buf.dtype).reshape(-1, buf.shape[-1])
+        buf[self.at] = val if self.keep is None else val[self.keep]
+
+    def to_window(self, q: torch.Tensor) -> torch.Tensor:
+        """Packed [1, P, H, D] -> [B, w, H, D] (decode_stacked.py:402-407);
+        slots no token fills stay zero, compute garbage and are never
+        gathered."""
+        if self.packed is None:
+            return q
+        q_keep, q_row, q_slot, _, _, b, w = self.packed
+        out = q.new_zeros((b, w) + q.shape[2:])
+        out[q_row, q_slot] = q[0, q_keep]
+        return out
+
+    def from_window(self, t: torch.Tensor) -> torch.Tensor:
+        """[B, w, H, D] -> packed [1, P, H, D] (decode_stacked.py:409-411)."""
+        if self.packed is None:
+            return t
+        row_c, slot = self.packed[3:5]
+        return t[row_c, slot][None]
 
 
 class Embedder(nn.Module):
@@ -273,17 +334,37 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, inputs_embeds: torch.Tensor, positions: torch.Tensor,
                 kv_valid: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None, cache_index=0,
-                block_tables: Optional[torch.Tensor] = None):
+                block_tables: Optional[torch.Tensor] = None,
+                write_widths: Optional[torch.Tensor] = None,
+                tok_row: Optional[torch.Tensor] = None,
+                tok_slot: Optional[torch.Tensor] = None,
+                packed_window: int = 0):
         """Returns (logits, last hidden state, cache); the cache tensors are
         updated in place.  ``cache_index`` is an int, or a [B] tensor of
-        per-row write positions for a one-token step; ``block_tables``
-        [B, S // page] makes ``cache`` a paged pool (one-token steps with
-        per-row positions and a kv window only)."""
+        per-row write positions for a one-token or fused step;
+        ``block_tables`` [B, S // page] makes ``cache`` a paged pool
+        (per-row steps with a kv window only).  ``write_widths`` [B] makes
+        the step the windowed fused step (x [B, w, hidden]); with
+        ``tok_row`` / ``tok_slot`` [P] and ``packed_window`` w it is the
+        packed fused step (x [P, hidden], positions [P], logits and hidden
+        [P, ...]); see the module docstring."""
         cfg = self.cfg
-        b, s = inputs_embeds.shape[:2]
+        packed = tok_row is not None
+        fused = write_widths is not None
         per_row = torch.is_tensor(cache_index) and cache_index.dim() == 1
-        if per_row and s != 1:
-            raise ValueError("per-row cache_index requires seq == 1")
+        if packed and not (fused and per_row and packed_window > 0
+                           and cache is not None):
+            raise ValueError("the packed fused step needs a cache, per-row "
+                             "cache_index, write_widths and packed_window")
+        if packed:
+            inputs_embeds, positions = inputs_embeds[None], positions[None]
+        b, s = inputs_embeds.shape[:2]
+        if per_row and s != 1 and not fused:
+            raise ValueError("per-row cache_index requires seq == 1 (or "
+                             "write_widths for the fused step)")
+        if fused and not per_row:
+            raise ValueError("the fused step (write_widths) needs per-row "
+                             "cache_index")
         if not per_row:
             cache_index = int(cache_index)
         page = 0
@@ -292,20 +373,88 @@ class LlamaForCausalLM(nn.Module):
                     or not per_row or kv_valid is None):
                 raise ValueError(
                     "paged KV (block_tables) requires quantization='int4', "
-                    "decode_attention on, and one-token steps with per-row "
-                    "cache_index and kv_valid")
+                    "decode_attention on, and one-token or fused steps with "
+                    "per-row cache_index and kv_valid")
             page = kv_valid.shape[1] // block_tables.shape[1]
-        window = None
-        if (cache is not None and s == 1 and kv_valid is not None
-                and (block_tables is not None
-                     or cfg.decode_attention == "force"
-                     or (cfg.decode_attention == "auto"
-                         and inputs_embeds.is_cuda))):
-            window = kv_window(kv_valid)
+        step = None
+        if cache is not None:
+            step = self._step(cache, kv_valid, cache_index, block_tables,
+                              page, write_widths, tok_row, tok_slot,
+                              packed_window, b, s, inputs_embeds.is_cuda)
         x = inputs_embeds.to(cfg.dtype)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         for li in range(cfg.num_layers):
             x = self.layers.block(li, x, cache, cos, sin, kv_valid,
-                                  cache_index, window, block_tables, page)
+                                  cache_index, step)
         hidden = self.norm(x)
-        return self.lm_head(hidden), hidden, cache
+        logits = self.lm_head(hidden)
+        if packed:
+            return logits[0], hidden[0], cache
+        return logits, hidden, cache
+
+    def _step(self, cache, kv_valid, cache_index, block_tables, page: int,
+              write_widths, tok_row, tok_slot, window_w: int, b: int, s: int,
+              on_cuda: bool) -> _Step:
+        """The write and attention plan of one forward (see ``_Step``)."""
+        cfg = self.cfg
+        dev = cache[0].device
+        kernel = kv_valid is not None and (
+            block_tables is not None or cfg.decode_attention == "force"
+            or (cfg.decode_attention == "auto" and on_cuda))
+        if write_widths is None and not torch.is_tensor(cache_index):
+            # prefill, the forced <img> chunk, or a one-token step of the
+            # whole batch at a scalar offset
+            return _Step(at=(slice(None), slice(cache_index,
+                                                cache_index + s)),
+                         flat=False, window=kv_window(kv_valid)
+                         if kernel and s == 1 else None)
+        rows = torch.arange(cache_index.shape[0], device=dev)
+        ci = cache_index.long()
+        if tok_row is not None:
+            # packed: one write per token at its row's position + its slot
+            row_c = torch.clamp(tok_row.long(), max=rows.shape[0] - 1)
+            slot = tok_slot.long()
+            w_row, w_pos = row_c, ci[row_c] + slot
+            ok = tok_row < rows.shape[0]
+            q_keep = ok.nonzero()[:, 0]
+            packed = (q_keep, tok_row.long()[q_keep], slot[q_keep], row_c,
+                      slot, rows.shape[0], window_w)
+        elif write_widths is not None:
+            # windowed: row b's slots [0, write_widths[b]) at ci[b] + slot
+            slots = torch.arange(s, device=dev)
+            w_row = rows[:, None].expand(-1, s).reshape(-1)
+            w_pos = (ci[:, None] + slots).reshape(-1)
+            ok = (slots[None, :] < write_widths[:, None]).reshape(-1)
+            packed = None
+        else:
+            # one position per row (s == 1): [B] rows of the cache, or pool
+            # rows through the block tables (decode_stacked.py:185)
+            at = ((block_tables.long()[rows, ci // page] * page + ci % page,)
+                  if block_tables is not None else (rows, ci))
+            return _Step(at=at, window=kv_window(kv_valid) if kernel
+                         else None, block_tables=block_tables, page=page)
+        # slots past a row's width and positions past the cache are
+        # dropped, never clamped (decode_stacked.py:170-184): a clamped
+        # write would land on a cell another row's real token owns
+        if block_tables is not None:
+            n_tiles = block_tables.shape[1]
+            col = w_pos // page
+            ok = ok & (col < n_tiles)
+            tiles = block_tables.long()[w_row, torch.clamp(col,
+                                                           max=n_tiles - 1)]
+            at = (tiles * page + w_pos % page,)
+        else:
+            ok = ok & (w_pos < cache[0].shape[2])
+            at = (w_row, w_pos)
+        keep = ok.nonzero()[:, 0]
+        window = None
+        if kernel:
+            # the stair: kv_valid covers [start, pos + width), so slot 0's
+            # end is that end minus (width - 1) (decode_stacked.py:149-154)
+            starts, ends = kv_window(kv_valid)
+            ends = (ends - torch.clamp(write_widths - 1, min=0)).to(
+                torch.int32)
+            window = (starts, ends)
+        return _Step(at=tuple(i[keep] for i in at), keep=keep, window=window,
+                     stair=True, block_tables=block_tables, page=page,
+                     packed=packed)

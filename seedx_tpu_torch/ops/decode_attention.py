@@ -1,6 +1,6 @@
 """Ragged (and optionally paged) decode attention: CUDA kernel + its plain
 PyTorch version (reference: seedx_tpu/ops/decode_attention.py, the Pallas
-kernel ``_decode_kernel`` in its one-query-per-row mode).
+kernel ``_decode_kernel``, in both of its modes).
 
 One query token per batch row attends only the valid window
 ``[starts[b], ends[b])`` of that row's KV cache, in the flat layout of
@@ -11,16 +11,26 @@ per-(position, head) scales ``[B, S, Hkv]`` (pool: ``[P * page, Hkv]``).
 Query head h reads kv head ``h // G`` (G = Hq / Hkv).  The output is
 ``[B, Hq, D]`` in q's dtype; a row with an empty window gives zeros.
 
+Multi-query "stair" mode (the continuous engine's fused prefill step): a
+q of ``[B, w, Hq, D]`` holds w query slots per row; slot i sits at
+position ``ends[b] - 1 + i`` and attends ``[starts[b], min(ends[b] + i,
+s_limit))``, where ``s_limit`` is the logical cache length (S, or
+``block_tables.shape[1] * page`` when paged).  The output is
+``[B, w, Hq, D]``.  Slots past a row's real width compute over a finite
+window and the caller discards them.  A 3-D q is the one-query mode; a
+4-D q with w == 1 gives the same output.
+
 The JAX function takes a ``layer`` scalar so its kernel can read one
 layer of the stacked cache without a copy; here ``cache[li]`` is a view,
 so there is no such argument.  Its scale operands are lane-padded to 128
-(a Mosaic DMA rule); here they stay ``Hkv`` wide.  The multi-query "stair"
-mode (fused prefill) is not ported yet.
+(a Mosaic DMA rule); here they stay ``Hkv`` wide.
 
 Kernel source and design note: ``seedx_tpu_torch/csrc/decode_attn.cu``.
 ``ragged_decode_attention`` launches it for CUDA tensors and runs
 ``ragged_decode_attention_plain`` for CPU tensors; there is no other
-fallback.
+fallback.  ``ragged_decode_attention.launches`` counts every launch;
+``.mode_launches`` splits the count into "one_query" (3-D q) and
+"multi_query" (4-D q).
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from seedx_tpu_torch.ops._build import check, load_library
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"decode_attn": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P]}
+_SIGNATURES = {"decode_attn": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P]}
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUPS = 8
 
@@ -43,9 +53,15 @@ def library() -> ctypes.CDLL:
 
 
 def _geometry(q, k_cache, block_tables, page):
-    """(B, Hq, D, Hkv, G, logical cache length) with the contract checks
-    shared by both versions."""
-    b, hq, d = q.shape
+    """(B, w, Hq, D, Hkv, G, logical cache length) with the contract
+    checks shared by both versions; w is 1 for a 3-D q."""
+    if q.dim() == 3:
+        (b, hq, d), w = q.shape, 1
+    elif q.dim() == 4:
+        b, w, hq, d = q.shape
+    else:
+        raise ValueError(f"ragged_decode_attention: q is [B, Hq, D] or "
+                         f"[B, w, Hq, D], got {tuple(q.shape)}")
     f = k_cache.shape[-1]
     if f % d or hq % (f // d):
         raise ValueError(f"ragged_decode_attention: q {tuple(q.shape)} does "
@@ -64,7 +80,7 @@ def _geometry(q, k_cache, block_tables, page):
             raise ValueError("ragged_decode_attention: a dense cache is "
                              "[B, S, Hkv * D]")
         s = k_cache.shape[1]
-    return b, hq, d, hkv, hq // hkv, s
+    return b, w, hq, d, hkv, hq // hkv, s
 
 
 def _logical_rows(x, block_tables, page, s):
@@ -81,25 +97,29 @@ def ragged_decode_attention_plain(q, k_cache, v_cache, starts, ends, *,
                                   k_scale=None, v_scale=None,
                                   block_tables=None, page: int = 0
                                   ) -> torch.Tensor:
-    """The kernel's contract in plain torch, with the JAX kernel's
-    arithmetic: q and k as bf16 values, fp32 dot products, the softmax
-    scale and then the k scale applied after the dot, fp32 softmax over
-    the window, ``p * v_scale`` rounded to bf16 before it weights v, and
-    ``acc / max(l, 1e-30)`` in q's dtype.  The softmax scale is
-    1/sqrt(D), the only one the model uses."""
-    b, hq, d, hkv, g, s = _geometry(q, k_cache, block_tables, page)
+    """The kernel's contract in plain torch, in both modes, with the JAX
+    kernel's arithmetic: q and k as bf16 values, fp32 dot products, the
+    softmax scale and then the k scale applied after the dot, fp32 softmax
+    over each query's window, ``p * v_scale`` rounded to bf16 before it
+    weights v, and ``acc / max(l, 1e-30)`` in q's dtype.  The softmax
+    scale is 1/sqrt(D), the only one the model uses."""
+    b, w, hq, d, hkv, g, s = _geometry(q, k_cache, block_tables, page)
     k = _logical_rows(k_cache, block_tables, page, s).reshape(b, s, hkv, d)
     v = _logical_rows(v_cache, block_tables, page, s).reshape(b, s, hkv, d)
-    qg = q.to(torch.bfloat16).float().reshape(b, hkv, g, d)
-    sc = torch.einsum("bkgd,bskd->bkgs", qg,
+    qg = q.to(torch.bfloat16).float().reshape(b, w, hkv, g, d)
+    sc = torch.einsum("bwkgd,bskd->bwkgs", qg,
                       k.to(torch.bfloat16).float()) * d ** -0.5
     if k_scale is not None:
         ks = _logical_rows(k_scale, block_tables, page, s)
-        sc = sc * ks.to(torch.bfloat16).float().permute(0, 2, 1)[:, :, None]
+        sc = sc * ks.to(torch.bfloat16).float().permute(0, 2, 1)[
+            :, None, :, None]
     pos = torch.arange(s, device=q.device)
-    valid = ((pos[None] >= starts.to(q.device).long()[:, None])
-             & (pos[None] < ends.to(q.device).long()[:, None]))
-    valid = valid[:, None, None, :]
+    slot = torch.arange(w, device=q.device)
+    # the stair: slot i ends i positions after slot 0, at most at s
+    q_end = torch.clamp(ends.to(q.device).long()[:, None] + slot, max=s)
+    valid = ((pos >= starts.to(q.device).long()[:, None, None])
+             & (pos < q_end[:, :, None]))               # [B, w, S]
+    valid = valid[:, :, None, None, :]
     sc = torch.where(valid, sc, float("-inf"))
     m = sc.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(sc - torch.where(valid.any(-1, True),
@@ -107,19 +127,19 @@ def ragged_decode_attention_plain(q, k_cache, v_cache, starts, ends, *,
     l_sum = p.sum(dim=-1)
     if v_scale is not None:
         vs = _logical_rows(v_scale, block_tables, page, s)
-        p = p * vs.float().permute(0, 2, 1)[:, :, None]
-    acc = torch.einsum("bkgs,bskd->bkgd", p.to(torch.bfloat16).float(),
+        p = p * vs.float().permute(0, 2, 1)[:, None, :, None]
+    acc = torch.einsum("bwkgs,bskd->bwkgd", p.to(torch.bfloat16).float(),
                        v.float())
     out = acc / torch.clamp(l_sum, min=1e-30)[..., None]
-    return out.reshape(b, hq, d).to(q.dtype)
+    return out.reshape(q.shape).to(q.dtype)
 
 
 def ragged_decode_attention(q, k_cache, v_cache, starts, ends, *,
                             k_scale=None, v_scale=None, block_tables=None,
                             page: int = 0) -> torch.Tensor:
-    """One-token-per-row attention reading only ``[starts, ends)`` of each
-    row.  Wrapper: kernel for CUDA tensors, plain version for CPU
-    tensors."""
+    """Attention reading only ``[starts, ends)`` of each row, for one query
+    per row (q [B, Hq, D]) or a stair of w queries (q [B, w, Hq, D]).
+    Wrapper: kernel for CUDA tensors, plain version for CPU tensors."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("ragged_decode_attention: give both scales or "
                          "neither")
@@ -127,7 +147,7 @@ def ragged_decode_attention(q, k_cache, v_cache, starts, ends, *,
         return ragged_decode_attention_plain(
             q, k_cache, v_cache, starts, ends, k_scale=k_scale,
             v_scale=v_scale, block_tables=block_tables, page=page)
-    b, hq, d, hkv, g, s = _geometry(q, k_cache, block_tables, page)
+    b, w, hq, d, hkv, g, s = _geometry(q, k_cache, block_tables, page)
     int8 = k_scale is not None
     want = torch.int8 if int8 else torch.bfloat16
     if q.dtype != torch.bfloat16:
@@ -174,11 +194,14 @@ def ragged_decode_attention(q, k_cache, v_cache, starts, ends, *,
         v_scale.data_ptr() if int8 else None,
         starts.data_ptr(), ends.data_ptr(),
         block_tables.data_ptr() if paged else None, out.data_ptr(),
-        b, hq, hkv, d, s, block_tables.shape[1] if paged else 0,
+        b, w, hq, hkv, d, s, block_tables.shape[1] if paged else 0,
         page if paged else 0, int(int8), d ** -0.5, stream)
     check(err, "decode_attn")
     ragged_decode_attention.launches += 1
+    ragged_decode_attention.mode_launches[
+        "multi_query" if q.dim() == 4 else "one_query"] += 1
     return out
 
 
 ragged_decode_attention.launches = 0
+ragged_decode_attention.mode_launches = {"one_query": 0, "multi_query": 0}

@@ -136,3 +136,69 @@ def test_decode_kernel_matches_plain(cuda_device, b, s, hq, hkv, d, int8,
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
     empty = (ends <= starts).nonzero()[:, 0]
     assert (out[empty] == 0).all()
+
+
+def _stair_inputs(dev, g, b, w, s, hq, hkv, d, int8, page):
+    """q [B, w, Hq, D] and a dense or paged (shuffled pages) cache."""
+    q = torch.randn((b, w, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, hkv, d), generator=g, device=dev)
+    v = torch.randn((b, s, hkv, d), generator=g, device=dev)
+    kw = {}
+    if int8:
+        (k, ks), (v, vs) = _quantize_rows(k), _quantize_rows(v)
+        kw = dict(k_scale=ks[..., 0], v_scale=vs[..., 0])
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    k, v = k.reshape(b, s, hkv * d), v.reshape(b, s, hkv * d)
+    if page:
+        n_tiles = s // page
+        perm = torch.randperm(2 * b * n_tiles, generator=g, device=dev)
+        tables = perm[:b * n_tiles].reshape(b, n_tiles).to(torch.int32)
+        rows = (tables.long()[:, :, None] * page
+                + torch.arange(page, device=dev)).reshape(b, s)
+
+        def pool(x):
+            out = torch.zeros((2 * b * n_tiles * page,) + x.shape[2:],
+                              dtype=x.dtype, device=dev)
+            out[rows] = x
+            return out
+
+        k, v = pool(k), pool(v)
+        kw = {n: pool(t) for n, t in kw.items()}
+        kw.update(block_tables=tables.contiguous(), page=page)
+    return q, k, v, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 8, 16, 64])
+@pytest.mark.parametrize("b,s,hq,hkv,d,int8,page", [
+    (8, 640, 40, 40, 128, True, 0),      # the 13B serving cache, int8
+    (8, 640, 40, 40, 128, True, 128),    # the same, paged
+    (8, 640, 40, 8, 128, False, 0),      # bf16 GQA, G 5
+    (3, 96, 8, 2, 64, True, 32),         # G 4, D 64, paged
+    (2, 96, 4, 4, 32, False, 0)])        # D 32
+def test_stair_kernel_matches_plain(cuda_device, w, b, s, hq, hkv, d, int8,
+                                    page):
+    """Multi-query mode: rows prefilling at offsets 0 / 64 / 300, rows
+    decoding, a row whose stair steps past the cache end (clamped), an
+    empty window."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v, kw = _stair_inputs(cuda_device, g, b, w, s, hq, hkv, d, int8,
+                                page)
+    wins = [(0, 1), (0, 65), (0, 301), (0, s - 3), (5, 40), (7, 7),
+            (0, 200 % s), (0, s)][:b]
+    starts = torch.tensor([x[0] for x in wins], dtype=torch.int32,
+                          device=cuda_device)
+    ends = torch.tensor([min(x[1], s) for x in wins], dtype=torch.int32,
+                        device=cuda_device)
+    out = tdecode.ragged_decode_attention(q, k, v, starts, ends, **kw)
+    ref = tdecode.ragged_decode_attention_plain(q, k, v, starts, ends, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (b, w, hq, d)
+    # bf16 output of O(1), as for the one-query mode
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+    if w == 1:
+        one = tdecode.ragged_decode_attention(q[:, 0].contiguous(), k, v,
+                                              starts, ends, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, 0], one)

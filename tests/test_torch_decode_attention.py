@@ -168,3 +168,89 @@ def test_contract_errors():
         tdecode.ragged_decode_attention(
             q, k.reshape(32, -1), k.reshape(32, -1), se, se,
             block_tables=torch.zeros((2, 2), dtype=torch.int32))
+
+
+# ---- multi-query "stair" mode (q [B, w, Hq, D]) -----------------------------
+#
+# One-tile cache lengths (S = 32: the JAX kernel reads it as one 32-row
+# tile; paged, one page of 32 per row), so the JAX kernel takes each
+# query's softmax maximum over its whole window as the plain version does,
+# and p rounds to bf16 against the same maximum: the two then differ only
+# in the order of fp32 sums.
+
+
+def _stair_case(b, w, s, hq, hkv, d, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, w, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    return q, k.reshape(b, s, -1), v.reshape(b, s, -1)
+
+
+def _pool(x, tables, page):
+    """Dense [B, S, ...] rows scattered into a pool at the table's pages."""
+    b, n_tiles = tables.shape
+    out = np.zeros((int(tables.max() + 1) * page,) + x.shape[2:], x.dtype)
+    for i in range(b):
+        for j in range(n_tiles):
+            t = tables[i, j]
+            out[t * page:(t + 1) * page] = x[i, j * page:(j + 1) * page]
+    return out
+
+
+STAIR_WINDOWS = ([0, 5, 17, 0], [28, 9, 18, 1])   # a prefilling row, a
+# mid-prompt row, a decoding row and a row at position 0
+
+
+@pytest.mark.parametrize("w", [1, 4, 8])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "gqa", "paged"])
+def test_stair_matches_jax(kind, w):
+    """Slot i of row b attends [starts[b], min(ends[b] + i, S)); the last
+    slots of the 28-ending row step past S = 32 and are clamped there."""
+    b, s, hq, hkv, d = 4, 32, 4, 4, 32
+    if kind == "gqa":
+        hq, hkv = 8, 2
+    q, k, v = _stair_case(b, w, s, hq, hkv, d, seed=10 + w)
+    kw = {}
+    dtype = "bf16" if kind == "bf16" else np.float32
+    if kind == "int8":
+        kq, ksc = quantize_kv(torch.from_numpy(k.reshape(b, s, hkv, d)))
+        vq, vsc = quantize_kv(torch.from_numpy(v.reshape(b, s, hkv, d)))
+        k, v = kq.numpy().reshape(b, s, -1), vq.numpy().reshape(b, s, -1)
+        kw = dict(k_scale=ksc.numpy().reshape(b, s, hkv),
+                  v_scale=vsc.numpy().reshape(b, s, hkv))
+    if kind == "paged":
+        page = s
+        tables = np.random.default_rng(3).permutation(
+            2 * b * (s // page))[:b * (s // page)].reshape(b, s // page)
+        k, v = _pool(k, tables, page), _pool(v, tables, page)
+        kw = dict(tables=tables.astype(np.int32), page=page)
+    got, want = _both(q, k, v, *STAIR_WINDOWS, dtype=dtype, **kw)
+    assert got.shape == (b, w, hq, d)
+    want = np.asarray(want, np.float32)
+    err = np.abs(got.float().numpy() - want).max()
+    # both sides: exact bf16 x bf16 products summed in fp32 (the order
+    # differs), one bf16 rounding of each weight against the same maximum;
+    # a bf16 output rounds the same fp32 value once more
+    assert err <= 1e-6, err
+
+
+def test_stair_w1_equals_one_query_and_slots_are_windows():
+    """w == 1 is the one-query call, bit for bit; slot i of a stair is a
+    one-query call whose window ends i positions later (to fp32 summation
+    order: the einsums batch differently)."""
+    b, w, s, hq, hkv, d = 4, 8, 32, 4, 4, 32
+    q, k, v = _stair_case(b, w, s, hq, hkv, d, seed=30)
+    st, en = (torch.tensor(x, dtype=torch.int32) for x in STAIR_WINDOWS)
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    stair = tdecode.ragged_decode_attention(qt, kt, vt, st, en)
+    for i in range(w):
+        one = tdecode.ragged_decode_attention(qt[:, i].contiguous(), kt, vt,
+                                              st, en + i)
+        torch.testing.assert_close(stair[:, i], one, rtol=0, atol=1e-6)
+    w1 = tdecode.ragged_decode_attention(qt[:, :1].contiguous(), kt, vt, st,
+                                         en)
+    one = tdecode.ragged_decode_attention(qt[:, 0].contiguous(), kt, vt, st,
+                                          en)
+    assert w1.shape == (b, 1, hq, d)
+    assert torch.equal(w1[:, 0], one)

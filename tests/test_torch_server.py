@@ -1,6 +1,6 @@
 """The port's HTTP front-end (``seedx_tpu_torch/inference/server.py``)
-over real HTTP on 127.0.0.1, and ``eval_cli serve`` with both engines,
-against the tiny debug runtime on the CPU."""
+over real HTTP on 127.0.0.1, ``eval_cli serve`` with both engines and
+``eval_cli chat``, against the tiny debug runtime on the CPU."""
 
 import base64
 import io
@@ -61,7 +61,7 @@ def _image_b64(seed=0):
 def test_healthz_and_stats(served):
     _, url = served
     assert _get(url, "/healthz") == {"ok": True}
-    assert {"served", "errors", "batches", "queued"} <= _get(
+    assert {"served", "errors", "batches", "queued", "chat_sessions"} <= _get(
         url, "/v1/stats").keys()
 
 
@@ -128,14 +128,16 @@ def test_bad_requests_fail_without_killing_server(served):
             ("/v1/edit", {"instruction": "no image supplied"}, None),
             ("/v1/comprehend", None, b"{not json"),
             ("/v1/ground", {"question": "no image"}, None),
-            ("/v1/raw", {"input_ids": []}, None)):
+            ("/v1/raw", {"input_ids": []}, None),
+            ("/v1/chat", {"session": "bad"}, None),
+            ("/v1/chat", {"session": "bad", "message": "hi",
+                          "image": "not base64!"}, None)):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(url, path, payload, raw)
         assert e.value.code == 400, path
-    for path in ("/v1/nope", "/v1/chat"):
-        with pytest.raises(urllib.error.HTTPError) as e:
-            _post(url, path, {"session": "s1", "message": "hi"})
-        assert e.value.code == 404
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(url, "/v1/nope", {"session": "s1", "message": "hi"})
+    assert e.value.code == 404
     assert _get(url, "/healthz") == {"ok": True}
     assert isinstance(_post(url, "/v1/raw", {"input_ids": [1, 2]})["text"],
                       str)
@@ -173,3 +175,55 @@ def test_serve_cli_both_engines(tmp_path, monkeypatch, capsys):
         assert a["text"] == b["text"]
         assert a["num_gen_imgs"] == b["num_gen_imgs"]
         assert a["images"] is None and b["images"] is None
+
+
+def test_chat_session_persists(served):
+    """Two POSTs on one session: the second turn extends the first's
+    history and reuses its KV prefix; the session is counted in stats."""
+    server, url = served
+    before = _get(url, "/v1/stats")["chat_sessions"]
+    first = _post(url, "/v1/chat", {"session": "persist", "message": "hi",
+                                    "image": _image_b64(3),
+                                    "max_new_tokens": 3})
+    second = _post(url, "/v1/chat", {"session": "persist",
+                                     "message": "and then?",
+                                     "max_new_tokens": 3})
+    for r in (first, second):
+        assert r["session"] == "persist" and isinstance(r["text"], str)
+        assert r["images"] is None
+    sess = server._sessions["persist"]
+    assert len(sess.turns) == 4 and sess.last_reused > 0
+    assert _get(url, "/v1/stats")["chat_sessions"] == before + 1
+
+
+def test_chat_sessions_evict_least_recently_used(served):
+    rt = served[0].rt
+    server = SeedXServer(rt, max_new_tokens=2, max_sessions=2)
+    try:
+        for sid in ("a", "b", "a", "c"):
+            job = server.submit("chat", {"session": sid, "message": "hi",
+                                         "max_new_tokens": 2})
+            assert job.done.wait(300) and job.error is None, job.error
+        # "b" was the least recently used when "c" arrived
+        assert list(server._sessions) == ["a", "c"]
+        assert server.stats()["chat_sessions"] == 2
+    finally:
+        server.shutdown()
+
+
+def test_chat_cli(tmp_path, monkeypatch, capsys):
+    """`eval_cli chat`: one reply per stdin turn, an image attached with
+    ``img:PATH``, ``exit`` ends the session."""
+    shared = SeedXRuntime.debug(device="cpu", dtype=torch.float32)
+    monkeypatch.setattr(eval_cli, "_load_runtime", lambda a: shared)
+    img_path = tmp_path / "src.png"
+    rng = np.random.default_rng(4)
+    Image.fromarray((rng.random((60, 48, 3)) * 255).astype(np.uint8)).save(
+        img_path)
+    monkeypatch.setattr("sys.stdin", io.StringIO(
+        f"img:{img_path} what is this?\n\nand now?\nexit\nnever read\n"))
+    assert eval_cli.main(["chat", "--debug", "--device", "cpu",
+                          "--max_new_tokens", "3"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("chat ready")
+    assert len(out) == 3                    # two replies, "exit" stopped it

@@ -367,6 +367,7 @@ def test_port_imports_no_jax():
             "seedx_tpu_torch.ops.decode_attention, "
             "seedx_tpu_torch.inference.serving, "
             "seedx_tpu_torch.inference.continuous, "
+            "seedx_tpu_torch.inference.chat, "
             "seedx_tpu_torch.inference.server, "
             "seedx_tpu_torch.inference.eval_cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
