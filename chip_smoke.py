@@ -1,7 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU at the full SEED-X-I width:
 the image-in comprehension turn, batched / continuous (fused prefill too)
-/ HTTP serving, and multi-turn chat with a KV prefix cache, and check its
-three CUDA kernels.
+/ HTTP serving, multi-turn chat with a KV prefix cache, and the SEED-X SFT
+train step, and check its five CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -9,11 +9,12 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
 1. environment: torch / CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
-2. build: the three kernels from ``seedx_tpu_torch/csrc`` (one nvcc each,
-   started together, sm_90a);
+2. build: the four kernel sources of ``seedx_tpu_torch/csrc`` (one nvcc
+   each, started together, sm_90a);
 3. kernels: each against its plain PyTorch version at the shapes of the
-   turn, of batched decode and of the fused step's stair (K3's multi-query
-   mode) (max abs / rel error against a stated tolerance; median of 10
+   turn, of batched decode, of the fused step's stair (K3's multi-query
+   mode) and of the train step's attention backward (K4, K5; two runs
+   bit-equal) (max abs / rel error against a stated tolerance; median of 10
    timed runs after warm-up, CUDA events), beside its bound (the larger
    of bytes / 3.35 TB/s and operations / the tensor cores' peak for the
    input type) and, where one exists, the time of the PyTorch call
@@ -45,15 +46,28 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    seed runs phase 5's 16 requests non-fused and fused, and phase 6's chat
    turns; the streams must be equal or part only at a tie (``TIE_ULPS``
    bf16 steps of the forced logits);
-8. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
+8. train: the SEED-X SFT step at full width (ViT-bigG frozen, LLaMA2-13B
+   bf16 frozen, LoRA r32 on the seven projections, both resamplers, the
+   embedding and LM head trainable in fp32) on SFT batches built by the
+   port's encoders and ``collate_anyres`` (2 conversations at 880 tokens
+   with 8 anyres tiles; 8 captions at 260 tokens, generation slots):
+   first a gradient check of the agent cut to ``PARITY_LAYERS`` layers,
+   K1 / K4 / K5 against the plain attention under ordinary autograd, which
+   a zero-delta backward must fail; then ``train_loop`` for
+   ``TRAIN_STEPS`` steps alternating the two batches (the loss must fall
+   on each repeated batch, the frozen weights stay bit-equal, the final
+   checkpoint read back bit-equal) and one step with gradient
+   accumulation 2;
+9. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
    line ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-7 runs with the launch counters set to 0 just
+Every path of phases 4-8 runs with the launch counters set to 0 just
 before it and read just after, and fails unless each kernel it runs was
 launched (the fused engines: K3 in its multi-query mode).  In the kernels
-line ``launches`` is the sum over the main path's runs of phases 4-6 (the
-turn, the serving engines and HTTP, the chat sessions); the forced runs
-and phase 7 print theirs on a line of their own.  ``max_abs_err`` is the
+line ``launches`` is the sum over the main path's runs of phases 4-6 and
+8 (the turn, the serving engines and HTTP, the chat sessions, the train
+steps); the forced runs, phase 7 and the gradient check print theirs on a
+line of their own.  ``max_abs_err`` is the
 largest over the kernel's shapes, and ``ms``, ``plain_ms`` and
 ``bound_ms`` sums of one call at each shape; ``library_ms`` sums the
 shapes named in ``library_shapes``.
@@ -100,6 +114,10 @@ LOGIT_FACTOR = 2.0
 PARITY_LAYERS = 2
 KERNELS = (("flash_fwd", "seedx_tpu_torch/csrc/flash_fwd.cu",
             "seedx_tpu/ops/flash_attention.py:43"),
+           ("flash_bwd_dq", "seedx_tpu_torch/csrc/flash_bwd.cu",
+            "seedx_tpu/ops/flash_attention.py:247"),
+           ("flash_bwd_dkv", "seedx_tpu_torch/csrc/flash_bwd.cu",
+            "seedx_tpu/ops/flash_attention.py:298"),
            ("int4_w4a8", "seedx_tpu_torch/csrc/int4_w4a8.cu",
             "seedx_tpu/ops/int4_matmul.py:49"),
            ("decode_attn", "seedx_tpu_torch/csrc/decode_attn.cu",
@@ -153,10 +171,12 @@ def bound(n_bytes: float, n_ops: float, kind: str):
 
 def counters():
     from seedx_tpu_torch.ops.decode_attention import ragged_decode_attention
-    from seedx_tpu_torch.ops.flash_attention import flash_fwd
+    from seedx_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
+                                                     flash_bwd_dq, flash_fwd)
     from seedx_tpu_torch.ops.int4_matmul import int4_matmul
 
-    return {"flash_fwd": flash_fwd, "int4_w4a8": int4_matmul,
+    return {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv, "int4_w4a8": int4_matmul,
             "decode_attn": ragged_decode_attention}
 
 
@@ -251,6 +271,84 @@ def check_flash(dev, g):
         log(fmt_row(r, f" max_rel_err {rel:.3e} lse_err {lse_err:.3e} "
                        f"tol {tol:g}"))
         rows.append(r)
+    return rows
+
+
+# the SFT train step's attention backward: (name, B, S, H, D, causal,
+# starts, ends); q and kv of one length (training), q_offset 0
+FLASH_BWD_SHAPES = (
+    ("comprehension", 2, 880, 40, 128, True, (0, 0), (880, 611)),
+    ("generation", 8, 260, 40, 128, True, (0,) * 8,
+     (260, 211, 174, 260, 143, 238, 197, 160)),
+    ("d64_noncausal", 2, 512, 16, 64, False, (0, 7), (512, 400)))
+
+
+def check_flash_bwd(dev, g):
+    """K4 (dq) and K5 (dk, dv) against ``flash_bwd_plain`` at the train
+    step's shapes; two runs must give the same bits.  The plain version and
+    the library call (autograd through SDPA with the same bool mask)
+    compute dq, dk and dv together; their times stand on both rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from seedx_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    for name, b, s, h, d, causal, st_, en_ in FLASH_BWD_SHAPES:
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev
+                                   ).to(torch.bfloat16) for _ in range(4))
+        st = torch.tensor(st_, dtype=torch.int32, device=dev)
+        en = torch.tensor(en_, dtype=torch.int32, device=dev)
+        scale = d ** -0.5
+        out, lse = fa.flash_fwd(q, k, v, st, en, 0, causal, scale)
+        args = (q, k, v, do, lse, fa.row_delta(do, out), st, en, 0, causal,
+                scale)
+        got = (fa.flash_bwd_dq(*args),) + fa.flash_bwd_dkv(*args)
+        again = (fa.flash_bwd_dq(*args),) + fa.flash_bwd_dkv(*args)
+        ref = fa.flash_bwd_plain(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        errs = [((a.float() - r.float()).abs().max().item(),
+                 r.float().abs().max().item()) for a, r in zip(got, ref)]
+        # work on this data: the (q, k) pairs the window and the causal
+        # mask leave; bytes: each input read once (k / v over the window),
+        # each output written once
+        mask = fa._window_mask(st, en, s, s, 0, causal, dev).expand(
+            b, 1, s, s)
+        pairs = int(mask.sum())
+        window = int((en - st).clamp(min=0).sum())
+        qdo = 2 * b * s * h * d * 2
+        kv = 2 * window * h * d * 2
+        rowstats = 2 * b * h * s * 4
+        bnd = {"flash_bwd_dq": bound(qdo + kv + rowstats + b * s * h * d * 2,
+                                     3 * 2 * d * h * pairs, "bf16"),
+               "flash_bwd_dkv": bound(qdo + kv + rowstats
+                                      + 2 * b * s * h * d * 2,
+                                      4 * 2 * d * h * pairs, "bf16")}
+        plain_ms = cuda_ms(lambda: fa.flash_bwd_plain(*args), iters=5)
+        leaves = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, scale=scale)
+        do_t = do.transpose(1, 2)
+        lib = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do_t, retain_graph=True))
+        del lib_out, leaves
+        shape = (f"{name} B{b} S{s} H{h} D{d} causal={causal} "
+                 f"ends {list(en_)}, {pairs} pairs")
+        for kname, fn, idx in (
+                ("flash_bwd_dq", lambda: fa.flash_bwd_dq(*args), (0,)),
+                ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(*args), (1, 2))):
+            err = max(errs[i][0] for i in idx)
+            # P and dS enter the tensor cores as bf16 and the outputs are
+            # rounded once to bf16 (2^-8 of them): 1e-2 of the largest
+            tol_ok = all(errs[i][0] <= 1e-2 * errs[i][1] for i in idx)
+            rel = max(errs[i][0] / errs[i][1] for i in idx)
+            r = row(kname, shape, tol_ok and same, err, cuda_ms(fn),
+                    plain_ms, bnd[kname], lib)
+            log(fmt_row(r, f" max_rel_err {rel:.3e} tol 1e-2 of the largest;"
+                           f" two runs bit-equal {same}"))
+            rows.append(r)
     return rows
 
 
@@ -523,7 +621,8 @@ def check_kernels(dev):
 
     g = torch.Generator(device=dev).manual_seed(1234)
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
-    rows = check_flash(dev, g) + check_int4(dev, g, flush)
+    rows = check_flash(dev, g) + check_flash_bwd(dev, g)
+    rows += check_int4(dev, g, flush)
     rows += check_decode(dev, g, flush)
     rows += check_stair(dev, g, flush)
     del flush
@@ -1409,15 +1508,45 @@ def run_parity(dev, requests, budgets) -> None:
                                   enforce=True))
 
 
-def profile_decode(rt, requests, slots: int) -> None:
-    """Device busy share of a steady decode window: one 16-step chunk of
-    the continuous engine with every slot live and nothing waiting, under
-    torch.profiler (its own overhead lengthens the wall time, so the share
-    is a lower bound)."""
+def profile_window(label: str, run, top_n: int = 5) -> None:
+    """Device busy share of one window under torch.profiler (its own
+    overhead lengthens the wall time, so the share is a lower bound), the
+    device time of the flash kernels and the ``top_n`` kernels by time.
+    ``run()`` does the window's work and returns how many steps it ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        log(f"profile {label}: the profiler saw no device events; busy "
+            f"share not measured")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    flash = sum(t for name, (t, _) in by_name.items() if "flash_" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    log(f"profile {label}: {steps} steps, {wall:.1f} ms wall (profiled), "
+        f"device busy {busy:.1f} ms = {100 * busy / wall:.1f}%, flash "
+        f"kernels {flash:.2f} ms, {len(events) / steps:.0f} device events "
+        f"per step; top: "
+        + "; ".join(f"{name[:48]} {t:.2f} ms x{n}"
+                    for name, (t, n) in top))
+
+
+def profile_decode(rt, requests, slots: int) -> None:
+    """Device busy share of a steady decode window: one 16-step chunk of
+    the continuous engine with every slot live and nothing waiting."""
     from seedx_tpu_torch.inference.continuous import ContinuousEngine
 
     eng = ContinuousEngine(rt, slots=slots, max_new_tokens=128,
@@ -1426,30 +1555,428 @@ def profile_decode(rt, requests, slots: int) -> None:
         eng.submit(r, max_new_tokens=64)
     eng.step()             # admission and a first chunk, outside the window
     before = eng.stats()["decode_steps"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def chunk():
         eng.step()
+        return eng.stats()["decode_steps"] - before
+
+    profile_window(f"B{slots} decode", chunk)
+
+
+# the SFT phase: the SEED-X agent (configs/clm_models/agent_seed_x.yaml
+# width: LLaMA2-13B bf16 base, LoRA r32 alpha 32 dropout 0.05, 64 / 64
+# resampler queries, vit_dim 4096, rec_loss_scale 6); the tolerances of
+# the gradient check (bf16 on both sides; a leaf is held to at least
+# GRAD_FLOOR of the model's largest gradient, the rounding noise's level:
+# a key bias's true gradient is zero)
+TRAIN_STEPS = 4
+GRAD_LOSS_REL, GRAD_REL, GRAD_FLOOR = 1e-2, 2e-2, 1e-2
+CONVERSATIONS = (
+    ["Describe this picture in detail, please.",
+     "The picture shows a quiet harbour at dawn. Small fishing boats rest "
+     "on calm water, their hulls painted red, blue and white. Behind them a "
+     "row of stone houses climbs a green hill, and a lighthouse stands on "
+     "the far pier. Thin clouds catch the first orange light.",
+     "What time of year could it be?",
+     "The trees on the hill are full and green and the people on the pier "
+     "wear light jackets, so it is probably late spring or early summer. "
+     "The low sun suggests an early morning.",
+     "Is there anything unusual in the scene?",
+     "One boat carries a stack of yellow crates on its deck, while the "
+     "others are empty; it may be about to leave for the market."],
+    ["What is shown here?",
+     "A street market with stalls of fruit and vegetables under striped "
+     "awnings. A woman in a green coat is choosing oranges.",
+     "How many stalls can you count?",
+     "I can see four stalls clearly and the edge of a fifth one on the "
+     "right side of the image."])
+CAPTIONS = ("a red bicycle leaning against a white fence in the sun",
+            "two cats sleeping on a wooden chair by a window",
+            "a bowl of ramen with egg, scallions and sliced pork",
+            "a snowy mountain above a blue lake at sunrise",
+            "an old lighthouse on a rocky coast during a storm",
+            "a child flying a yellow kite on a windy beach",
+            "a stack of pancakes with berries and maple syrup",
+            "a vintage green car parked on a cobblestone street",
+            "a field of sunflowers under a cloudy sky",
+            "a black dog catching a frisbee in a park")
+
+
+def train_agent_cfg(num_layers: int = 40, **llm_kw):
+    from seedx_tpu_torch.models.agent import AgentConfig
+    from seedx_tpu_torch.models.llama import llama2_13b
+
+    return AgentConfig(
+        llm=llama2_13b(num_layers=num_layers, lora_rank=32, lora_alpha=32.0,
+                       lora_dropout=0.05, **llm_kw),
+        vit_dim=4096, resampler_heads=32, num_img_in_tokens=64,
+        num_img_out_tokens=64, rec_loss_scale=6.0)
+
+
+def sft_batches(tok, image_size: int, n_in: int, n_out: int):
+    """The two kinds of configs/data/sft_comprehension_gen.yaml, through
+    the port's encoders and collate_anyres: (a) 2 conversations at
+    max_length 880, each with one anyres image (896x448: 3 tiles, 896x896:
+    5 tiles); (b) two batches of 8 captions at max_length 260, the image
+    last (generation, one tile each).  Returns (a, b, b2)."""
+    from PIL import Image
+
+    from seedx_tpu_torch.data.anyres import (grid_pinpoints_from_strings,
+                                             process_anyres_image)
+    from seedx_tpu_torch.data.encoding import (encode_caption_sample,
+                                               encode_conversation_sample)
+    from seedx_tpu_torch.data.pipeline import collate_anyres
+    from seedx_tpu_torch.data.transforms import get_transform
+    from seedx_tpu_torch.inference.runtime import DEFAULT_RESOLUTION_GRIDS
+
+    rng = np.random.default_rng(5)
+    transform = get_transform("clip", keep_ratio=False, image_size=image_size)
+    grids = grid_pinpoints_from_strings(DEFAULT_RESOLUTION_GRIDS, image_size)
+    conv = []
+    for turns, (w, h) in zip(CONVERSATIONS, ((2, 2), (2, 1))):
+        img = Image.fromarray((rng.random((h * image_size, w * image_size,
+                                           3)) * 255).astype(np.uint8))
+        tiles, ppos = process_anyres_image(img, transform, grids, image_size)
+        # the longer conversation fills max_length: turns repeated
+        s = encode_conversation_sample(
+            turns * 2, tok, max_length=880, patch_length=len(tiles),
+            num_img_in_tokens=n_in, rng=np.random.default_rng(len(conv)))
+        s.update(images=tiles, patch_positions=ppos)
+        conv.append(s)
+    batch_a = collate_anyres(conv, max_images=8, image_size=image_size)
+
+    def captions(offset):
+        out = []
+        for i in range(8):
+            img = Image.fromarray((rng.random((image_size, image_size, 3))
+                                   * 255).astype(np.uint8))
+            s = encode_caption_sample(
+                CAPTIONS[(i + offset) % len(CAPTIONS)], tok, max_length=260,
+                img_first_ratio=0.0, num_img_in_tokens=n_in,
+                num_img_out_tokens=n_out, add_gen_prompt=True,
+                rng=np.random.default_rng(100 + i + offset))
+            s["images"] = transform(img)[None]
+            out.append(s)
+        return collate_anyres(out, max_images=8, image_size=image_size)
+
+    return batch_a, captions(0), captions(3)
+
+
+def bit_checksum(tensors) -> int:
+    """A checksum of the bits of every tensor (int64 sums of 16-bit words,
+    one leading slice of a stacked tensor at a time)."""
+    import torch
+
+    total = 0
+    for t in tensors:
+        for part in (t if t.dim() > 2 else [t]):
+            words = part.contiguous().view(-1).view(torch.int16)
+            total += int(words.sum(dtype=torch.int64))
+    return total
+
+
+def grad_diff(got, want, floor_rel: float):
+    """(worst error over the leaves relative to max(the leaf's largest
+    gradient, floor_rel x the model's largest), that leaf)."""
+    top = max(w.float().abs().max().item() for w in want.values())
+    worst, leaf = 0.0, None
+    for n, w in want.items():
+        scale = max(w.float().abs().max().item(), floor_rel * top)
+        err = (got[n].float() - w.float()).abs().max().item() / scale
+        if err > worst:
+            worst, leaf = err, n
+    return worst, leaf
+
+
+@contextlib.contextmanager
+def zero_delta():
+    """A deliberately broken backward: delta = rowsum(dO * O) taken as 0."""
+    import torch
+
+    from seedx_tpu_torch.ops import flash_attention as fa
+
+    base = fa.row_delta
+    fa.row_delta = lambda do, out: torch.zeros_like(base(do, out))
+    try:
+        yield
+    finally:
+        fa.row_delta = base
+
+
+def grad_check(dev, batch):
+    """The agent cut to PARITY_LAYERS layers at full width, batch (a): loss
+    and trainable grads through K1 / K4 / K5 against the plain attention
+    under ordinary autograd (no dropout); a zero-delta backward must fail
+    the same check.  Launches go to ``CHECKS``."""
+    import dataclasses
+
+    import torch
+
+    from seedx_tpu_torch.models.agent import ContinuousLVLM
+    from seedx_tpu_torch.models.layers import init_normal_
+    from seedx_tpu_torch.train.trainer import (TrainConfig, compute_grads,
+                                               create_train_state)
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cfg = train_agent_cfg(PARITY_LAYERS)
+    agent = init_normal_(ContinuousLVLM(cfg, dev), gen)
+    st = create_train_state(agent, TrainConfig())
+    runs = {}
+    for name in ("kernels", "plain", "zero delta"):
+        reset_counts()
+        layers = agent.llm.layers
+        if name == "plain":
+            layers.cfg = dataclasses.replace(cfg.llm, attention_impl="plain")
+        with zero_delta() if name == "zero delta" else \
+                contextlib.nullcontext():
+            grads, losses = compute_grads(agent, st.params, batch)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    steps = eng.stats()["decode_steps"] - before
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        log(f"profile B{slots} decode: the profiler saw no device events; "
-            f"busy share not measured")
-        return
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    by_name = {}
-    for e in events:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    log(f"profile B{slots} decode: {steps} steps, {wall:.1f} ms wall "
-        f"(profiled), device busy {busy:.1f} ms = {100 * busy / wall:.1f}%, "
-        f"{len(events) / steps:.0f} device events per step; top: "
-        + "; ".join(f"{name[:48]} {t:.2f} ms x{n}"
-                    for name, (t, n) in top))
+        layers.cfg = cfg.llm
+        runs[name] = (grads, float(losses["total_loss"]))
+        counts = read_counts()
+        add_counts(CHECKS, counts)
+        log(f"grad check {PARITY_LAYERS} layers, {name}: loss "
+            f"{runs[name][1]:.6f}, launches {json.dumps(counts)}")
+        if name != "plain" and min(counts["flash_fwd"],
+                                   counts["flash_bwd_dq"],
+                                   counts["flash_bwd_dkv"]) <= 0:
+            raise AssertionError(f"grad check {name}: a flash kernel was "
+                                 f"not launched")
+    want, loss_p = runs["plain"]
+    loss_rel = abs(runs["kernels"][1] - loss_p) / abs(loss_p)
+    worst, leaf = grad_diff(runs["kernels"][0], want, GRAD_FLOOR)
+    m_worst, m_leaf = grad_diff(runs["zero delta"][0], want, GRAD_FLOOR)
+    log(f"grad check: kernels vs plain loss rel {loss_rel:.3e} (tol "
+        f"{GRAD_LOSS_REL:g}), worst leaf {leaf} {worst:.3e} (tol "
+        f"{GRAD_REL:g} of max(its largest, {GRAD_FLOOR:g} x the model's "
+        f"largest)) over {len(want)} leaves; the zero-delta mutant: worst "
+        f"leaf {m_leaf} {m_worst:.3e}")
+    if not (loss_rel <= GRAD_LOSS_REL and worst <= GRAD_REL):
+        raise AssertionError("grad check: kernels disagree with the plain "
+                             "attention")
+    if not m_worst > GRAD_REL:
+        raise AssertionError("grad check: the zero-delta mutant passes the "
+                             "check")
+
+
+class StepCounts:
+    """Wraps the batches of a run without accumulation: each step's
+    launches and peak memory, read when the loop asks for the next
+    batch."""
+
+    def __init__(self, batches):
+        self.batches, self.steps, self._open = batches, [], False
+
+    def __iter__(self):
+        import torch
+
+        for b in self.batches:
+            self._close()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            self._open = True
+            yield b
+        self._close()
+
+    def _close(self):
+        import torch
+
+        if self._open:
+            torch.cuda.synchronize()
+            self.steps.append((read_counts(),
+                               torch.cuda.max_memory_allocated()))
+            self._open = False
+
+
+def run_train(dev):
+    """Phase 8: the SFT train step at full SEED-X width (see the module
+    docstring).  Returns the main path's launches (the train steps)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from seedx_tpu_torch.models.agent import ContinuousLVLM
+    from seedx_tpu_torch.models.layers import init_normal_
+    from seedx_tpu_torch.models.vit import VisionTransformer, qwen_vitg_448
+    from seedx_tpu_torch.text.tokenizer import load_tokenizer
+    from seedx_tpu_torch.train import checkpoints
+    from seedx_tpu_torch.train.partition import path_labels
+    from seedx_tpu_torch.train.train_sft import (RunConfig, _to_device,
+                                                 train_loop)
+    from seedx_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    vit_cfg = qwen_vitg_448()
+    vit = init_normal_(VisionTransformer(vit_cfg, dev).eval(), gen)
+    batch_a, batch_b, batch_b2 = sft_batches(load_tokenizer(),
+                                             vit_cfg.image_size, 64, 64)
+    for name, bt in (("a", batch_a), ("b", batch_b)):
+        log(f"train batch ({name}): input_ids {bt['input_ids'].shape}, "
+            f"tokens per row {bt['attention_mask'].sum(1).tolist()}, image "
+            f"slots {int(bt['embeds_cmp_mask'].sum())} comprehension + "
+            f"{int(bt['embeds_gen_mask'].sum())} generation")
+    dev_a = _to_device(batch_a, dev)
+    with torch.no_grad():
+        dev_a["image_embeds"] = vit(dev_a.pop("images"),
+                                    dev_a["patch_positions"])
+    grad_check(dev, dev_a)
+    del dev_a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = train_agent_cfg()
+    agent = init_normal_(ContinuousLVLM(cfg, dev), gen)
+    torch.cuda.synchronize()
+    log(f"train: built ViT-bigG/14-448 bf16 (frozen) + the SEED-X agent "
+        f"(LLaMA2-13B bf16, LoRA r32) in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    labels = path_labels(agent.state_dict().keys())
+    frozen = [n for n, lab in labels.items() if lab == "frozen"]
+
+    def frozen_sum():
+        state = agent.state_dict()
+        return bit_checksum([state[n] for n in frozen]
+                            + list(vit.state_dict().values()))
+
+    before = frozen_sum()
+    saves = []
+    base_save = checkpoints.CheckpointManager.save
+
+    def timed_save(self, step, state):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        path = base_save(self, step, state)
+        saves.append((path, time.perf_counter() - t1))
+        return path
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sft_")
+    totals = {}
+    try:
+        checkpoints.CheckpointManager.save = timed_save
+        steps = StepCounts([batch_a, batch_b, batch_a, batch_b])
+        train_cfg = TrainConfig(warmup_steps=0, max_steps=TRAIN_STEPS)
+        state = train_loop(agent, vit, iter(steps), train_cfg,
+                           RunConfig(output_dir=out_dir, log_steps=1,
+                                     save_steps=10 ** 9, trackers=("jsonl",),
+                                     seed=0), device=dev)
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(x) for x in f]
+        if state.step != TRAIN_STEPS or len(metrics) != TRAIN_STEPS:
+            raise AssertionError(f"train: {state.step} steps, "
+                                 f"{len(metrics)} logged")
+        for m, (counts, peak) in zip(metrics, steps.steps):
+            add_counts(totals, counts)
+            ms = m["vit_ms"] + m["fwd_bwd_ms"] + m["opt_ms"]
+            log(f"train step {m['step']} ({'ab'[m['step'] % 2]}): total_loss "
+                f"{m['total_loss']:.5f} lm_loss {m['lm_loss']:.5f} rec_loss "
+                f"{m['rec_loss']:.5f} grad_norm {m['grad_norm']:.4f} lr "
+                f"{m['lr']:.3e}; vit {m['vit_ms']:.1f} ms, fwd+bwd "
+                f"{m['fwd_bwd_ms']:.1f} ms, optimizer {m['opt_ms']:.1f} ms, "
+                f"{m['tokens']} tokens, {m['tokens'] / ms * 1e3:.1f} tok/s; "
+                f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+                f"flash_fwd {counts['flash_fwd']} flash_bwd_dq "
+                f"{counts['flash_bwd_dq']} flash_bwd_dkv "
+                f"{counts['flash_bwd_dkv']}")
+            n = cfg.llm.num_layers
+            want = (2 * n + vit_cfg.layers, n, n)
+            got = (counts["flash_fwd"], counts["flash_bwd_dq"],
+                   counts["flash_bwd_dkv"])
+            if got != want:
+                raise AssertionError(f"train step {m['step']}: launches "
+                                     f"{got}, want {want}")
+        for i in (0, 1):
+            first, second = (metrics[i]["total_loss"],
+                             metrics[i + 2]["total_loss"])
+            if not second < first:
+                raise AssertionError(f"train: batch ({'ab'[i]}) loss did not "
+                                     f"fall: {first} -> {second}")
+        log("train: the loss fell on each repeated batch (step 2 < step 0, "
+            "step 3 < step 1)")
+        if frozen_sum() != before:
+            raise AssertionError("train: a frozen weight changed")
+        log(f"train: frozen weights unchanged ({len(frozen)} agent leaves "
+            f"and the ViT, bit checksum)")
+        path, secs = saves[-1]
+        nbytes = os.path.getsize(os.path.join(path, "state.pt"))
+        t1 = time.perf_counter()
+        back = checkpoints.CheckpointManager(os.path.dirname(path)).restore(
+            map_location=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        live = state.state_dict()
+        same = back["step"] == live["step"] and all(
+            torch.equal(back["trainable"][n], p)
+            for n, p in live["trainable"].items()) and all(
+            torch.equal(back["opt_state"][k][n], t)
+            for k in ("mu", "nu") for n, t in live["opt_state"][k].items())
+        log(f"train: checkpoint {os.path.basename(path)} {nbytes / 2**30:.2f}"
+            f" GiB written in {secs:.2f} s, read back in {load_s:.2f} s, "
+            f"bit-equal to the live state: {same}")
+        if not same:
+            raise AssertionError("train: the checkpoint differs from the "
+                                 "live state")
+        del back, live
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one more step of (a) under torch.profiler, the ViT encode
+        # included: the device's busy share and where its time goes (a
+        # check run, so not in the kernels line)
+        step_fn = make_train_step(agent, train_cfg)
+        dev_a = _to_device(batch_a, dev)
+
+        def one_step():
+            with torch.no_grad():
+                dev_a["image_embeds"] = vit(dev_a.pop("images"),
+                                            dev_a["patch_positions"])
+            step_fn(state, dev_a, torch.Generator(device=dev).manual_seed(9))
+            return 1
+
+        reset_counts()
+        profile_window("train step (a)", one_step, top_n=8)
+        add_counts(CHECKS, read_counts())
+        del state, dev_a
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # gradient accumulation: one step over two generation batches, the
+        # ViT encoding their 16 tiles in one pass
+        shutil.rmtree(out_dir)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        state = train_loop(agent, vit, iter([batch_b, batch_b2]),
+                           TrainConfig(warmup_steps=0, max_steps=1,
+                                       gradient_accumulation_steps=2),
+                           RunConfig(output_dir=out_dir, log_steps=1,
+                                     trackers=("jsonl",), seed=1), device=dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add_counts(totals, counts)
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            m = json.loads(f.readline())
+        log(f"train accum 2: total_loss {m['total_loss']:.5f} rec_loss "
+            f"{m['rec_loss']:.5f} grad_norm {m['grad_norm']:.4f}; vit "
+            f"{m['vit_ms']:.1f} ms (16 tiles), fwd+bwd {m['fwd_bwd_ms']:.1f} "
+            f"ms, optimizer {m['opt_ms']:.1f} ms, {m['tokens']} tokens; "
+            f"max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"{json.dumps(counts)}")
+        want = (4 * cfg.llm.num_layers + vit_cfg.layers,
+                2 * cfg.llm.num_layers, 2 * cfg.llm.num_layers)
+        got = (counts["flash_fwd"], counts["flash_bwd_dq"],
+               counts["flash_bwd_dkv"])
+        if state.step != 1 or got != want or not np.isfinite(
+                m["total_loss"]):
+            raise AssertionError(f"train accum 2: step {state.step}, "
+                                 f"launches {got} (want {want}), {m}")
+    finally:
+        checkpoints.CheckpointManager.save = base_save
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"train: phase done in {time.perf_counter() - t0:.1f} s")
+    return totals
 
 
 def build_kernels():
@@ -1459,8 +1986,8 @@ def build_kernels():
     from seedx_tpu_torch.ops import flash_attention as fa
     from seedx_tpu_torch.ops import int4_matmul as i4
 
-    libs = {"flash_fwd": fa.library, "int4_w4a8": i4.library,
-            "decode_attn": da.library}
+    libs = {"flash_fwd": fa.library, "flash_bwd": fa.bwd_library,
+            "int4_w4a8": i4.library, "decode_attn": da.library}
     errors = {}
 
     def build(name):
@@ -1524,9 +2051,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_parity(dev, requests, budgets)
-    log(f"main path (turn, serving, chat): launches {json.dumps(launches)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    add_counts(launches, run_train(dev))
+    log(f"main path (turn, serving, chat, train): launches "
+        f"{json.dumps(launches)}")
     log(f"check runs (teacher-forced engines, batched loop and chat; the "
-        f"{PARITY_LAYERS}-layer parity agent): launches "
+        f"{PARITY_LAYERS}-layer parity agent and gradient check): launches "
         f"{json.dumps(CHECKS)}; not in the kernels line")
 
     kernels = []

@@ -1,22 +1,28 @@
-"""ContinuousLVLM, the SEED-X agent: its generation-facing parts
-(reference: seedx_tpu/models/agent.py; src/models/mllm/seed_x.py).
+"""ContinuousLVLM, the SEED-X agent (reference: seedx_tpu/models/agent.py;
+src/models/mllm/seed_x.py).
 
 Input images are resampled into the LLM embedding stream at the
 ``ids_cmp_mask`` positions; generated image spans are decoded from the
-LLM hidden states by the output resampler.  The training losses are not
-ported yet.
+LLM hidden states by the output resampler.  ``forward`` is the SFT loss:
+the causal LM loss plus the reconstruction MSE of the generated spans'
+output-resampler features against the (4x-pooled) ViT features, total =
+``lm_loss_scale * lm + rec_loss_scale * rec``.  The splice helpers write
+into no tensor that autograd needs, so every trainable leaf gets its
+gradient through them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from seedx_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from seedx_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                          causal_lm_loss)
 from seedx_tpu_torch.models.resampler import Resampler
+from seedx_tpu_torch.models.vit import vit_downsample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +34,8 @@ class AgentConfig:
     num_img_out_tokens: int = 64
     vit_dim: int = 4096
     resampler_heads: int = 32
+    lm_loss_scale: float = 1.0
+    rec_loss_scale: float = 6.0
     add_patch_pos: bool = True
     vit_down: bool = True
     dtype: torch.dtype = torch.bfloat16
@@ -36,10 +44,9 @@ class AgentConfig:
 def _compact_rows(rows: torch.Tensor, slot_mask: torch.Tensor) -> torch.Tensor:
     """Rows of valid slots packed to the front in order, zeros after:
     [N, T, D] -> [N, T, D] (``rows[slot_mask]`` at a fixed shape)."""
-    out = torch.zeros_like(rows)
     kept = rows[slot_mask]
-    out[:kept.shape[0]] = kept
-    return out
+    pad = rows.new_zeros((rows.shape[0] - kept.shape[0],) + rows.shape[1:])
+    return torch.cat([kept, pad])
 
 
 def _scatter_to_positions(base: torch.Tensor, token_mask: torch.Tensor,
@@ -63,9 +70,9 @@ def _gather_from_positions(hidden: torch.Tensor, token_mask: torch.Tensor,
     d = hidden.shape[-1]
     rows = hidden.reshape(-1, d)[token_mask.reshape(-1)]
     n = num_slots * tokens_per_slot
-    out = torch.zeros((n, d), dtype=hidden.dtype, device=hidden.device)
-    out[:min(n, rows.shape[0])] = rows[:n]
-    return out.reshape(num_slots, tokens_per_slot, d)
+    rows = rows[:n]
+    pad = hidden.new_zeros((n - rows.shape[0], d))
+    return torch.cat([rows, pad]).reshape(num_slots, tokens_per_slot, d)
 
 
 class ContinuousLVLM(nn.Module):
@@ -132,3 +139,59 @@ class ContinuousLVLM(nn.Module):
         """Output resampler over generated spans [num_imgs, n_out, hidden]
         -> [num_imgs, n, vit_dim] (reference: seed_x.py:204-210)."""
         return self.output_resampler(hidden_states)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                labels: torch.Tensor, image_embeds: Optional[torch.Tensor],
+                embeds_gen_mask: Optional[torch.Tensor],
+                embeds_cmp_mask: Optional[torch.Tensor],
+                ids_gen_mask: torch.Tensor, ids_cmp_mask: torch.Tensor,
+                patch_positions: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """The SFT losses (reference agent.py:191-242): ``input_ids``,
+        ``attention_mask`` (right-padded), ``labels``, ``ids_gen_mask`` and
+        ``ids_cmp_mask`` [B, S]; ``image_embeds`` [N, T, vit_dim] with
+        ``embeds_gen_mask`` / ``embeds_cmp_mask`` [N] and
+        ``patch_positions`` [N, 2], or None.  ``generator`` turns on LoRA
+        dropout.  Returns fp32 ``total_loss``, ``lm_loss``, ``rec_loss``."""
+        cfg = self.cfg
+        input_embeds = self.embed_with_images(
+            input_ids, image_embeds, ids_cmp_mask, embeds_cmp_mask,
+            patch_positions)
+        logits, hidden = self.llm.forward_train(
+            input_embeds, positions_from_mask(attention_mask),
+            attention_mask.to(torch.bool), generator)
+        lm_loss = causal_lm_loss(logits, labels)
+        rec_loss = torch.zeros((), dtype=torch.float32,
+                               device=lm_loss.device)
+        if image_embeds is not None:
+            # generation regression (reference seed_x.py:100-117)
+            target = image_embeds
+            if cfg.vit_down:
+                target = vit_downsample(target)
+            if target.shape[1] != cfg.num_img_out_tokens:
+                raise ValueError(
+                    f"reconstruction target has {target.shape[1]} tokens but "
+                    f"num_img_out_tokens={cfg.num_img_out_tokens}; with "
+                    f"vit_down the ViT must emit 4*num_img_out_tokens tokens")
+            n_slots = image_embeds.shape[0]
+            target = _compact_rows(target, embeds_gen_mask).detach()
+            gen_hidden = _gather_from_positions(
+                hidden, ids_gen_mask, n_slots, cfg.num_img_out_tokens)
+            recon = self.output_resampler(gen_hidden)
+            num_gen = embeds_gen_mask.to(torch.int64).sum()
+            slot_valid = (torch.arange(n_slots, device=num_gen.device)
+                          < num_gen)[:, None, None]
+            sq = (recon.float() - target.float()) ** 2
+            denom = (torch.clamp(num_gen, min=1) * target.shape[1]
+                     * target.shape[2])
+            rec_loss = torch.where(slot_valid, sq, 0.0).sum() / denom
+        total = cfg.lm_loss_scale * lm_loss + cfg.rec_loss_scale * rec_loss
+        return {"total_loss": total, "lm_loss": lm_loss, "rec_loss": rec_loss}
+
+
+def positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
+    """Position ids from a (left- or right-) padded attention mask
+    (reference agent.py:245-248)."""
+    mask = attention_mask.to(torch.int64)
+    return torch.clamp(torch.cumsum(mask, dim=-1) - 1, min=0)

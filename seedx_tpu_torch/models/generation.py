@@ -29,7 +29,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from seedx_tpu_torch.models.agent import ContinuousLVLM
+from seedx_tpu_torch.models.agent import ContinuousLVLM, positions_from_mask
 from seedx_tpu_torch.models.llama import init_kv_cache
 from seedx_tpu_torch.text.vocab import DEFAULT_VOCAB, MultimodalVocab
 
@@ -111,8 +111,7 @@ def generate_tokens(model: ContinuousLVLM, prompt_embeds: torch.Tensor,
     cache = init_kv_cache(model.cfg.llm, b, p + t, device=dev)
 
     clock = PhaseClock(dev, timings)
-    positions = torch.clamp(torch.cumsum(prompt_mask.to(torch.int64), -1) - 1,
-                            min=0)
+    positions = positions_from_mask(prompt_mask)
     kv_valid = torch.cat([prompt_mask,
                           torch.zeros((b, t), dtype=torch.bool, device=dev)],
                          dim=-1)

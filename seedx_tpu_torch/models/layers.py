@@ -7,13 +7,20 @@ Weights are buffers named as the JAX package's parameter leaves
 ``forward(x, layer)`` reads layer ``layer`` as a view: one layer loop
 serves prefill and decode.  Float weights are stored in the compute dtype;
 the JAX package casts its fp32 parameters to that dtype at every use, so
-the values are the same.  Inference only: buffers, no gradients.
+the values are the same.
+
+Every weight is a buffer (no gradient) until ``set_trainable_`` turns the
+leaves a trainer names into fp32 ``nn.Parameter`` master copies, which
+are cast to the compute dtype at each use (``Stacked.w``), as the JAX
+package does with ``param_dtype=float32``; frozen leaves stay bf16
+buffers.  LoRA dropout (training) draws its masks from an explicit
+``torch.Generator`` passed to ``LoRADense.forward``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Iterable, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,11 +36,15 @@ def _lead(layers: Optional[int]) -> tuple:
 
 
 class Stacked(nn.Module):
-    """Base: ``self.w(name, layer)`` is buffer ``name`` or its layer view."""
+    """Base: ``self.w(name, layer)`` is weight ``name`` or its layer view;
+    a trainable (fp32 ``nn.Parameter``) leaf comes back cast to the
+    compute dtype."""
 
     def w(self, name: str, layer: Optional[int]) -> torch.Tensor:
         t = getattr(self, name)
-        return t if layer is None else t[layer]
+        cast = isinstance(t, nn.Parameter)
+        t = t if layer is None else t[layer]
+        return t.to(self.dtype) if cast else t
 
 
 class PDense(Stacked):
@@ -81,11 +92,14 @@ class LoRADense(PDense):
     ``quantize="int4"``: ``kernel_q4`` uint8 [in//2, out] (row-pair signed
     nibbles) + ``kernel_scale`` fp32 [in//group, out], group = 128, or in
     when in % 128 != 0 (reference layers.py:121-142), through the W4A8
-    kernel.  ``lora_rank > 0`` adds ``scale * (x @ lora_a) @ lora_b``,
-    scale = alpha / rank (inference: no dropout)."""
+    kernel.  ``lora_rank > 0`` adds ``scale * (dropout(x) @ lora_a) @
+    lora_b``, scale = alpha / rank; dropout (rate ``lora_dropout``, on the
+    LoRA input only, reference layers.py:180-193) runs only when the
+    caller passes a generator."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = False,
                  lora_rank: int = 0, lora_alpha: float = 32.0,
+                 lora_dropout: float = 0.0,
                  quantize: str = "none", quantize_group: int = 128,
                  dtype=torch.bfloat16, layers: Optional[int] = None,
                  device=None):
@@ -106,21 +120,28 @@ class LoRADense(PDense):
                 lead + (in_features // group, features), dtype=torch.float32,
                 device=device))
         self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
+        self.lora_dropout = lora_dropout
         if lora_rank > 0:
             self.register_buffer("lora_a", torch.zeros(
                 lead + (in_features, lora_rank), dtype=dtype, device=device))
             self.register_buffer("lora_b", torch.zeros(
                 lead + (lora_rank, features), dtype=dtype, device=device))
 
-    def forward(self, x: torch.Tensor,
-                layer: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, layer: Optional[int] = None,
+                dropout: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.quantize == "int4":
             y = int4_matmul_auto(x.to(self.dtype), self.w("kernel_q4", layer),
                                  self.w("kernel_scale", layer))
         else:
             y = x.to(self.dtype) @ self.dense_kernel(layer)
         if self.lora_rank > 0:
-            delta = ((x.to(self.dtype) @ self.w("lora_a", layer))
+            xd = x
+            rate = self.lora_dropout
+            if rate > 0.0 and dropout is not None:
+                keep = torch.rand(x.shape, generator=dropout,
+                                  device=x.device) < 1.0 - rate
+                xd = torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+            delta = ((xd.to(self.dtype) @ self.w("lora_a", layer))
                      @ self.w("lora_b", layer))
             y = y + (self.lora_alpha / self.lora_rank) * delta
         if self.use_bias:
@@ -206,14 +227,17 @@ class TorchMHA(nn.Module):
         return self.out_proj(out.reshape(*q.shape[:-1], dim))
 
 
+@torch.no_grad()
 def init_normal_(module: nn.Module, generator: torch.Generator,
                  std: float = 0.02) -> nn.Module:
     """Random weights for a module built with zeros: normal(0, s) with
     s = min(std, fan_in ** -0.5) for float kernels, tables and queries;
     1 + normal(0, 0.1) for norm scales; normal(0, 0.02) for biases.
     Integer leaves and quantizer scales are left to the quantizer.  Values
-    are drawn in fp32 on the module's device, one buffer at a time."""
-    # state_dict: persistent buffers only (not the fixed sincos tables)
+    are drawn in fp32 on the module's device, one buffer (or trainable
+    parameter) at a time."""
+    # state_dict: persistent buffers and parameters (not the fixed sincos
+    # tables)
     for name, buf in module.state_dict(keep_vars=True).items():
         if not buf.is_floating_point() or name.endswith("kernel_scale"):
             continue
@@ -229,3 +253,22 @@ def init_normal_(module: nn.Module, generator: torch.Generator,
             noise = noise * min(std, 1.0 / math.sqrt(fan_in))
         buf.copy_(noise)
     return module
+
+
+def set_trainable_(module: nn.Module, names: Iterable[str]) -> List[str]:
+    """Turn the float weights ``names`` (state-dict names) of ``module``
+    into fp32 ``nn.Parameter`` master copies, in place, as the JAX
+    package's ``param_dtype=float32`` leaves; the others stay buffers.  A
+    leaf that is already a parameter is kept.  Returns the names."""
+    names = list(names)
+    for name in names:
+        owner_name, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_name)
+        t = getattr(owner, leaf)
+        if isinstance(t, nn.Parameter):
+            continue
+        if not t.is_floating_point():
+            raise ValueError(f"{name}: {t.dtype} leaves cannot train")
+        del owner._buffers[leaf]
+        owner.register_parameter(leaf, nn.Parameter(t.detach().float()))
+    return names

@@ -26,16 +26,23 @@ query slot i of row b attends the causal stair ``[start_b, pos_b + i]``:
 through the ragged kernel's multi-query mode when the kv window goes to
 the kernel, else through the plain attention with a per-row causal
 ``q_offset`` (as the JAX package's XLA path does).
+
+Training (``LlamaForCausalLM.forward_train``, ``causal_lm_loss``) runs the
+cache-less forward with per-layer recomputation (``remat``, the JAX
+package's ``nn.remat``) on a bf16 / fp32 base; its causal attention goes
+through the flash kernels' autograd function on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from seedx_tpu_torch.models.layers import LoRADense, RMSNorm
 from seedx_tpu_torch.ops.attention import dot_product_attention
@@ -43,6 +50,7 @@ from seedx_tpu_torch.ops.decode_attention import ragged_decode_attention
 from seedx_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 KVCache = Tuple[torch.Tensor, ...]
+IGNORE_INDEX = -100   # label value excluded from the LM loss (HF convention)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +66,7 @@ class LlamaConfig:
     max_position_embeddings: int = 2048
     lora_rank: int = 0
     lora_alpha: float = 32.0
+    lora_dropout: float = 0.05      # training only (a generator is given)
     # "none" | "int8" (projections) | "int8_full" (+ embedding, lm_head) |
     # "int4" (nibble-packed projections, int8 embedding + lm_head)
     quantization: str = "none"
@@ -69,6 +78,7 @@ class LlamaConfig:
     # cache and attend with the plain path.  Paged KV needs it on.
     decode_attention: str = "auto"
     attention_impl: str = "auto"    # "auto" | "plain" | "flash"
+    remat: bool = True              # training: recompute each layer
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -154,6 +164,7 @@ class LlamaLayers(nn.Module):
         def dense(n_in, n_out):
             return LoRADense(n_in, n_out, lora_rank=cfg.lora_rank,
                              lora_alpha=cfg.lora_alpha,
+                             lora_dropout=cfg.lora_dropout,
                              quantize=cfg.quantization, dtype=dt, layers=L,
                              device=device)
 
@@ -168,19 +179,20 @@ class LlamaLayers(nn.Module):
         self.down_proj = dense(cfg.intermediate_size, d)
 
     def block(self, li: int, x, cache: Optional[KVCache], cos, sin,
-              kv_valid, cache_index, step: Optional["_Step"] = None
-              ) -> torch.Tensor:
+              kv_valid, cache_index, step: Optional["_Step"] = None,
+              drop: Optional[torch.Generator] = None) -> torch.Tensor:
         """One decoder layer (reference LlamaBlock, llama.py:180-309):
         x [B, S, hidden] (the packed fused step: [1, P, hidden]); with a
         cache, ``step`` says where layer ``li``'s new k/v rows go and how
-        the queries attend (see ``_Step``)."""
+        the queries attend (see ``_Step``).  ``drop`` (training) draws the
+        LoRA dropout masks of the seven projections in order."""
         cfg = self.cfg
         b, s, _ = x.shape
         nh, hd = cfg.num_kv_heads, cfg.head_dim
         h = self.input_layernorm(x, li)
-        q = self.q_proj(h, li).reshape(b, s, cfg.num_heads, hd)
-        k = self.k_proj(h, li).reshape(b, s, nh, hd)
-        v = self.v_proj(h, li).reshape(b, s, nh, hd)
+        q = self.q_proj(h, li, drop).reshape(b, s, cfg.num_heads, hd)
+        k = self.k_proj(h, li, drop).reshape(b, s, nh, hd)
+        v = self.v_proj(h, li, drop).reshape(b, s, nh, hd)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -226,11 +238,12 @@ class LlamaLayers(nn.Module):
                         q_offset=cache_index if s > 1 else None,
                         impl="plain" if s == 1 else cfg.attention_impl)
 
-        x = x + self.o_proj(attn.reshape(b, s, cfg.num_heads * hd), li)
+        x = x + self.o_proj(attn.reshape(b, s, cfg.num_heads * hd), li,
+                            drop)
         h = self.post_attention_layernorm(x, li)
-        gate = self.gate_proj(h, li)
-        up = self.up_proj(h, li)
-        return x + self.down_proj(F.silu(gate) * up, li)
+        gate = self.gate_proj(h, li, drop)
+        up = self.up_proj(h, li, drop)
+        return x + self.down_proj(F.silu(gate) * up, li, drop)
 
 
 @dataclasses.dataclass
@@ -309,7 +322,7 @@ class Embedder(nn.Module):
         if self.quantized:
             rows = self.embedding_q[input_ids].to(dt)
             return rows * self.embedding_scale[input_ids][..., None].to(dt)
-        return self.embedding[input_ids]
+        return self.embedding[input_ids].to(dt)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -392,6 +405,51 @@ class LlamaForCausalLM(nn.Module):
             return logits[0], hidden[0], cache
         return logits, hidden, cache
 
+    def forward_train(self, inputs_embeds: torch.Tensor,
+                      positions: torch.Tensor,
+                      kv_valid: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None):
+        """The cache-less training forward: (logits, hidden), hidden after
+        the final norm (reference LlamaModel.__call__ with no cache).  With
+        ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+        (non-reentrant) and is recomputed in the backward, as the JAX
+        package's ``nn.remat`` block.  With a ``generator`` and
+        ``lora_dropout > 0`` the LoRA inputs drop out: each layer's masks
+        come from its own seed, drawn from ``generator`` up front, so the
+        recomputation draws the same masks.  A quantized base raises: its
+        projections have no backward (neither has the JAX package's int4
+        kernel)."""
+        cfg = self.cfg
+        if cfg.quantization != "none":
+            raise ValueError(f"training needs quantization='none' (a bf16 "
+                             f"or fp32 base), got {cfg.quantization!r}")
+        n = cfg.num_layers
+        seeds = [None] * n
+        if generator is not None and cfg.lora_rank and cfg.lora_dropout:
+            seeds = torch.randint(0, 2 ** 62, (n,), generator=generator,
+                                  device=generator.device).tolist()
+        x = inputs_embeds.to(cfg.dtype)
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        for li in range(n):
+            fn = functools.partial(self._train_block, li, seeds[li])
+            if cfg.remat and torch.is_grad_enabled():
+                # the layer draws no global randomness: no RNG state to keep
+                x = checkpoint(fn, x, cos, sin, kv_valid, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = fn(x, cos, sin, kv_valid)
+        hidden = self.norm(x)
+        return self.lm_head(hidden), hidden
+
+    def _train_block(self, li: int, seed: Optional[int], x, cos, sin,
+                     kv_valid) -> torch.Tensor:
+        drop = None
+        if seed is not None:
+            drop = torch.Generator(device=x.device)
+            drop.manual_seed(seed)
+        return self.layers.block(li, x, None, cos, sin, kv_valid, 0,
+                                 drop=drop)
+
     def _step(self, cache, kv_valid, cache_index, block_tables, page: int,
               write_widths, tok_row, tok_slot, window_w: int, b: int, s: int,
               on_cuda: bool) -> _Step:
@@ -458,3 +516,16 @@ class LlamaForCausalLM(nn.Module):
         return _Step(at=tuple(i[keep] for i in at), keep=keep, window=window,
                      stair=True, block_tables=block_tables, page=page,
                      packed=packed)
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shifted cross-entropy over fp32 log-softmax, mean over the labels
+    that are not ``IGNORE_INDEX`` (reference llama.py:503-514)."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != IGNORE_INDEX
+    safe = torch.where(valid, shift_labels, 0)
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    total = torch.where(valid, -token_ll, 0.0).sum()
+    return total / torch.clamp(valid.sum(), min=1)

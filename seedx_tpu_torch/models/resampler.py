@@ -3,7 +3,9 @@ seedx_tpu/models/resampler.py; src/models/tokenizer/qwen_visual.py:94-149).
 
 One cross-attention layer pooling a variable-length token set onto
 ``grid_size**2`` learned queries with fixed 2D sincos position embeddings,
-resized with torch's bicubic kernel when the kv grid differs.
+resized with torch's bicubic kernel when the kv grid differs.  Trains
+fully in SFT (both agent resamplers): ``set_trainable_`` makes its leaves
+fp32 parameters, cast to the compute dtype at each use.
 """
 
 from __future__ import annotations
@@ -107,7 +109,7 @@ class Resampler(nn.Module):
         if self.kv_proj is not None:
             x = self.kv_proj(x)
         x = self.ln_kv(x)
-        q = self.ln_q(self.query)
+        q = self.ln_q(self.query.to(self.dtype))
         kv_pos = resize_pos_embed(self.pos, x.shape[1])
         q_in = (q + self.pos)[None].to(self.dtype).expand(
             x.shape[0], self.num_queries, self.embed_dim)

@@ -14,6 +14,11 @@ Layout everywhere: ``[batch, seq, heads, head_dim]``.
     JAX package's ``q_len >= 128`` floor is a TPU tile choice and is
     dropped: the kernel masks ragged sequence edges itself, so the 65-token
     forced image chunk takes the kernel too.
+
+Both paths are differentiable: ``"plain"`` by ordinary autograd, the flash
+path through ``FlashAttention`` (K1 forward, K4 / K5 backward), so the
+training forward's causal attention (``q_len == kv_len``, a right-padded
+``kv_valid``) takes the kernels on the card in both directions.
 """
 
 from __future__ import annotations

@@ -1,11 +1,16 @@
-"""Flash-attention forward: CUDA kernel + its plain PyTorch version
-(reference: seedx_tpu/ops/flash_attention.py, the Pallas kernel
-``_flash_fwd_kernel``).
+"""Flash attention, forward and backward: CUDA kernels + their plain
+PyTorch versions (reference: seedx_tpu/ops/flash_attention.py, the Pallas
+kernels ``_flash_fwd_kernel`` (K1), ``_flash_bwd_dq_kernel`` (K4) and
+``_flash_bwd_dkv_kernel`` (K5)).
 
-Kernel source and design note: ``seedx_tpu_torch/csrc/flash_fwd.cu``.
-``flash_fwd`` launches the kernel for CUDA tensors and runs
-``flash_fwd_plain`` for CPU tensors; there is no other fallback.  The
-backward kernels (training) are not ported yet.
+Kernel sources and design notes: ``seedx_tpu_torch/csrc/flash_fwd.cu``
+and ``csrc/flash_bwd.cu``.  Each wrapper launches its kernel for CUDA
+tensors and runs the plain version for CPU tensors; there is no other
+fallback.  ``FlashAttention`` is the autograd function around them (the
+JAX package's ``custom_vjp``): its forward is K1, which saves the row
+logsumexp, and its backward computes ``delta = rowsum(dO * O)`` in fp32
+torch outside the kernels, then runs K4 and K5.  ``flash_attention`` goes
+through it, so every flash call is differentiable.
 """
 
 from __future__ import annotations
@@ -22,11 +27,31 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, ctypes.c_float, _P]}
+_BWD_SIGNATURES = {
+    "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P],
+    "flash_bwd_dkv_bf16": [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]}
 HEAD_DIMS = (64, 128)
 
 
 def library() -> ctypes.CDLL:
     return load_library("flash_fwd", "flash_fwd.cu", _SIGNATURES)
+
+
+def bwd_library() -> ctypes.CDLL:
+    return load_library("flash_bwd", "flash_bwd.cu", _BWD_SIGNATURES)
+
+
+def _window_mask(starts, ends, sq: int, skv: int, q_offset: int,
+                 causal: bool, device) -> torch.Tensor:
+    """[B, 1, Sq, Skv] bool: key in the row's window, and (causal) at or
+    before the query's kv position ``q_offset + i``."""
+    k_pos = torch.arange(skv, device=device)
+    mask = ((k_pos[None] >= starts[:, None])
+            & (k_pos[None] < ends[:, None]))[:, None, None, :]
+    if causal:
+        q_pos = q_offset + torch.arange(sq, device=device)
+        mask = mask & (q_pos[:, None] >= k_pos[None])[None, None]
+    return mask
 
 
 def flash_fwd_plain(q, k, v, starts, ends, q_offset: int, causal: bool,
@@ -35,15 +60,9 @@ def flash_fwd_plain(q, k, v, starts, ends, q_offset: int, causal: bool,
     window + causal masks, p cast to the v dtype before PV, zero output and
     lse NEG_INF for fully masked rows.  Returns (out [B, Sq, H, D] in the q
     dtype, lse [B, H, 1, Sq] fp32)."""
-    b, sq, _, _ = q.shape
-    skv = k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    k_pos = torch.arange(skv, device=q.device)
-    mask = ((k_pos[None] >= starts[:, None])
-            & (k_pos[None] < ends[:, None]))[:, None, None, :]
-    if causal:
-        q_pos = q_offset + torch.arange(sq, device=q.device)
-        mask = mask & (q_pos[:, None] >= k_pos[None])[None, None]
+    mask = _window_mask(starts, ends, q.shape[1], k.shape[1], q_offset,
+                        causal, q.device)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(m == NEG_INF, 0.0, torch.exp(s - m))
@@ -55,6 +74,36 @@ def flash_fwd_plain(q, k, v, starts, ends, q_offset: int, causal: bool,
     return out, lse
 
 
+def _check_inputs(what: str, tensors, starts, ends, b: int, sq: int,
+                  skv: int, h: int, d: int) -> None:
+    """The kernels' contract: CUDA bf16 (fp32 for lse / delta) tensors,
+    contiguous and 16-byte aligned, of the expected shapes, on one device;
+    head_dim in ``HEAD_DIMS``; int32 [B] windows."""
+    dev = tensors[0][1].device
+    for name, t in tensors:
+        want = (torch.float32 if name in ("lse", "delta") else torch.bfloat16)
+        if t.dtype != want or not t.is_cuda:
+            raise ValueError(f"{what}: {name} must be a CUDA {want} tensor, "
+                             f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte "
+                             f"aligned")
+        if t.device != dev:
+            raise ValueError(f"{what}: inputs on different devices")
+        shape = {"k": (b, skv, h, d), "v": (b, skv, h, d),
+                 "lse": (b, h, 1, sq), "delta": (b, h, 1, sq)}.get(
+                     name, (b, sq, h, d))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"want {shape}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim must be one of {HEAD_DIMS}")
+    for name, t in (("starts", starts), ("ends", ends)):
+        if (t.dtype != torch.int32 or t.shape != (b,) or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be int32 [{b}] on {dev}")
+
+
 def flash_fwd(q, k, v, starts, ends, q_offset: int, causal: bool,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Wrapper: kernel for CUDA tensors, plain version for CPU tensors."""
@@ -62,25 +111,8 @@ def flash_fwd(q, k, v, starts, ends, q_offset: int, causal: bool,
         return flash_fwd_plain(q, k, v, starts, ends, q_offset, causal, scale)
     b, sq, h, d = q.shape
     skv = k.shape[1]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_cuda:
-            raise ValueError(f"flash_fwd: {name} must be a CUDA bf16 tensor,"
-                             f" got {t.dtype} on {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_fwd: {name} must be contiguous and "
-                             f"16-byte aligned")
-        if t.device != q.device:
-            raise ValueError("flash_fwd: q, k, v on different devices")
-    if k.shape != (b, skv, h, d) or v.shape != k.shape:
-        raise ValueError(f"flash_fwd: shapes q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head_dim must be one of {HEAD_DIMS}")
-    for name, t in (("starts", starts), ("ends", ends)):
-        if (t.dtype != torch.int32 or t.shape != (b,) or t.device != q.device
-                or not t.is_contiguous()):
-            raise ValueError(f"flash_fwd: {name} must be int32 [{b}] on "
-                             f"{q.device}")
+    _check_inputs("flash_fwd", (("q", q), ("k", k), ("v", v)), starts, ends,
+                  b, sq, skv, h, d)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, 1, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -96,6 +128,126 @@ def flash_fwd(q, k, v, starts, ends, q_offset: int, causal: bool,
 flash_fwd.launches = 0
 
 
+def flash_bwd_plain(q, k, v, do, lse, delta, starts, ends, q_offset: int,
+                    causal: bool, scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' contract in plain torch, fp32 throughout as
+    the TPU kernels compute (seedx_tpu/ops/flash_attention.py:264-351):
+    p = exp(s * scale - lse) under the EXPLICIT window / causal mask (not a
+    bias: a fully masked row has lse = NEG_INF, where exp(s - lse) would be
+    1), ds = p * (dp - delta) * scale.  lse, delta [B, H, 1, Sq] fp32.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = _window_mask(starts, ends, q.shape[1], k.shape[1], q_offset,
+                        causal, q.device)
+    lse_c = lse.permute(0, 1, 3, 2)                        # [B, H, Sq, 1]
+    p = torch.where(mask, torch.exp(s - lse_c), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta.permute(0, 1, 3, 2)) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_args(what, q, k, v, do, lse, delta, starts, ends):
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    _check_inputs(what, (("q", q), ("k", k), ("v", v), ("do", do),
+                         ("lse", lse), ("delta", delta)), starts, ends,
+                  b, sq, skv, h, d)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), starts.data_ptr(),
+            ends.data_ptr()), (b, sq, skv, h, d)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, starts, ends, q_offset: int,
+                 causal: bool, scale: float) -> torch.Tensor:
+    """K4 wrapper: dq [B, Sq, H, D]; the plain version for CPU tensors."""
+    if not q.is_cuda:
+        return flash_bwd_plain(q, k, v, do, lse, delta, starts, ends,
+                               q_offset, causal, scale)[0]
+    ptrs, dims = _bwd_args("flash_bwd_dq", q, k, v, do, lse, delta, starts,
+                           ends)
+    dq = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = bwd_library().flash_bwd_dq_bf16(
+        *ptrs, dq.data_ptr(), *dims, int(q_offset), int(bool(causal)),
+        float(scale), stream)
+    check(err, "flash_bwd_dq_bf16")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, starts, ends, q_offset: int,
+                  causal: bool, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 wrapper: (dk, dv) [B, Skv, H, D]; the plain version for CPU
+    tensors."""
+    if not q.is_cuda:
+        return flash_bwd_plain(q, k, v, do, lse, delta, starts, ends,
+                               q_offset, causal, scale)[1:]
+    ptrs, dims = _bwd_args("flash_bwd_dkv", q, k, v, do, lse, delta, starts,
+                           ends)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = bwd_library().flash_bwd_dkv_bf16(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, int(q_offset),
+        int(bool(causal)), float(scale), stream)
+    check(err, "flash_bwd_dkv_bf16")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, do, lse, delta, starts, ends, q_offset: int,
+              causal: bool, scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): K4 then K5 for CUDA tensors, the plain version for CPU
+    tensors."""
+    if not q.is_cuda:
+        return flash_bwd_plain(q, k, v, do, lse, delta, starts, ends,
+                               q_offset, causal, scale)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, starts, ends, q_offset,
+                      causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, starts, ends, q_offset,
+                           causal, scale)
+    return dq, dk, dv
+
+
+def row_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, [B, H, 1, Sq] (reference
+    flash_attention.py:481)."""
+    delta = (do.float() * out.float()).sum(dim=-1)          # [B, Sq, H]
+    return delta.permute(0, 2, 1)[:, :, None, :].contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (reference ``_flash`` custom_vjp):
+    forward K1, backward K4 + K5 from the saved lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, starts, ends, q_offset: int, causal: bool,
+                scale: float):
+        out, lse = flash_fwd(q, k, v, starts, ends, q_offset, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse, starts, ends)
+        ctx.args = (q_offset, causal, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, starts, ends = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, row_delta(do, out), starts,
+                               ends, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     starts: Optional[torch.Tensor] = None,
                     ends: Optional[torch.Tensor] = None, q_offset=None,
@@ -105,7 +257,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention``): q, k, v [batch, seq, heads, head_dim]; kv seq may
     exceed q seq (prefill into a preallocated cache); ``starts``/``ends``
     [batch] default to the whole kv; ``q_offset`` (int) is the kv position
-    of q row 0, by default aligned to the kv tail."""
+    of q row 0, by default aligned to the kv tail.  Differentiable in q, k
+    and v through ``FlashAttention``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, q_len = q.shape[:2]
@@ -117,6 +270,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             if ends is None else ends.to(dev, torch.int32).contiguous())
     if q_offset is None:
         q_offset = kv_len - q_len
-    out, _ = flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                       starts, ends, int(q_offset), causal, scale)
-    return out
+    return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), starts, ends, int(q_offset),
+                                causal, float(scale))

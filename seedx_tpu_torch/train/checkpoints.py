@@ -1,0 +1,62 @@
+"""Step-indexed checkpoints (reference: seedx_tpu/train/checkpoints.py,
+which writes orbax trees).
+
+``{directory}/checkpoint-{step}/state.pt`` holds ``torch.save`` of what
+``TrainState.state_dict`` gives: the step, the trainable leaves and the
+optimizer state.  The frozen weights are never written.  A save goes to a
+temporary directory first and is renamed into place, so a crash leaves
+either the old checkpoint or the new one.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+from typing import Any, List, Mapping, Optional
+
+import torch
+
+_NAME = re.compile(r"checkpoint-(\d+)$")
+
+
+class CheckpointManager:
+    """``{directory}/checkpoint-{step}`` (the reference's naming,
+    train_seed_x_sft.py:325-327); ``max_to_keep`` None keeps all."""
+
+    def __init__(self, directory: str, max_to_keep: Optional[int] = None):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"checkpoint-{step}")
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(m.group(1)) for m in
+                      map(_NAME.match, os.listdir(self.directory)) if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: Mapping[str, Any]) -> str:
+        final = self.path(step)
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(state, os.path.join(tmp, "state.pt"))
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        if self.max_to_keep is not None:
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(self.path(old), ignore_errors=True)
+        return final
+
+    def restore(self, step: Optional[int] = None,
+                map_location=None) -> Mapping[str, Any]:
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        return torch.load(os.path.join(self.path(step), "state.pt"),
+                          map_location=map_location, weights_only=True)

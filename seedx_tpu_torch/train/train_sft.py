@@ -1,0 +1,149 @@
+"""SFT training loop (reference: seedx_tpu/train/train_sft.py
+``train_loop``; src/train/train_seed_x_sft.py:124-343).
+
+Batches (numpy, the keys of ``data/pipeline.collate_anyres``) -> the
+frozen ViT encodes the image tiles under ``torch.no_grad()`` (not
+``inference_mode``: the embeddings are saved by the resampler's backward)
+-> one train step of the agent -> metrics (``metrics.jsonl``, tensorboard)
+every ``log_steps`` -> a checkpoint every ``save_steps`` and at the end.
+With ``resume`` the loop restores the latest checkpoint and fast-forwards
+the data stream by ``step * accum`` batches, so it trains on exactly the
+batches it would have seen; each step's dropout generator is seeded from
+(``seed``, step), so a resumed run equals an uninterrupted one.  With
+gradient accumulation, ``accum`` consecutive batches are stacked and the
+ViT encodes their tiles in one pass.  Runs on the card unless the caller
+passes ``device="cpu"``.  The ``main`` CLI with its YAML config graph and
+the file datapipes is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from seedx_tpu_torch.data.pipeline import ResumableIterator
+from seedx_tpu_torch.train.checkpoints import CheckpointManager
+from seedx_tpu_torch.train.trainer import (TrainConfig, TrainState,
+                                           create_train_state,
+                                           make_train_step, sync_time)
+from seedx_tpu_torch.utils.trackers import MetricWriters
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class RunConfig:
+    output_dir: str = "runs/sft"
+    save_steps: int = 1000
+    log_steps: int = 10
+    resume: bool = False
+    seed: int = 42
+    trackers: tuple = ("jsonl", "tensorboard")
+    expr_name: str = ""
+
+
+def train_loop(agent: nn.Module, vit: Optional[nn.Module],
+               data_iter: Iterator[Dict[str, np.ndarray]],
+               train_cfg: TrainConfig, run_cfg: RunConfig,
+               device="cuda") -> TrainState:
+    """Train ``agent`` (its trainable leaves become fp32 parameters in
+    place) on ``data_iter`` until ``train_cfg.max_steps``; returns the
+    final state.  A logged step's metrics add ``vit_ms`` (the frozen
+    encode), ``tokens`` (attention-mask tokens trained on) and
+    ``steps_per_sec`` to the train step's."""
+    device = torch.device(device)
+    agent.to(device)
+    if vit is not None:
+        vit.to(device)
+    os.makedirs(run_cfg.output_dir, exist_ok=True)
+    ckpt = CheckpointManager(os.path.join(run_cfg.output_dir, "checkpoints"))
+    state = create_train_state(agent, train_cfg)
+    if run_cfg.resume and ckpt.latest_step() is not None:
+        state.load_state_dict(ckpt.restore(map_location=device))
+        logger.info("resumed from step %d", state.step)
+    train_step = make_train_step(agent, train_cfg)
+    accum = train_cfg.gradient_accumulation_steps
+    if state.step:
+        # exact data resume: skip every batch already trained on
+        data_iter = ResumableIterator(data_iter)
+        skipped = data_iter.skip(state.step * accum)
+        logger.info("data stream fast-forwarded %d batches", skipped)
+    if accum > 1:
+        data_iter = _stack_microbatches(data_iter, accum)
+    t_last = time.perf_counter()
+    with MetricWriters(run_cfg.output_dir, trackers=run_cfg.trackers,
+                       expr_name=run_cfg.expr_name) as writers:
+        for batch in data_iter:
+            step = state.step
+            if step >= train_cfg.max_steps:
+                break
+            dev_batch = _to_device(batch, device)
+            t0 = sync_time(device)
+            if vit is not None and "images" in dev_batch:
+                dev_batch["image_embeds"] = _encode(
+                    vit, dev_batch.pop("images"),
+                    dev_batch.get("patch_positions"), accum > 1)
+            vit_ms = (sync_time(device) - t0) * 1e3
+            gen = torch.Generator(device=device)
+            gen.manual_seed(run_cfg.seed * 1_000_003 + step)
+            metrics = train_step(state, dev_batch, gen)
+            if step % run_cfg.log_steps == 0:
+                now = time.perf_counter()
+                metrics.update(
+                    vit_ms=vit_ms,
+                    tokens=int(dev_batch["attention_mask"].sum()),
+                    steps_per_sec=run_cfg.log_steps / max(now - t_last,
+                                                          1e-9))
+                t_last = now
+                writers.log(metrics, step)
+                logger.info("step %d: %s", step, metrics)
+            if step > 0 and step % run_cfg.save_steps == 0:
+                ckpt.save(step, state.state_dict())
+    ckpt.save(state.step, state.state_dict())
+    return state
+
+
+@torch.no_grad()
+def _encode(vit: nn.Module, images: torch.Tensor,
+            patch_positions: Optional[torch.Tensor],
+            accum_axis: bool) -> torch.Tensor:
+    """The frozen ViT forward (reference train_seed_x_sft.py:293-299
+    no_grad); a leading accumulation axis is folded into one pass."""
+    if not accum_axis:
+        return vit(images, patch_positions)
+    a, n = images.shape[:2]
+    embeds = vit(images.reshape(a * n, *images.shape[2:]),
+                 None if patch_positions is None
+                 else patch_positions.reshape(a * n, 2))
+    return embeds.reshape(a, n, *embeds.shape[1:])
+
+
+def _stack_microbatches(it: Iterator[Dict[str, np.ndarray]], accum: int
+                        ) -> Iterator[Dict[str, np.ndarray]]:
+    """Group ``accum`` consecutive micro-batches into one batch with a
+    leading micro-batch axis."""
+    group = []
+    for b in it:
+        group.append(b)
+        if len(group) == accum:
+            yield {k: np.stack([g[k] for g in group]) for k in group[0]}
+            group = []
+
+
+def _to_device(batch: Dict[str, np.ndarray],
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    """numpy batch -> tensors on ``device``; integer arrays as int64."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if not t.is_floating_point() and t.dtype != torch.bool:
+            t = t.long()
+        out[k] = t.to(device)
+    return out

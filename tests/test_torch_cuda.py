@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, at the shapes of the image-in comprehension turn and of batched
-decode.
+card, at the shapes of the image-in comprehension turn, of batched decode
+and of the SFT train step (the flash backward).
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  This file
 imports no JAX, so it runs on a machine that has none; the suite's
@@ -12,6 +12,7 @@ tests/test_torch_cuda.py``.
 import pytest
 import torch
 
+from seedx_tpu_torch.ops import attention as tattn
 from seedx_tpu_torch.ops import decode_attention as tdecode
 from seedx_tpu_torch.ops import flash_attention as tflash
 from seedx_tpu_torch.ops import int4_matmul as tint4
@@ -202,3 +203,78 @@ def test_stair_kernel_matches_plain(cuda_device, w, b, s, hq, hkv, d, int8,
                                               starts, ends, **kw)
         torch.cuda.synchronize()
         assert torch.equal(out[:, 0], one)
+
+
+# (B, Sq, Skv, H, D, causal, starts, ends, q_offset): the SFT batches'
+# shapes (comprehension 2 x 880, generation 8 x 260, right-padded), a D 64
+# non-causal window, prefill into a cache, a left-pad window
+FLASH_BWD_CASES = [
+    (2, 880, 880, 40, 128, True, [0, 0], [880, 611], 0),
+    (8, 260, 260, 40, 128, True, [0] * 8,
+     [260, 200, 150, 260, 90, 233, 260, 17], 0),
+    (2, 200, 200, 4, 64, False, [7, 0], [190, 200], 0),
+    (2, 128, 256, 2, 64, True, [0, 10], [256, 200], 0),
+    (2, 256, 256, 2, 128, True, [30, 0], [256, 200], 0)]
+
+
+def _flash_bwd_inputs(dev, b, sq, skv, h, d, causal, st, en, q_offset):
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, do = (torch.randn((b, sq, h, d), generator=g, device=dev
+                         ).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, skv, h, d), generator=g, device=dev
+                        ).to(torch.bfloat16) for _ in range(2))
+    starts = torch.tensor(st, dtype=torch.int32, device=dev)
+    ends = torch.tensor(en, dtype=torch.int32, device=dev)
+    out, lse = tflash.flash_fwd(q, k, v, starts, ends, q_offset, causal,
+                                d ** -0.5)
+    return (q, k, v, do, lse, tflash.row_delta(do, out), starts, ends,
+            q_offset, causal, d ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,causal,st,en,q_offset",
+                         FLASH_BWD_CASES)
+def test_flash_bwd_kernels_match_plain(cuda_device, b, sq, skv, h, d, causal,
+                                       st, en, q_offset):
+    args = _flash_bwd_inputs(cuda_device, b, sq, skv, h, d, causal, st, en,
+                             q_offset)
+    n4, n5 = tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches
+    got = tflash.flash_bwd(*args)
+    again = tflash.flash_bwd(*args)
+    ref = tflash.flash_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (tflash.flash_bwd_dq.launches - n4,
+            tflash.flash_bwd_dkv.launches - n5) == (2, 2)
+    for name, a, a2, r in zip(("dq", "dk", "dv"), got, again, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape, name
+        # one writer per tile, no atomics: two runs give the same bits
+        assert torch.equal(a, a2), name
+        # P and dS enter the tensor cores as bf16 and the output is
+        # rounded to bf16 (2^-8 of it): 1e-2 of the largest gradient
+        torch.testing.assert_close(
+            a.float(), r.float(), rtol=0,
+            atol=1e-2 * r.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_autograd_matches_plain_autograd_on_card(cuda_device):
+    """FlashAttention on the card (K1 forward, K4 / K5 backward) against
+    autograd through plain_attention in bf16, right-padded training
+    windows; upstream grads zero on padded query rows."""
+    dev = cuda_device
+    b, s, h, d = 2, 256, 4, 128
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, up = (torch.randn((b, s, h, d), generator=g, device=dev
+                               ).to(torch.bfloat16) for _ in range(4))
+    lens = torch.tensor([256, 170], device=dev)
+    valid = torch.arange(s, device=dev)[None] < lens[:, None]
+    up = up * valid[:, :, None, None]
+    grads = {}
+    for impl in ("flash", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = tattn.dot_product_attention(*leaves, kv_valid=valid,
+                                          causal=True, impl=impl)
+        grads[impl] = torch.autograd.grad((out.float() * up).sum(), leaves)
+    for a, r in zip(grads["flash"], grads["plain"]):
+        torch.testing.assert_close(a.float(), r.float(), rtol=0,
+                                   atol=2e-2 * r.float().abs().max().item())
