@@ -18,15 +18,17 @@
 // per HBM byte); like the forward, the kernels keep every [Sq, Skv] tile
 // of scores and probabilities out of device memory.
 //
-// Design: K1's building blocks (csrc/flash_fwd.cu): 64-row tiles, 4 warps
-// of 16 rows, `mma.sync.m16n8k16` bf16 in / fp32 accumulate, plain 16-byte
-// global->shared copies with one barrier per tile (no TMA, wgmma or
-// pipelining yet: later work).  Blocks run in parallel, so the TPU's
-// sequential grid axis becomes a loop inside the block.
+// Design: 64-row tiles, 4 warps of 16 rows, `mma.sync.m16n8k16` bf16 in /
+// fp32 accumulate with fragments loaded from shared memory by each thread,
+// plain 16-byte global->shared copies with one barrier per tile (no TMA,
+// wgmma or pipelining yet: later work).  Blocks run in parallel, so the
+// TPU's sequential grid axis becomes a loop inside the block.
 //   K4: one block per (64-row q tile, head, batch row); it loops over the
 //   k tiles of the window, trimmed by the causal bound, recomputes S and
 //   dP = dout V^T, forms dS in registers and accumulates dS K (dS taken
-//   from the score accumulators as the A operand, as K1 takes P for P V).
+//   from the score accumulators as the A operand of the next mma.sync:
+//   the m16n8 C fragment of two adjacent 8-key blocks is the m16k16 A
+//   fragment).
 //   K5: one block per (64-key tile, head, batch row); it loops over the q
 //   tiles from the first one that can see the tile (causal), 32 q rows at
 //   a time to bound registers.  It computes the TRANSPOSED scores

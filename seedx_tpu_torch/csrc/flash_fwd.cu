@@ -3,27 +3,70 @@
 // Replaces: seedx_tpu/ops/flash_attention.py `_flash_fwd_kernel` (the
 // Pallas TPU kernel reached through `_flash_forward_local` /
 // `flash_attention`).  Same contract: q [B, Sq, H, D], k/v [B, Skv, H, D]
-// (contiguous, bf16); each batch row attends to the kv window
+// (contiguous, bf16, D 64 or 128); each batch row attends to the kv window
 // [starts[b], ends[b]); optional causal mask where q row i sits at kv
 // position q_offset + i; out [B, Sq, H, D] bf16 and the row logsumexp
-// lse [B, H, Sq] fp32.  A fully masked row gives zero output and lse NEG_INF.
+// lse [B, H, Sq] fp32 in natural-log units.  A fully masked row gives zero
+// output and lse NEG_INF (the flash backward kernels read both).
 //
-// What bounds it on the H100: tensor-core math.  The ViT (1024 tokens, 5
-// tiles, 16 heads) and the 512-token agent prefill are far above the
-// bf16 ridge (~295 FLOP per HBM byte), so the kernel must keep the
-// [Sq, Skv] scores out of device memory and feed the tensor cores.
+// What bounds it on the H100: tensor-core math.  The ViT (1024 tokens, 16
+// heads), the train step and the 512-token prefill are far above the bf16
+// ridge (~295 FLOP per HBM byte), so the kernel keeps the [Sq, Skv] scores
+// out of device memory and feeds the tensor cores from shared memory.
 //
-// Design: one block of 4 warps per (64-row q tile, head, batch row) --
-// blocks run in parallel, and a loop over 64-key tiles inside the block
-// replaces the TPU's sequential grid axis.  Each warp owns 16 q rows.
-// Q K^T and P V run on `mma.sync.m16n8k16` (bf16 in, fp32 accumulate); the
-// scores of a tile never leave registers, and P is re-used from the score
-// accumulators as the A operand of P V (cast to bf16, as the TPU kernel
-// casts p to the v dtype).  The k-tile loop is trimmed to the window and,
-// when causal, to the last tile the q tile can see.  Ragged Sq/Skv edges
-// are masked in the kernel, so callers need no 128-padding.  Loads are
-// plain 16-byte global->shared copies with one barrier per tile: no TMA,
-// wgmma or pipelining yet (later work).
+// Design: one block per (BM-row q tile, head, batch row), one warpgroup per
+// 64 q rows, and a loop over BN-key tiles inside the block in place of the
+// TPU's sequential grid axis, trimmed to the window and, when causal, to
+// the last tile each warpgroup can see.  The wrapper picks the tile from
+// the shape (ops/flash_attention.py `tile_shape`): BM 128 / BN 128 for the
+// non-causal D 128 ViT, BM 64 / BN 128 for non-causal D 64 (and D 128 where
+// 128 rows would leave SMs idle), BM 64 / BN 64 where a causal diagonal
+// cuts the tiles.  Only those five (D, BM, BN) kernels are built.
+//   - Copies: Q once, then K and V through a 2-stage ring of 16-byte
+//     `cp.async` copies, one barrier per tile; rows past Sq / Skv are
+//     zero-filled by the src-size operand, so nothing is read out of bounds.
+//   - Shared layout: every tile is stored as 64-column atoms of rows x 128 B
+//     in the 128-byte swizzle (chunk c of row r at c ^ (r & 7)), the layout
+//     the wgmma matrix descriptors read; the cp.async destinations write it
+//     directly.
+//   - Products: S = Q K^T is `wgmma m64n{BN}k16` with Q and K from shared
+//     memory (both K-major, no transpose).  O += P V is `wgmma m64n{D}k16`
+//     with P from registers -- the fp32 S accumulator converted to bf16 in
+//     place has the A-fragment layout -- and V [keys, D] from shared memory
+//     with the B-transpose bit.
+//   - Softmax in log2 units, the running max kept in log2 units; an
+//     interior tile costs one FFMA and one ex2 a score; lse = (m2 + log2 l)
+//     * ln 2.  The window / causal mask runs only on tiles that straddle
+//     start, end, Skv or the diagonal of the warpgroup's rows.
+//
+// What was hard, and where it is handled:
+//   - Descriptors fail silently: a wrong base, LBO / SBO or swizzle mode
+//     gives garbage, not an error.  `flash_wgmma_tile_debug` runs one S
+//     tile and one P V product through the same helpers, and
+//     tests/test_torch_cuda.py holds it to torch.matmul on the card.
+//     K-major (Q, K): SBO 1024 B between 8-row groups, the k step moves the
+//     start address 32 B inside the swizzled row, the next 64 columns are
+//     the next atom.  MN-major (V): SBO 1024 B between 8-key groups, LBO
+//     the atom stride between 64-column halves of D.
+//   - NEG_INF * scale * log2(e) overflows to -inf, and -inf - -inf is NaN:
+//     on an edge tile masked scores are set to the sentinel after scaling,
+//     never scaled, and a row whose max is the sentinel is dead (p = 0, lse
+//     NEG_INF).  Interior tiles hold no sentinel.
+//   - Edge-only masking: a tile is interior only if it is interior for
+//     every row of the warpgroup (causal: its last key at or before the
+//     warpgroup's first row), so q_offset 512 with Sq 65 and a window start
+//     of 300 still mask where they must.
+//   - cp.async writes through the generic proxy and wgmma reads through the
+//     async proxy: a `fence.proxy.async.shared::cta` after each wait,
+//     before the barrier.  The accumulators are pinned around each wgmma
+//     issue and wait so the compiler cannot touch them in between.
+//   - What did not pay (PERF.md): issuing S of tile j+1 beside P V of
+//     tile j so the softmax overlaps it (with the issue under a branch
+//     ptxas serializes every wgmma, C7520; issued uniformly it ran
+//     slower), Q in registers as the A operand of S, tree-shaped max / sum
+//     reductions, three warpgroups a block.  The kernel is bound by issue
+//     and latency, not the tensor cores: each tile's S, softmax and P V
+//     run in sequence.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -32,50 +75,355 @@
 namespace {
 
 constexpr float kNegInf = -0.7f * 3.402823466e38f;  // ops/attention.py NEG_INF
-constexpr int kBM = 64;       // q rows per block (16 per warp)
-constexpr int kBN = 64;       // keys per k tile
-constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// ---------------------------------------------------------------- memory
+
+// byte offset of 16-byte chunk `ch` (8 values) of row r in a ROWS-row tile
+template <int ROWS>
+__device__ __forceinline__ uint32_t swz(int r, int ch) {
+  return (ch >> 3) * (ROWS * 128) + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
 }
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every copy of this thread landed, and visible to the async proxy
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ROWS rows of D values from src (row stride rs elements) into the swizzled
+// tile at dst; rows >= valid are zero-filled
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src, long rs,
+                                          int valid, int tid) {
+  constexpr int CPR = D / 8;
+  static_assert((ROWS * CPR) % NT == 0, "tile copy must split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / NT; ++i) {
+    const int c = tid + i * NT;
+    const int r = c / CPR, ch = c % CPR;
+    const bool ok = r < valid;
+    cp_async16(dst + swz<ROWS>(r, ch), ok ? src + r * rs + ch * 8 : src, ok);
+  }
+}
+
+// ----------------------------------------------------------------- wgmma
+
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);                                   // 128-byte swizzle
+}
+
+// K-major operand (ROWS x D, D contiguous): k step kk of 16 values
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return desc_sw128(tile + (kk >> 2) * (ROWS * 128) + (kk & 3) * 32, 16,
+                    1024);
+}
+
+// MN-major B operand (V: KEYS keys x D, D contiguous): key step kc of 16
+template <int KEYS>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kc) {
+  return desc_sw128(tile + kc * 16 * 128, KEYS * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving reads / writes of registers across a wgmma
+// issue or wait
+template <int N>
+__device__ __forceinline__ void pin(float (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(a[j][i]) :: "memory");
+}
+
+#define F4(a, j) "+f"(a[j][0]), "+f"(a[j][1]), "+f"(a[j][2]), "+f"(a[j][3])
+#define ACC64(a)                                                           \
+  F4(a, 0), F4(a, 1), F4(a, 2), F4(a, 3), F4(a, 4), F4(a, 5), F4(a, 6),    \
+      F4(a, 7)
+#define ACC128(a)                                                          \
+  ACC64(a), F4(a, 8), F4(a, 9), F4(a, 10), F4(a, 11), F4(a, 12),           \
+      F4(a, 13), F4(a, 14), F4(a, 15)
+#define REGS64                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+#define REGS128                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS64
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS128
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC128(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x N] += A[64 x 16] (registers) B[16 x N] (shared memory, MN-major:
+// the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS64
+      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS128
+      ", {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : ACC128(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+#undef REGS128
+#undef REGS64
+#undef ACC128
+#undef ACC64
+#undef F4
+
+// S = Q K^T for the warpgroup's 64 rows over one BN-key tile: Q (the
+// warpgroup's slice sq of the QROWS-row tile) and K (BN rows), both K-major
+// in shared memory
+template <int D, int QROWS, int BN>
+__device__ __forceinline__ void score_tile(float (&s)[BN / 8][4], uint32_t sq,
+                                           uint32_t sk) {
+  pin(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, desc_kmajor<QROWS>(sq, kk), desc_kmajor<BN>(sk, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(s);
+}
+
+// O += P V over one BN-key tile, V (BN keys x D) from shared memory
+template <int D, int BN>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4],
+                                        const uint32_t (&a)[BN / 16][4],
+                                        uint32_t sv) {
+  pin(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < BN / 16; ++kc)
+    wgmma_rs(o, a[kc], desc_mnmajor<BN>(sv, kc));
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(o);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// P (the S accumulator) as the A fragments of P V, 16 keys each
+template <int NB>
+__device__ __forceinline__ void p_fragments(const float (&s)[NB][4],
+                                            uint32_t (&a)[NB / 2][4]) {
+#pragma unroll
+  for (int kc = 0; kc < NB / 2; ++kc) {
+    a[kc][0] = pack_bf16x2(s[2 * kc][0], s[2 * kc][1]);
+    a[kc][1] = pack_bf16x2(s[2 * kc][2], s[2 * kc][3]);
+    a[kc][2] = pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+    a[kc][3] = pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+  }
+}
+
+// --------------------------------------------------------------- softmax
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One tile of the online softmax for this thread's two rows (kv positions
+// qp0 and qp0 + 8; s[nb][2r + e] is row r): update the running max m (log2
+// units) and the per-thread partial sum l, leave p in s and return the
+// rescale factors of O in alpha.  Interior tiles: p = ex2(s * c - m), one
+// FFMA.  Edge tiles: scale, then set masked scores to the sentinel.
+template <int NB>
+__device__ __forceinline__ void softmax_tile(float (&s)[NB][4], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             bool mask, int n0, int t,
+                                             int start, int end, int causal,
+                                             int qp0, float c) {
+  if (mask) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kpos = n0 + nb * 8 + 2 * t + (i & 1);
+        const int qp = qp0 + 8 * (i >> 1);
+        const bool ok =
+            kpos >= start && kpos < end && (!causal || qp >= kpos);
+        s[nb][i] = ok ? s[nb][i] * c : kNegInf;
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      mx = fmaxf(mx, fmaxf(s[nb][2 * r], s[nb][2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // an interior tile's max is a raw score, still to be scaled
+    const float m_new = fmaxf(m[r], mask ? mx : mx * c);
+    // sentinel - sentinel is 0 here (alpha 1 on a still-dead row, whose O
+    // and l are 0); sentinel - finite underflows ex2 to 0
+    alpha[r] = ex2(m[r] - m_new);
+    float sum = 0.f;
+    if (mask) {
+      const bool dead = m_new == kNegInf;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[nb][2 * r + e];
+          x = dead ? 0.f : ex2(x - m_new);
+          sum += x;
+        }
+    } else {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[nb][2 * r + e];
+          x = ex2(fmaf(x, c, -m_new));
+          sum += x;
+        }
+    }
+    l[r] = l[r] * alpha[r] + sum;
+    m[r] = m_new;
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void rescale(float (&o)[D / 8][4],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) {
+    o[d][0] *= alpha[0];
+    o[d][1] *= alpha[0];
+    o[d][2] *= alpha[1];
+    o[d][3] *= alpha[1];
+  }
+}
+
+// ---------------------------------------------------------------- kernel
+
+// O / l in bf16 and lse for this thread's rows `row` and `row + 8`
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&o)[D / 8][4],
+                                           const float (&m)[2],
+                                           const float (&l_part)[2], int row,
+                                           int t, int Sq, int H, int b, int h,
+                                           __nv_bfloat16* __restrict__ out,
+                                           float* __restrict__ lse) {
+  const long rs = static_cast<long>(H) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_part[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int rw = row + 8 * r;
+    if (rw >= Sq) continue;
+    const float inv = l == 0.f ? 1.f : 1.f / l;
+    __nv_bfloat16* orow = out + (static_cast<long>(b) * Sq + rw) * rs + h * D;
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[d][2 * r] * inv, o[d][2 * r + 1] * inv);
+    if (t == 0)
+      lse[(static_cast<long>(b) * H + h) * Sq + rw] =
+          l == 0.f ? kNegInf : m[r] * kLn2 + logf(l);
+  }
+}
+
+template <int D, int BM, int BN>
+constexpr int smem_bytes() {
+  // align slack, Q, the 2-stage K / V ring
+  return 1024 + BM * D * 2 + 4 * BN * D * 2;
+}
+
+template <int D, int BM, int BN>
+__global__ void __launch_bounds__(BM * 2, 1)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const int* __restrict__ starts, const int* __restrict__ ends,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                  int Sq, int Skv, int H, int q_offset, int causal,
-                 float scale) {
-  constexpr int LD = D + 8;       // padded rows: conflict-free 32-bit reads
-  constexpr int CPR = D / 8;      // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBM * LD;
-  __nv_bfloat16* sV = sK + kBN * LD;
+                 float scale_log2) {
+  constexpr int NT = BM * 2;                  // BM / 64 warpgroups
+  constexpr int TILE = BN * D * 2;            // bytes of one K or V tile
+  constexpr int NB = BN / 8;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzle atoms must sit on 1024-byte boundaries
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(
+                             smem_raw)) + 1023) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + BM * D * 2;        // stage st at sK + st * TILE
+  const uint32_t sV = sK + 2 * TILE;
 
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warpgroup index, broadcast so the compiler knows it is uniform
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = (tid >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = iq * kBM;
+  const int m0 = iq * BM;
   const long rs = static_cast<long>(H) * D;   // elements per sequence step
   const __nv_bfloat16* qb = q + static_cast<long>(b) * Sq * rs + h * D;
   const __nv_bfloat16* kb = k + static_cast<long>(b) * Skv * rs + h * D;
@@ -83,159 +431,152 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int start = max(starts[b], 0);
   const int end = min(ends[b], Skv);
 
-  for (int c = tid; c < kBM * CPR; c += kThreads) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (m0 + r < Sq)
-      val = *reinterpret_cast<const uint4*>(qb + (m0 + r) * rs + col);
-    *reinterpret_cast<uint4*>(sQ + r * LD + col) = val;
+  const int k_begin = start / BN;
+  int k_end = (end + BN - 1) / BN;
+  if (causal) {
+    const int last = q_offset + min(m0 + BM, Sq);   // one past the last row
+    k_end = min(k_end, last <= 0 ? 0 : (last + BN - 1) / BN);
   }
-  __syncthreads();
+  const int wg_row0 = m0 + wg * 64;                 // warpgroup's first row
+  // the tiles this warpgroup sees: up to the last whose first key is at or
+  // before its last row (causal); none if its rows all lie past Sq
+  int k_end_wg = k_end;
+  if (causal) {
+    const int x = q_offset + wg_row0 + 63;
+    k_end_wg = x < 0 ? k_begin : min(k_end, x / BN + 1);
+  }
+  if (wg_row0 >= Sq) k_end_wg = k_begin;
+  auto edge = [&](int n0) {
+    return n0 < start || n0 + BN > end ||
+           (causal && n0 + BN - 1 > q_offset + wg_row0);
+  };
 
-  const int qr = warp * 16 + g;             // this thread's rows: qr, qr + 8
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p = sQ + qr * LD + kk * 16 + 2 * t;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+  load_tile<BM, D, NT>(sQ, qb + m0 * rs, rs, Sq - m0, tid);
+  if (k_begin < k_end) {
+    const int n0 = k_begin * BN;
+    load_tile<BN, D, NT>(sK, kb + n0 * rs, rs, Skv - n0, tid);
+    load_tile<BN, D, NT>(sV, vb + n0 * rs, rs, Skv - n0, tid);
   }
+  cp_async_commit();
 
   float o[D / 8][4];
 #pragma unroll
-  for (int d = 0; d < D / 8; ++d)
-    o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  for (int d = 0; d < D / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
   float m_run[2] = {kNegInf, kNegInf};
   float l_run[2] = {0.f, 0.f};
-  const int qpos = q_offset + m0 + qr;
+  const int qp0 = q_offset + wg_row0 + warp * 16 + g;
+  const uint32_t sQw = sQ + wg * 64 * 128;          // its slice of each atom
+  cp_async_wait_all();
+  __syncthreads();                                  // Q and tile 0 landed
 
-  const int k_begin = start / kBN;
-  int k_end = (end + kBN - 1) / kBN;
-  if (causal) {
-    const int last = q_offset + m0 + kBM;     // one past the tile's last row
-    k_end = min(k_end, last <= 0 ? 0 : (last + kBN - 1) / kBN);
-  }
-
+  // Iteration j: tile j+1 is copied into the other stage while tile j is
+  // computed: S, softmax, O rescale, P V; the barrier at the end means
+  // tile j+1 landed and every warp is done with tile j.
   for (int j = k_begin; j < k_end; ++j) {
-    const int n0 = j * kBN;
-    __syncthreads();                          // previous tile fully consumed
-    for (int c = tid; c < kBN * CPR; c += kThreads) {
-      const int r = c / CPR, col = (c % CPR) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (n0 + r < Skv) {
-        kv = *reinterpret_cast<const uint4*>(kb + (n0 + r) * rs + col);
-        vv = *reinterpret_cast<const uint4*>(vb + (n0 + r) * rs + col);
-      }
-      *reinterpret_cast<uint4*>(sK + r * LD + col) = kv;
-      *reinterpret_cast<uint4*>(sV + r * LD + col) = vv;
+    const int st = (j - k_begin) & 1;
+    if (j + 1 < k_end) {
+      const int n1 = (j + 1) * BN;
+      load_tile<BN, D, NT>(sK + (st ^ 1) * TILE, kb + n1 * rs, rs, Skv - n1,
+                           tid);
+      load_tile<BN, D, NT>(sV + (st ^ 1) * TILE, vb + n1 * rs, rs, Skv - n1,
+                           tid);
     }
+    cp_async_commit();
+    if (j < k_end_wg) {
+      const int n0 = j * BN;
+      float s[NB][4];
+      score_tile<D, BM, BN>(s, sQw, sK + st * TILE);
+      float alpha[2];
+      softmax_tile(s, m_run, l_run, alpha, edge(n0), n0, t, start, end,
+                   causal, qp0, scale_log2);
+      rescale<D>(o, alpha);
+      uint32_t p[NB / 2][4];
+      p_fragments(s, p);
+      pv_tile<D, BN>(o, p, sV + st * TILE);
+    }
+    cp_async_wait_all();
     __syncthreads();
-
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < kBN / 8; ++nb) {
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* p = sK + (nb * 8 + g) * LD + kk * 16 + 2 * t;
-        uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(p),
-                          *reinterpret_cast<const uint32_t*>(p + 8)};
-        mma_16816(s[nb], qf[kk], bf);
-      }
-    }
-
-#pragma unroll
-    for (int nb = 0; nb < kBN / 8; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kpos = n0 + nb * 8 + 2 * t + (i & 1);
-        const int qp = qpos + 8 * (i >> 1);
-        const bool ok = kpos >= start && kpos < end && (!causal || qp >= kpos);
-        s[nb][i] = ok ? s[nb][i] * scale : kNegInf;
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int nb = 0; nb < kBN / 8; ++nb)
-        mx = fmaxf(mx, fmaxf(s[nb][2 * r], s[nb][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[r], mx);
-      const float alpha = expf(m_run[r] - m_new);
-      // rows fully masked so far (m_new == NEG_INF) get p = 0 explicitly
-      const bool dead = m_new == kNegInf;
-      float rowsum = 0.f;
-#pragma unroll
-      for (int nb = 0; nb < kBN / 8; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = dead ? 0.f : expf(s[nb][2 * r + e] - m_new);
-          s[nb][2 * r + e] = p;
-          rowsum += p;
-        }
-      }
-      rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
-      rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 2);
-      l_run[r] = l_run[r] * alpha + rowsum;
-      m_run[r] = m_new;
-#pragma unroll
-      for (int d = 0; d < D / 8; ++d) {
-        o[d][2 * r] *= alpha;
-        o[d][2 * r + 1] *= alpha;
-      }
-    }
-
-#pragma unroll
-    for (int kc = 0; kc < kBN / 16; ++kc) {
-      uint32_t a[4] = {pack_f32(s[2 * kc][0], s[2 * kc][1]),
-                       pack_f32(s[2 * kc][2], s[2 * kc][3]),
-                       pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                       pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int d = 0; d < D / 8; ++d) {
-        const __nv_bfloat16* p = sV + (kc * 16 + 2 * t) * LD + d * 8 + g;
-        uint32_t bf[2] = {pack_bf16(p[0], p[LD]),
-                          pack_bf16(p[8 * LD], p[9 * LD])};
-        mma_16816(o[d], a, bf);
-      }
-    }
   }
 
+  store_rows<D>(o, m_run, l_run, wg_row0 + warp * 16 + g, t, Sq, H, b, h,
+                out, lse);
+}
+
+template <int D, int BM, int BN>
+int launch(const void* q, const void* k, const void* v, const int* starts,
+           const int* ends, void* out, float* lse, int B, int Sq, int Skv,
+           int H, int q_offset, int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D, BM, BN>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D, BM, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sq + BM - 1) / BM, H, B);
+  flash_fwd_kernel<D, BM, BN><<<grid, BM * 2, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), starts, ends,
+      static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, q_offset, causal,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One 64 x 64 S tile and one P V product through the kernel's descriptors
+// and fragment layouts: s = q k^T (fp32), o = bf16(s) v (fp32).  q, k, v
+// [64, D] bf16; s [64, 64], o [64, D] fp32.  A check of the wgmma
+// descriptors; nothing on the path calls it.
+template <int D>
+__global__ void __launch_bounds__(128)
+wgmma_tile_debug_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        float* __restrict__ s_out, float* __restrict__ o_out) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(
+                             smem_raw)) + 1023) & ~1023u;
+  const uint32_t sQ = base, sK = sQ + 64 * D * 2, sV = sK + 64 * D * 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  load_tile<64, D, 128>(sQ, q, D, 64, tid);
+  load_tile<64, D, 128>(sK, k, D, 64, tid);
+  load_tile<64, D, 128>(sV, v, D, 64, tid);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  float s[8][4];
+  score_tile<D, 64, 64>(s, sQ, sK);
+  float o[D / 8][4];
+#pragma unroll
+  for (int d = 0; d < D / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  uint32_t a[4][4];
+  p_fragments(s, a);
+  pv_tile<D, 64>(o, a, sV);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = m0 + qr + 8 * r;
-    if (row >= Sq) continue;
-    const float l_safe = l_run[r] == 0.f ? 1.f : l_run[r];
-    __nv_bfloat16* orow = out + (static_cast<long>(b) * Sq + row) * rs + h * D;
+    const int row = warp * 16 + g + 8 * r;
 #pragma unroll
-    for (int d = 0; d < D / 8; ++d) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[d][2 * r] / l_safe, o[d][2 * r + 1] / l_safe);
-    }
-    if (t == 0)
-      lse[(static_cast<long>(b) * H + h) * Sq + row] = m_run[r] + logf(l_safe);
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        s_out[row * 64 + nb * 8 + 2 * t + e] = s[nb][2 * r + e];
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        o_out[row * D + d * 8 + 2 * t + e] = o[d][2 * r + e];
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, const int* starts,
-           const int* ends, void* out, float* lse, int B, int Sq, int Skv,
-           int H, int q_offset, int causal, float scale, cudaStream_t stream) {
-  const int smem = (kBM + 2 * kBN) * (D + 8) * 2;
+int launch_debug(const void* q, const void* k, const void* v, float* s,
+                 float* o, cudaStream_t stream) {
+  constexpr int smem = 1024 + 3 * 64 * D * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      wgmma_tile_debug_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + kBM - 1) / kBM, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  wgmma_tile_debug_kernel<D><<<1, 128, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), starts, ends,
-      static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, q_offset, causal,
-      scale);
+      static_cast<const __nv_bfloat16*>(v), s, o);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -245,17 +586,33 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               const void* starts, const void* ends, void* out,
                               void* lse, int B, int Sq, int Skv, int H, int D,
                               int q_offset, int causal, float scale,
-                              void* stream) {
+                              int block_m, int block_n, void* stream) {
   const int* st = static_cast<const int*>(starts);
   const int* en = static_cast<const int*>(ends);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0 || H == 0) return 0;
-  if (D == 64)
-    return launch<64>(q, k, v, st, en, out, l, B, Sq, Skv, H, q_offset,
-                      causal, scale, s);
-  if (D == 128)
-    return launch<128>(q, k, v, st, en, out, l, B, Sq, Skv, H, q_offset,
-                       causal, scale, s);
+#define FLASH_LAUNCH(DD, BMM, BNN)                                          \
+  if (D == DD && block_m == BMM && block_n == BNN)                          \
+    return launch<DD, BMM, BNN>(q, k, v, st, en, out, l, B, Sq, Skv, H,     \
+                                q_offset, causal, scale, s);
+  // the tiles ops/flash_attention.py TILES lists
+  FLASH_LAUNCH(128, 128, 128)
+  FLASH_LAUNCH(128, 64, 128)
+  FLASH_LAUNCH(128, 64, 64)
+  FLASH_LAUNCH(64, 64, 128)
+  FLASH_LAUNCH(64, 64, 64)
+#undef FLASH_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int flash_wgmma_tile_debug(const void* q, const void* k,
+                                      const void* v, void* s, void* o, int D,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* sf = static_cast<float*>(s);
+  float* of = static_cast<float*>(o);
+  if (D == 64) return launch_debug<64>(q, k, v, sf, of, st);
+  if (D == 128) return launch_debug<128>(q, k, v, sf, of, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,6 +12,7 @@ each); a second caller of the same kernel waits for the first.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -79,6 +80,14 @@ def load_library(name: str, source: str,
             getattr(lib, fn).restype = ctypes.c_int
         _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

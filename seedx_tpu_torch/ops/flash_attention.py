@@ -20,17 +20,21 @@ from typing import Optional, Tuple
 
 import torch
 
-from seedx_tpu_torch.ops._build import check, load_library
+from seedx_tpu_torch.ops._build import check, load_library, sm_count
 from seedx_tpu_torch.ops.attention import NEG_INF
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"flash_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, ctypes.c_float, _P]}
+_SIGNATURES = {"flash_fwd_bf16": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I,
+                                                         _I, _P],
+               "flash_wgmma_tile_debug": [_P] * 5 + [_I, _P]}
 _BWD_SIGNATURES = {
     "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P],
     "flash_bwd_dkv_bf16": [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]}
 HEAD_DIMS = (64, 128)
+# K1's block tiles (q rows, keys) by head dim: the kernels csrc/flash_fwd.cu
+# builds, exactly the ones ``tile_shape`` picks
+TILES = {128: ((128, 128), (64, 128), (64, 64)), 64: ((64, 128), (64, 64))}
 
 
 def library() -> ctypes.CDLL:
@@ -104,6 +108,19 @@ def _check_inputs(what: str, tensors, starts, ends, b: int, sq: int,
             raise ValueError(f"{what}: {name} must be int32 [{b}] on {dev}")
 
 
+def tile_shape(b: int, sq: int, h: int, d: int, causal: bool,
+               sms: int) -> Tuple[int, int]:
+    """K1's block tile, (q rows, keys): 128 keys a tile where no causal
+    diagonal cuts the tiles (the ViT, the UNet), 64 where one does (prefill,
+    the chunk, training); 128 q rows (two warpgroups) only at D 128 and only
+    where the grid at 128 rows still covers every SM.  Chosen from the
+    kernel's times on the H100 (``flash_sweep.py``, PERF.md), not a user
+    knob."""
+    if causal:
+        return 64, 64
+    return (128 if d == 128 and -(-sq // 128) * h * b >= sms else 64), 128
+
+
 def flash_fwd(q, k, v, starts, ends, q_offset: int, causal: bool,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Wrapper: kernel for CUDA tensors, plain version for CPU tensors."""
@@ -119,13 +136,34 @@ def flash_fwd(q, k, v, starts, ends, q_offset: int, causal: bool,
     err = library().flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(),
         ends.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, skv, h, d,
-        int(q_offset), int(bool(causal)), float(scale), stream)
+        int(q_offset), int(bool(causal)), float(scale),
+        *tile_shape(b, sq, h, d, causal, sm_count(q.device.index or 0)),
+        stream)
     check(err, "flash_fwd_bf16")
     flash_fwd.launches += 1
     return out, lse
 
 
 flash_fwd.launches = 0
+
+
+def wgmma_tile_debug(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's wgmma descriptors on one tile, for the card's tests: q, k, v
+    [64, D] bf16 CUDA -> (s = q k^T [64, 64], o = bf16(s) v [64, D]), both
+    fp32 accumulators as the kernel holds them.  Not on any path."""
+    d = q.shape[-1]
+    for t in (q, k, v):
+        if (t.shape != (64, d) or t.dtype != torch.bfloat16 or not t.is_cuda
+                or not t.is_contiguous()):
+            raise ValueError("wgmma_tile_debug: q, k, v must be contiguous "
+                             "CUDA bf16 [64, D]")
+    s = torch.empty((64, 64), dtype=torch.float32, device=q.device)
+    o = torch.empty((64, d), dtype=torch.float32, device=q.device)
+    err = library().flash_wgmma_tile_debug(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(),
+        d, torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "flash_wgmma_tile_debug")
+    return s, o
 
 
 def flash_bwd_plain(q, k, v, do, lse, delta, starts, ends, q_offset: int,

@@ -11,17 +11,18 @@ scale multiplies the dot, and the row scale multiplies the sum.
 Kernel source and design note: ``seedx_tpu_torch/csrc/int4_w4a8.cu``.
 ``int4_matmul`` launches it for CUDA tensors and runs ``int4_matmul_plain``
 for CPU tensors.  ``int4_matmul_unpack`` ports the JAX package's W4A16
-``int4_matmul_xla`` (unpack to bf16, then a dense dot) as a reference.
+``int4_matmul_xla`` (unpack to bf16, then a dense dot).  ``int4_matmul_auto``
+dispatches as the reference's does: W4A8 up to ``MAX_KERNEL_ROWS`` rows,
+W4A16 above, on every device.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from seedx_tpu_torch.ops._build import check, load_library
+from seedx_tpu_torch.ops._build import check, load_library, sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,11 +69,6 @@ def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     return (acc * xa).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch_shape(rows: int, n_out: int, n_groups: int, sms: int):
     """(rows per thread, groups per split, splits): split the group range
     across blocks until the grid covers the SMs about twice."""
@@ -108,7 +104,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError("int4_matmul: in, out and group must be multiples "
                          "of 4")
     tm, per_split, n_split = _launch_shape(rows, n_out, n_groups,
-                                           _sm_count(x.device.index or 0))
+                                           sm_count(x.device.index or 0))
     out = torch.empty((rows, n_out), dtype=x.dtype, device=x.device)
     x8 = torch.empty((rows, n_in), dtype=torch.int8, device=x.device)
     xa = torch.empty((rows,), dtype=torch.float32, device=x.device)
@@ -140,9 +136,25 @@ def int4_matmul_unpack(x: torch.Tensor, packed: torch.Tensor,
     return x.to(torch.bfloat16) @ w.reshape(n_in, n_out)
 
 
+# rows above which the reference's int4_matmul_auto takes its W4A16 branch
+MAX_KERNEL_ROWS = 2048
+
+
+def int4_branch(rows: int) -> str:
+    """"w4a8" (``int4_matmul``) or "w4a16" (``int4_matmul_unpack``)."""
+    return "w4a8" if rows <= MAX_KERNEL_ROWS else "w4a16"
+
+
 def int4_matmul_auto(x: torch.Tensor, packed: torch.Tensor,
                      scale: torch.Tensor) -> torch.Tensor:
-    """Leading dims flattened into rows, then ``int4_matmul``."""
+    """Leading dims flattened into rows, then ``int4_matmul`` up to
+    ``MAX_KERNEL_ROWS`` rows and ``int4_matmul_unpack`` (bf16 out) above,
+    as ``seedx_tpu/ops/int4_matmul.py`` ``int4_matmul_auto`` dispatches
+    under ``FORCE_KERNEL`` or on the TPU."""
     lead = x.shape[:-1]
-    y = int4_matmul(x.reshape(-1, x.shape[-1]).contiguous(), packed, scale)
+    x2 = x.reshape(-1, x.shape[-1])
+    if int4_branch(x2.shape[0]) == "w4a8":
+        y = int4_matmul(x2.contiguous(), packed, scale)
+    else:
+        y = int4_matmul_unpack(x2, packed, scale)
     return y.reshape(*lead, y.shape[-1])

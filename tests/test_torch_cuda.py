@@ -27,29 +27,106 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _per_row(x, b):
+    return list(x) if isinstance(x, (tuple, list)) else [x] * b
+
+
+def flash_limit(ref: torch.Tensor) -> float:
+    """K1's output limit against its plain version: 2e-2 of the largest
+    output, at most 2e-2.  Both round the output to bf16 once; the kernel
+    rounds P to bf16 against each tile's running max, the plain version
+    against the row's max, so they differ by a few bf16 ULPs of the outputs'
+    scale (a softmax over 4096 keys averages v down to |out| ~ 0.02, where a
+    fixed 2e-2 would pass anything)."""
+    return 2e-2 * min(1.0, ref.float().abs().max().item())
+
+
+def reachable_tiles(d: int, causal: bool):
+    """The block tiles ``tile_shape`` can pick for this head dim and mask:
+    its choice at a one-block grid and at a grid that fills the card."""
+    sms = tflash.sm_count(0)
+    return sorted({tflash.tile_shape(b, sq, h, d, causal, sms)
+                   for b, sq, h in ((1, 64, 1), (64, 4096, 64))})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,skv,h,d,causal,start,end,q_offset", [
     (5, 1024, 1024, 16, 128, False, 0, 1024, 0),   # ViT tiles (104 padded)
     (1, 512, 544, 40, 128, True, 300, 512, 0),     # prefill, left-padded
     (1, 65, 544, 40, 128, True, 300, 577, 512),    # forced image chunk
-    (2, 200, 200, 4, 64, True, 7, 190, 0)])        # ragged edges, d 64
-def test_flash_kernel_matches_plain(cuda_device, b, sq, skv, h, d, causal,
-                                    start, end, q_offset):
+    (2, 200, 200, 4, 64, True, 7, 190, 0),         # ragged edges, d 64
+    # the SFT step: comprehension 2 x 880 and generation 8 x 260, causal,
+    # right-padded; the 8-tile train ViT
+    (2, 880, 880, 40, 128, True, 0, (880, 611), 0),
+    (8, 260, 260, 40, 128, True, 0,
+     (260, 211, 174, 260, 143, 238, 197, 160), 0),
+    (8, 1024, 1024, 16, 128, False, 0, 1024, 0),
+    # the SDXL UNet's self-attention (CFG batch 2) and the D 64 windows the
+    # flash backward checks read lse from
+    (2, 4096, 4096, 10, 64, False, 0, 4096, 0),
+    (2, 1024, 1024, 20, 64, False, 0, 1024, 0),
+    (2, 512, 512, 16, 64, False, (0, 7), (512, 400), 0),
+    # tile edges: q_offset and window start off the 64 grid, Sq < 64, a
+    # row with an empty window, causal rows wholly before the window (dead
+    # rows), D 64 causal
+    (1, 100, 300, 4, 128, True, 37, 290, 171),
+    (3, 20, 150, 8, 128, True, (5, 0, 64), (150, 149, 130), 130),
+    (2, 7, 64, 2, 64, False, 0, 64, 0),
+    (2, 70, 70, 4, 128, False, (0, 30), (70, 30), 0),
+    (1, 200, 200, 4, 64, True, 100, 200, 0),
+    (2, 333, 333, 6, 64, True, (0, 45), (333, 301), 0)])
+def test_flash_kernel_matches_plain(cuda_device, monkeypatch, b, sq, skv, h,
+                                    d, causal, start, end, q_offset):
+    """K1 against its plain version at every block tile the wrapper can
+    pick for this head dim and mask (64 or 128 q rows: one or two
+    warpgroups; 64 or 128 keys)."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn((b, s, h, d), generator=g, device=cuda_device
                            ).to(torch.bfloat16) for s in (sq, skv, skv))
-    starts = torch.full((b,), start, dtype=torch.int32, device=cuda_device)
-    ends = torch.full((b,), end, dtype=torch.int32, device=cuda_device)
-    out, lse = tflash.flash_fwd(q, k, v, starts, ends, q_offset, causal,
-                                d ** -0.5)
+    starts = torch.tensor(_per_row(start, b), dtype=torch.int32,
+                          device=cuda_device)
+    ends = torch.tensor(_per_row(end, b), dtype=torch.int32,
+                        device=cuda_device)
     ref, lse_ref = tflash.flash_fwd_plain(q, k, v, starts, ends, q_offset,
                                           causal, d ** -0.5)
-    torch.cuda.synchronize()
-    # bf16 output: one bf16 ULP of |out| <= ~4 plus the per-tile rescale
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
     live = lse_ref > -1e30
-    assert torch.equal(lse > -1e30, live)
-    torch.testing.assert_close(lse[live], lse_ref[live], rtol=0, atol=1e-3)
+    tiles = reachable_tiles(d, causal)
+    assert set(tiles) <= set(tflash.TILES[d])
+    for tile in tiles:
+        monkeypatch.setattr(tflash, "tile_shape", lambda *a, t=tile: t)
+        n1 = tflash.flash_fwd.launches
+        out, lse = tflash.flash_fwd(q, k, v, starts, ends, q_offset, causal,
+                                    d ** -0.5)
+        torch.cuda.synchronize()
+        assert tflash.flash_fwd.launches - n1 == 1
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=flash_limit(ref))
+        # the same dead rows, lse exactly NEG_INF there (K4 / K5 read it)
+        assert torch.equal(lse > -1e30, live)
+        assert (lse[~live] == tattn.NEG_INF).all()
+        torch.testing.assert_close(lse[live], lse_ref[live], rtol=0,
+                                   atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_descriptor_tile(cuda_device, d):
+    """K1's wgmma descriptors and fragment layouts on one tile: S = Q K^T
+    (both K-major, swizzled) against torch.matmul, and O = bf16(S) V (P
+    from the accumulator registers, V MN-major) against torch.matmul of
+    the kernel's own S rounded to bf16."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn((64, d), generator=g, device=cuda_device
+                           ).to(torch.bfloat16) for _ in range(3))
+    s, o = tflash.wgmma_tile_debug(q, k, v)
+    torch.cuda.synchronize()
+    # exact bf16 products summed in fp32 in another order
+    s_ref = q.float() @ k.float().T
+    torch.testing.assert_close(s, s_ref, rtol=0,
+                               atol=1e-5 * s_ref.abs().max().item())
+    o_ref = s.to(torch.bfloat16).float() @ v.float()
+    torch.testing.assert_close(o, o_ref, rtol=0,
+                               atol=1e-5 * o_ref.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -69,6 +146,26 @@ def test_int4_kernel_matches_plain(cuda_device, rows, n_in, n_out):
     # then one bf16 rounding: two bf16 ULPs of the output magnitude
     tol = 2 * 2 ** -7 * ref.float().abs().max().item()
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,branch", [(2048, "w4a8"), (2049, "w4a16"),
+                                         (4096, "w4a16")])
+def test_int4_auto_dispatch_on_card(cuda_device, rows, branch):
+    """int4_matmul_auto on the card: K2 (W4A8) up to MAX_KERNEL_ROWS rows,
+    the W4A16 unpack-and-dot above, as the reference dispatches."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    w = torch.randn((512, 256), generator=g, device=cuda_device) * 0.02
+    packed, scale = tquant.quantize_kernel_int4(w)
+    x = torch.randn((rows, 512), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    n2 = tint4.int4_matmul.launches
+    out = tint4.int4_matmul_auto(x, packed, scale)
+    torch.cuda.synchronize()
+    assert tint4.int4_branch(rows) == branch
+    assert tint4.int4_matmul.launches - n2 == (branch == "w4a8")
+    if branch == "w4a16":
+        assert torch.equal(out, tint4.int4_matmul_unpack(x, packed, scale))
 
 
 def _quantize_rows(x):

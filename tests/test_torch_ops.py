@@ -161,6 +161,17 @@ def test_flash_plain_fully_masked_row_gives_zeros():
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **F32_TOL)
 
 
+@pytest.mark.parametrize("d", tflash.HEAD_DIMS)
+def test_flash_tile_shape_picks_exactly_the_built_tiles(d):
+    """K1 builds only the block tiles its wrapper can pick (TILES): over
+    small and large grids, causal and not, tile_shape reaches each of them
+    and nothing else."""
+    picks = {tflash.tile_shape(b, sq, h, d, causal, 132)
+             for b in (1, 8) for sq in (7, 65, 1024, 4096) for h in (1, 40)
+             for causal in (False, True)}
+    assert picks == set(tflash.TILES[d])
+
+
 @pytest.mark.parametrize("shape,group", [((256, 96), 128),
                                          ((3, 256, 64), 128),
                                          ((192, 32), 128)])
