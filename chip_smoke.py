@@ -35,9 +35,9 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    within ``LOGIT_FACTOR`` times the batched loop's difference from the
    engine, windowed paged must equal windowed dense, and where the greedy
    fused and non-fused streams part the gap is logged; a torch.profiler
-   window over one decode chunk at 1 and at 8 live slots (device busy
-   share), and ``SeedXServer`` answering 4 concurrent HTTP requests on
-   127.0.0.1;
+   window over one decode chunk at 1 and at 8 live slots and over one
+   fused mixed chunk at 8 (device busy share, K3's device ms), and
+   ``SeedXServer`` answering 4 concurrent HTTP requests on 127.0.0.1;
 6. chat: three turns (an image in the first) through a ``ChatSession``
    with the KV prefix cache and one without (the cache must be reused),
    a cached session forced along the uncached replies (its logits held to
@@ -416,22 +416,26 @@ WINDOWS_8 = ((0, 1280), (5, 6), (3, 3), (100, 900), (0, 1), (640, 1100),
              (7, 1000), (200, 1280))
 
 
-def check_decode(dev, g, flush):
+# K3's one-query rows: (name, B, S, Hq, Hkv, D, int8, page, windows)
+DECODE_ROWS = (
+    ("int8_b1", 1, 1280, 40, 40, 128, True, 0, ((0, 300),)),
+    ("int8_b8", 8, 1280, 40, 40, 128, True, 0, WINDOWS_8),
+    ("bf16_b8", 8, 1280, 40, 40, 128, False, 0, WINDOWS_8),
+    ("int8_paged_b8", 8, 1280, 40, 40, 128, True, 128, WINDOWS_8),
+    ("bf16_gqa_b8", 8, 1280, 40, 8, 128, False, 0, WINDOWS_8),
+    ("int8_d32_b8", 8, 1280, 4, 4, 32, True, 0, WINDOWS_8))
+
+
+def check_decode(dev, g, flush, rows=DECODE_ROWS):
+    """K3's one-query mode at ``rows``."""
     import torch
     import torch.nn.functional as F
 
     from seedx_tpu_torch.models.llama import quantize_kv
     from seedx_tpu_torch.ops import decode_attention as da
 
-    rows = []
-    # (name, B, S, Hq, Hkv, D, int8, page, windows)
-    for name, b, s, hq, hkv, d, int8, page, wins in (
-            ("int8_b1", 1, 1280, 40, 40, 128, True, 0, ((0, 300),)),
-            ("int8_b8", 8, 1280, 40, 40, 128, True, 0, WINDOWS_8),
-            ("bf16_b8", 8, 1280, 40, 40, 128, False, 0, WINDOWS_8),
-            ("int8_paged_b8", 8, 1280, 40, 40, 128, True, 128, WINDOWS_8),
-            ("bf16_gqa_b8", 8, 1280, 40, 8, 128, False, 0, WINDOWS_8),
-            ("int8_d32_b8", 8, 1280, 4, 4, 32, True, 0, WINDOWS_8)):
+    spec, rows = rows, []
+    for name, b, s, hq, hkv, d, int8, page, wins in spec:
         q = torch.randn((b, hq, d), generator=g,
                         device=dev).to(torch.bfloat16)
         k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev
@@ -522,7 +526,17 @@ def stair_ends(ends, w: int, s: int):
     return [[min(e + i, s) for i in range(w)] for e in ends]
 
 
-def check_stair(dev, g, flush):
+# K3's stair rows at B 8, S STAIR_S, D 128: (name, Hq, Hkv, int8, page, w)
+STAIR_S = 640
+STAIR_ROWS = (("stair_int8_w8", 40, 40, True, 0, 8),
+              ("stair_int8_w16", 40, 40, True, 0, 16),
+              ("stair_int8_paged_w8", 40, 40, True, 128, 8),
+              ("stair_int8_paged_w16", 40, 40, True, 128, 16),
+              ("stair_bf16_gqa_w8", 40, 8, False, 0, 8),
+              ("stair_int8_w1", 40, 40, True, 0, 1))
+
+
+def check_stair(dev, g, flush, rows=STAIR_ROWS):
     """K3's multi-query ("stair") mode at the fused step's shapes."""
     import torch
     import torch.nn.functional as F
@@ -530,16 +544,9 @@ def check_stair(dev, g, flush):
     from seedx_tpu_torch.models.llama import quantize_kv
     from seedx_tpu_torch.ops import decode_attention as da
 
-    rows = []
-    b, s, d = 8, 640, 128
-    # (name, Hq, Hkv, int8, page, w)
-    for name, hq, hkv, int8, page, w in (
-            ("stair_int8_w8", 40, 40, True, 0, 8),
-            ("stair_int8_w16", 40, 40, True, 0, 16),
-            ("stair_int8_paged_w8", 40, 40, True, 128, 8),
-            ("stair_int8_paged_w16", 40, 40, True, 128, 16),
-            ("stair_bf16_gqa_w8", 40, 8, False, 0, 8),
-            ("stair_int8_w1", 40, 40, True, 0, 1)):
+    spec, rows = rows, []
+    b, s, d = 8, STAIR_S, 128
+    for name, hq, hkv, int8, page, w in spec:
         q = torch.randn((b, w, hq, d), generator=g,
                         device=dev).to(torch.bfloat16)
         k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev
@@ -1238,6 +1245,7 @@ def run_serving(rt):
 
     for slots in (1, 8):
         profile_decode(rt, requests, slots)
+    profile_mixed(rt, requests)
 
     # -- SeedXServer: 4 concurrent POSTs on 127.0.0.1
     torch.cuda.empty_cache()
@@ -1547,11 +1555,12 @@ def run_parity(dev, requests, budgets) -> None:
                                   enforce=True))
 
 
-def profile_window(label: str, run, top_n: int = 5) -> None:
-    """Device busy share of one window under torch.profiler (its own
-    overhead lengthens the wall time, so the share is a lower bound), the
-    device time of the flash kernels and the ``top_n`` kernels by time.
-    ``run()`` does the window's work and returns how many steps it ran."""
+def device_profile(run):
+    """torch.profiler over one window: ``run()`` does its work and returns
+    how many steps it ran.  Returns the steps, the profiled wall ms (the
+    profiler's own overhead lengthens it, so a busy share from it is a
+    lower bound) and {kernel name: (device ms, calls)}, or None where the
+    profiler saw no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1565,43 +1574,87 @@ def profile_window(label: str, run, top_n: int = 5) -> None:
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
-        log(f"profile {label}: the profiler saw no device events; busy "
-            f"share not measured")
-        return
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        return None
     by_name = {}
     for e in events:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    return steps, wall, by_name
+
+
+def kernel_ms(by_name, key: str):
+    """(device ms, calls) of the kernels whose name holds ``key``."""
+    hits = [v for name, v in by_name.items() if key in name]
+    return sum(t for t, _ in hits), sum(n for _, n in hits)
+
+
+def profile_window(label: str, run, top_n: int = 5) -> None:
+    """Device busy share of one window (``device_profile``), the device
+    time of the flash kernels, K1 and K3, and the ``top_n`` kernels by
+    time."""
+    got = device_profile(run)
+    if got is None:
+        log(f"profile {label}: the profiler saw no device events; busy "
+            f"share not measured")
+        return
+    steps, wall, by_name = got
+    busy = sum(t for t, _ in by_name.values())
     flash = sum(t for name, (t, _) in by_name.items() if "flash_" in name)
-    k1 = [v for name, v in by_name.items() if "flash_fwd_kernel" in name]
+    k1_ms, k1_n = kernel_ms(by_name, "flash_fwd_kernel")
+    k3_ms, k3_n = kernel_ms(by_name, "decode_attn")
+    n_events = sum(n for _, n in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     log(f"profile {label}: {steps} steps, {wall:.1f} ms wall (profiled), "
         f"device busy {busy:.1f} ms = {100 * busy / wall:.1f}%, flash "
-        f"kernels {flash:.2f} ms (K1 {sum(t for t, _ in k1):.2f} ms over "
-        f"{sum(n for _, n in k1)} calls), {len(events) / steps:.0f} device "
-        f"events per step; top: "
+        f"kernels {flash:.2f} ms (K1 {k1_ms:.2f} ms over {k1_n} calls), "
+        f"K3 {k3_ms:.2f} ms over {k3_n} calls "
+        f"({k3_ms / max(steps, 1):.3f} ms a step), "
+        f"{n_events / max(steps, 1):.0f} device events per step; top: "
         + "; ".join(f"{name[:48]} {t:.2f} ms x{n}"
                     for name, (t, n) in top))
+
+
+def steady_engine(rt, requests, slots: int, fused: bool):
+    """A continuous engine with ``slots`` slots all taken by the first
+    requests (budget 64), past its admission and first chunk: its next
+    ``step()`` is a steady decode chunk or, fused, a mixed chunk (the
+    prompts still prefilling 16 tokens a step)."""
+    from seedx_tpu_torch.inference.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(rt, **dict(ENGINE, slots=slots),
+                           **(FUSED if fused else {}))
+    for r in requests[:slots]:
+        eng.submit(r, max_new_tokens=64)
+    eng.step()
+    return eng
+
+
+def engine_chunk(eng, kind: str):
+    """One ``step()`` of ``eng``; returns its steps of ``kind`` ("decode"
+    or "mixed"), failing if it ran another kind."""
+    key = f"{kind}_steps"
+    before = eng.stats()[key]
+    eng.step()
+    n = eng.stats()[key] - before
+    if n <= 0:
+        raise AssertionError(f"the engine ran no {kind} steps: "
+                             f"{eng.stats()}")
+    return n
 
 
 def profile_decode(rt, requests, slots: int) -> None:
     """Device busy share of a steady decode window: one 16-step chunk of
     the continuous engine with every slot live and nothing waiting."""
-    from seedx_tpu_torch.inference.continuous import ContinuousEngine
+    eng = steady_engine(rt, requests, slots, fused=False)
+    profile_window(f"B{slots} decode", lambda: engine_chunk(eng, "decode"))
 
-    eng = ContinuousEngine(rt, slots=slots, max_new_tokens=128,
-                           chunk_steps=16, prompt_buckets=(128, 256, 512))
-    for r in requests[:slots]:
-        eng.submit(r, max_new_tokens=64)
-    eng.step()             # admission and a first chunk, outside the window
-    before = eng.stats()["decode_steps"]
 
-    def chunk():
-        eng.step()
-        return eng.stats()["decode_steps"] - before
-
-    profile_window(f"B{slots} decode", chunk)
+def profile_mixed(rt, requests, slots: int = 8) -> None:
+    """The same over one fused mixed chunk (prefill + decode, K3's
+    multi-query mode) with every slot live."""
+    eng = steady_engine(rt, requests, slots, fused=True)
+    profile_window(f"B{slots} fused mixed",
+                   lambda: engine_chunk(eng, "mixed"))
 
 
 # the SFT phase: the SEED-X agent (configs/clm_models/agent_seed_x.yaml

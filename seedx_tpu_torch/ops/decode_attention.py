@@ -30,7 +30,10 @@ Kernel source and design note: ``seedx_tpu_torch/csrc/decode_attn.cu``.
 ``ragged_decode_attention_plain`` for CPU tensors; there is no other
 fallback.  ``ragged_decode_attention.launches`` counts every launch;
 ``.mode_launches`` splits the count into "one_query" (3-D q) and
-"multi_query" (4-D q).
+"multi_query" (4-D q).  ``plan`` is the launch's host-side shape (query
+slots per block, split count); ``split_ranges`` and
+``ragged_decode_attention_split_plain`` are the kernel's window split and
+partial merge in plain torch, for the tests.
 """
 
 from __future__ import annotations
@@ -39,17 +42,74 @@ import ctypes
 
 import torch
 
-from seedx_tpu_torch.ops._build import check, load_library
+from seedx_tpu_torch.ops._build import check, load_library, sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"decode_attn": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P]}
+_SIGNATURES = {"decode_attn": [_P] * 11 + [_I] * 11 + [ctypes.c_float, _P]}
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUPS = 8
+TILE = 64            # window positions per ring stage of the kernel
+MAX_ROWS = 64        # query vectors (slots x grouped heads) a block holds
+SPLIT_TILES = 10     # tiles a split walks at most, for fewer than
+SPLIT_ROWS = 8       # SPLIT_ROWS query vectors a block
+MAX_SPLITS = 32      # the kernel's merge holds m, l of each in shared memory
+_tickets = {}        # device -> int32 tickets, zero between launches
 
 
 def library() -> ctypes.CDLL:
     return load_library("decode_attn", "decode_attn.cu", _SIGNATURES)
+
+
+def plan(b: int, w: int, g: int, hkv: int, s: int, sms: int,
+         splits: int = 0):
+    """(query slots per block, slot groups, window splits) of a launch
+    over B rows, w slots, G q heads per kv head, Hkv kv heads and a
+    logical cache of S positions on ``sms`` SMs.  A block holds at most
+    MAX_ROWS query vectors, so a row's w * G vectors take as few groups as
+    that allows (each group reads the window once) with the slots spread
+    evenly over them.  The split count comes from S alone (the windows
+    stay on the device): enough blocks for every SM, and for a block of
+    fewer than SPLIT_ROWS query vectors at most SPLIT_TILES tiles a split
+    (each split's partials and their merge cost its rows' bytes, so a
+    wider block splits only to fill the SMs); at most one split per
+    64-position tile of S and MAX_SPLITS.  ``splits`` > 0 forces it."""
+    per = MAX_ROWS // g
+    groups = -(-w // per)
+    ql = -(-w // groups)
+    if splits <= 0:
+        tiles = max(-(-s // TILE), 1)
+        splits = -(-sms // (hkv * b * groups))
+        if ql * g < SPLIT_ROWS:
+            splits = max(splits, -(-tiles // SPLIT_TILES))
+        splits = min(splits, tiles, MAX_SPLITS)
+    elif splits > MAX_SPLITS:
+        raise ValueError(f"ragged_decode_attention: at most {MAX_SPLITS} "
+                         f"splits, got {splits}")
+    return ql, groups, splits
+
+
+def split_ranges(start: int, end: int, splits: int):
+    """The live chunks [p0, p1) into which the kernel cuts a window
+    [start, end) for ``splits`` splits: whole 64-position tiles counted
+    from start, the same number in each but the last; splits past the
+    window's tiles get none."""
+    start = max(start, 0)
+    tiles = -(-max(end - start, 0) // TILE)
+    if not tiles:
+        return []
+    chunk = -(-tiles // splits)
+    return [(start + i * chunk * TILE, min(start + (i + 1) * chunk * TILE,
+                                           end))
+            for i in range(-(-tiles // chunk))]
+
+
+def _tickets_for(device, n: int) -> torch.Tensor:
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
 
 
 def _geometry(q, k_cache, block_tables, page):
@@ -134,12 +194,76 @@ def ragged_decode_attention_plain(q, k_cache, v_cache, starts, ends, *,
     return out.reshape(q.shape).to(q.dtype)
 
 
+def ragged_decode_attention_split_plain(q, k_cache, v_cache, starts, ends,
+                                        *, splits: int, slots: int = 0,
+                                        k_scale=None, v_scale=None,
+                                        block_tables=None, page: int = 0
+                                        ) -> torch.Tensor:
+    """The kernel's split and merge in plain torch: each group of
+    ``slots`` query slots (all of them by default) cuts its window
+    [start, its last slot's stair end) as ``split_ranges`` does; each
+    chunk gives fp32 partials (m, l, acc) with the plain version's
+    arithmetic (p rounded to bf16 against the chunk's maximum), merged in
+    chunk order as acc * w / (l * w) with w = exp(m - max m), 0 for a
+    chunk with no position."""
+    b, w, hq, d, hkv, g, s = _geometry(q, k_cache, block_tables, page)
+    k = _logical_rows(k_cache, block_tables, page, s).reshape(b, s, hkv, d)
+    v = _logical_rows(v_cache, block_tables, page, s).reshape(b, s, hkv, d)
+    qg = q.to(torch.bfloat16).float().reshape(b, w, hkv, g, d)
+    sc = torch.einsum("bwkgd,bskd->bwkgs", qg,
+                      k.to(torch.bfloat16).float()) * d ** -0.5
+    if k_scale is not None:
+        ks = _logical_rows(k_scale, block_tables, page, s)
+        sc = sc * ks.to(torch.bfloat16).float().permute(0, 2, 1)[
+            :, None, :, None]
+    dev = q.device
+    pos = torch.arange(s, device=dev)
+    slot = torch.arange(w, device=dev)
+    st = torch.clamp(starts.to(dev).long(), min=0)[:, None]       # [B, 1]
+    en = ends.to(dev).long()[:, None]
+    valid = ((pos >= st[..., None])
+             & (pos < torch.clamp(en + slot, max=s)[..., None]))  # [B, w, S]
+    # each slot's group window and the kernel's chunk of each position
+    per = slots or w
+    last = torch.clamp((slot // per + 1) * per, max=w) - 1
+    e_grp = torch.maximum(torch.clamp(en + last, max=s), st)      # [B, w]
+    tiles = (e_grp - st + TILE - 1) // TILE
+    chunk = torch.clamp((tiles + splits - 1) // splits, min=1) * TILE
+    part = (pos - st[..., None]) // chunk[..., None]              # [B, w, S]
+    vs = (None if v_scale is None else _logical_rows(
+        v_scale, block_tables, page, s).float().permute(0, 2, 1)[
+            :, None, :, None])
+    ms, ls, accs = [], [], []
+    for i in range(splits):
+        ok = (valid & (part == i))[:, :, None, None, :]
+        x = torch.where(ok, sc, float("-inf"))
+        m = x.amax(dim=-1)
+        p = torch.where(ok, torch.exp(x - torch.where(
+            torch.isfinite(m), m, 0.0)[..., None]), 0.0)
+        ls.append(p.sum(dim=-1))
+        if vs is not None:
+            p = p * vs
+        accs.append(torch.einsum("bwkgs,bskd->bwkgd",
+                                 p.to(torch.bfloat16).float(), v.float()))
+        ms.append(m)
+    m_all = torch.stack(ms).amax(dim=0)
+    l_sum = torch.zeros_like(ls[0])
+    acc = torch.zeros_like(accs[0])
+    for m, l_i, a in zip(ms, ls, accs):
+        wt = torch.where(torch.isfinite(m), torch.exp(m - m_all), 0.0)
+        l_sum = l_sum + l_i * wt
+        acc = acc + a * wt[..., None]
+    out = acc / torch.clamp(l_sum, min=1e-30)[..., None]
+    return out.reshape(q.shape).to(q.dtype)
+
+
 def ragged_decode_attention(q, k_cache, v_cache, starts, ends, *,
                             k_scale=None, v_scale=None, block_tables=None,
-                            page: int = 0) -> torch.Tensor:
+                            page: int = 0, _splits: int = 0) -> torch.Tensor:
     """Attention reading only ``[starts, ends)`` of each row, for one query
     per row (q [B, Hq, D]) or a stair of w queries (q [B, w, Hq, D]).
-    Wrapper: kernel for CUDA tensors, plain version for CPU tensors."""
+    Wrapper: kernel for CUDA tensors, plain version for CPU tensors.
+    ``_splits`` > 0 forces the kernel's split count (tests)."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("ragged_decode_attention: give both scales or "
                          "neither")
@@ -168,8 +292,8 @@ def ragged_decode_attention(q, k_cache, v_cache, starts, ends, *,
     if block_tables is not None:
         tensors.append(("block_tables", block_tables, torch.int32))
     for name, t, dt in tensors:
-        # q and the codes are read in vectors of up to 8 bytes; scales,
-        # windows and tables one element at a time
+        # q is read in 8-byte vectors, the codes in 16-byte cp.async
+        # chunks; scales, windows and tables one element at a time
         if (t.dtype != dt or t.device != q.device or not t.is_contiguous()
                 or (name in ("q", "k_cache", "v_cache")
                     and t.data_ptr() % 16)):
@@ -187,6 +311,15 @@ def ragged_decode_attention(q, k_cache, v_cache, starts, ends, *,
         raise ValueError(f"ragged_decode_attention: starts/ends must be [{b}]")
     out = torch.empty_like(q)
     paged = block_tables is not None
+    ql, groups, splits = plan(b, w, g, hkv, s, sm_count(q.device.index),
+                              _splits)
+    part = tickets = None
+    if splits > 1:
+        # fp32 partials (acc, then m and l) of every split; the tickets
+        # are left at zero by each launch's merging blocks
+        part = torch.empty(splits * b * hkv * groups * ql * g * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        tickets = _tickets_for(q.device, b * hkv * groups)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = library().decode_attn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -194,8 +327,10 @@ def ragged_decode_attention(q, k_cache, v_cache, starts, ends, *,
         v_scale.data_ptr() if int8 else None,
         starts.data_ptr(), ends.data_ptr(),
         block_tables.data_ptr() if paged else None, out.data_ptr(),
+        part.data_ptr() if part is not None else None,
+        tickets.data_ptr() if tickets is not None else None,
         b, w, hq, hkv, d, s, block_tables.shape[1] if paged else 0,
-        page if paged else 0, int(int8), d ** -0.5, stream)
+        page if paged else 0, int(int8), ql, splits, d ** -0.5, stream)
     check(err, "decode_attn")
     ragged_decode_attention.launches += 1
     ragged_decode_attention.mode_launches[

@@ -302,6 +302,79 @@ def test_stair_kernel_matches_plain(cuda_device, w, b, s, hq, hkv, d, int8,
         assert torch.equal(out[:, 0], one)
 
 
+# K3's window split: (w, 0 for the one-query mode; B, S, Hq, Hkv, D,
+# int8, page, windows).  Windows shorter than a tile and than a split, a
+# chunk starting off a page boundary so its tiles cross pages of 32, stair
+# rows clamped at S, empty windows, groups of slots (w 64 at G 5), and
+# chunks of more pages of 8 than a block keeps in shared memory.
+SPLIT_CASES = [
+    (0, 8, 1280, 40, 40, 128, True, 0,
+     [(0, 1280), (5, 40), (3, 3), (100, 900), (0, 1), (1279, 1280),
+      (640, 1100), (7, 1000)]),
+    (0, 3, 512, 40, 8, 128, False, 0, [(0, 512), (17, 300), (2, 2)]),
+    (0, 4, 256, 8, 2, 64, True, 32, [(17, 100), (0, 256), (31, 33),
+                                     (0, 0)]),
+    (16, 4, 640, 40, 40, 128, True, 0, [(0, 1), (0, 301), (0, 637),
+                                        (9, 9)]),
+    (8, 3, 640, 40, 8, 128, False, 32, [(0, 65), (40, 639), (7, 7)]),
+    (64, 2, 192, 10, 2, 64, True, 32, [(0, 150), (3, 185)]),
+    (0, 2, 1024, 8, 8, 64, True, 8, [(0, 1024), (3, 900)])]
+
+
+def _split_case(dev, w, b, s, hq, hkv, d, int8, page, windows, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, kw = _stair_inputs(dev, g, b, max(w, 1), s, hq, hkv, d, int8,
+                                page)
+    if w == 0:
+        q = q[:, 0].contiguous()
+    starts = torch.tensor([x[0] for x in windows], dtype=torch.int32,
+                          device=dev)
+    ends = torch.tensor([x[1] for x in windows], dtype=torch.int32,
+                        device=dev)
+    return q, k, v, starts, ends, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3, 32])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_decode_kernel_forced_splits_match_plain(cuda_device, case, splits):
+    """K3 at a forced split count (32, the most it takes: more splits
+    than any window here has tiles) against the plain version; empty
+    windows exactly zero."""
+    w, b, s, hq, hkv, d, int8, page, windows = SPLIT_CASES[case]
+    q, k, v, starts, ends, kw = _split_case(cuda_device, *SPLIT_CASES[case],
+                                            seed=case)
+    out = tdecode.ragged_decode_attention(q, k, v, starts, ends,
+                                          _splits=splits, **kw)
+    ref = tdecode.ragged_decode_attention_plain(q, k, v, starts, ends, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    # bf16 output of O(1): one bf16 ULP of |out| plus fp32 summation order
+    # and the rounding of p against each split's running maximum
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+    empty = (ends <= starts).nonzero()[:, 0]
+    if w == 0:
+        assert (out[empty] == 0).all()
+    else:
+        assert (out[empty, 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [0, 3])
+def test_decode_kernel_bit_equal_over_runs(cuda_device, splits):
+    """The split merge runs in split order whatever block finishes last,
+    so two runs (and a run after the tickets were used) give equal bits."""
+    for case in (0, 4):
+        q, k, v, starts, ends, kw = _split_case(
+            cuda_device, *SPLIT_CASES[case], seed=7)
+        runs = [tdecode.ragged_decode_attention(q, k, v, starts, ends,
+                                                _splits=splits, **kw)
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0],
+                                                             runs[2])
+
+
 # (B, Sq, Skv, H, D, causal, starts, ends, q_offset): the SFT batches'
 # shapes (comprehension 2 x 880, generation 8 x 260, right-padded), a D 64
 # non-causal window, prefill into a cache, a left-pad window
