@@ -306,18 +306,18 @@ FLASH_BWD_SHAPES = (
     ("d64_noncausal", 2, 512, 16, 64, False, (0, 7), (512, 400)))
 
 
-def check_flash_bwd(dev, g):
-    """K4 (dq) and K5 (dk, dv) against ``flash_bwd_plain`` at the train
-    step's shapes; two runs must give the same bits.  The plain version and
-    the library call (autograd through SDPA with the same bool mask)
-    compute dq, dk and dv together; their times stand on both rows."""
+def check_flash_bwd(dev, g, shapes=FLASH_BWD_SHAPES):
+    """K4 (dq) and K5 (dk, dv) against ``flash_bwd_plain`` at ``shapes``;
+    two runs must give the same bits.  The plain version and the library
+    call (autograd through SDPA with the same bool mask) compute dq, dk and
+    dv together; their times stand on both rows."""
     import torch
     import torch.nn.functional as F
 
     from seedx_tpu_torch.ops import flash_attention as fa
 
     rows = []
-    for name, b, s, h, d, causal, st_, en_ in FLASH_BWD_SHAPES:
+    for name, b, s, h, d, causal, st_, en_ in shapes:
         q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev
                                    ).to(torch.bfloat16) for _ in range(4))
         st = torch.tensor(st_, dtype=torch.int32, device=dev)
@@ -357,11 +357,15 @@ def check_flash_bwd(dev, g):
         lib = cuda_ms(lambda: torch.autograd.grad(
             lib_out, leaves, do_t, retain_graph=True))
         del lib_out, leaves
-        shape = (f"{name} B{b} S{s} H{h} D{d} causal={causal} "
-                 f"ends {list(en_)}, {pairs} pairs")
-        for kname, fn, idx in (
-                ("flash_bwd_dq", lambda: fa.flash_bwd_dq(*args), (0,)),
-                ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(*args), (1, 2))):
+        tiles = fa.bwd_tile_shape(b, s, s, h, d, causal, fa.sm_count(0))
+        for kname, fn, idx, tile in (
+                ("flash_bwd_dq", lambda: fa.flash_bwd_dq(*args), (0,),
+                 tiles[0]),
+                ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(*args), (1, 2),
+                 tiles[1])):
+            shape = (f"{name} B{b} S{s} H{h} D{d} causal={causal} "
+                     f"ends {list(en_)}, {pairs} pairs, tile (q rows, keys) "
+                     f"{tile}")
             err = max(errs[i][0] for i in idx)
             # P and dS enter the tensor cores as bf16 and the outputs are
             # rounded once to bf16 (2^-8 of them): 1e-2 of the largest
@@ -372,6 +376,9 @@ def check_flash_bwd(dev, g):
             log(fmt_row(r, f" max_rel_err {rel:.3e} tol 1e-2 of the largest;"
                            f" two runs bit-equal {same}"))
             rows.append(r)
+        both = rows[-2]["ms"] + rows[-1]["ms"]
+        log(f"flash_bwd {name}: K4 + K5 {both:.4f} ms, library {lib:.4f} ms, "
+            f"K4 + K5 / library {both / lib:.3f}")
     return rows
 
 
@@ -1590,8 +1597,8 @@ def kernel_ms(by_name, key: str):
 
 def profile_window(label: str, run, top_n: int = 5) -> None:
     """Device busy share of one window (``device_profile``), the device
-    time of the flash kernels, K1 and K3, and the ``top_n`` kernels by
-    time."""
+    time of the flash kernels, K1, K4, K5 and K3, and the ``top_n`` kernels
+    by time."""
     got = device_profile(run)
     if got is None:
         log(f"profile {label}: the profiler saw no device events; busy "
@@ -1601,12 +1608,15 @@ def profile_window(label: str, run, top_n: int = 5) -> None:
     busy = sum(t for t, _ in by_name.values())
     flash = sum(t for name, (t, _) in by_name.items() if "flash_" in name)
     k1_ms, k1_n = kernel_ms(by_name, "flash_fwd_kernel")
+    k4_ms, k4_n = kernel_ms(by_name, "flash_bwd_dq_kernel")
+    k5_ms, k5_n = kernel_ms(by_name, "flash_bwd_dkv_kernel")
     k3_ms, k3_n = kernel_ms(by_name, "decode_attn")
     n_events = sum(n for _, n in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     log(f"profile {label}: {steps} steps, {wall:.1f} ms wall (profiled), "
         f"device busy {busy:.1f} ms = {100 * busy / wall:.1f}%, flash "
-        f"kernels {flash:.2f} ms (K1 {k1_ms:.2f} ms over {k1_n} calls), "
+        f"kernels {flash:.2f} ms (K1 {k1_ms:.2f} ms over {k1_n} calls, K4 "
+        f"{k4_ms:.2f} ms over {k4_n}, K5 {k5_ms:.2f} ms over {k5_n}), "
         f"K3 {k3_ms:.2f} ms over {k3_n} calls "
         f"({k3_ms / max(steps, 1):.3f} ms a step), "
         f"{n_events / max(steps, 1):.0f} device events per step; top: "

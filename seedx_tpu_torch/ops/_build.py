@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file exposes plain C entry points.  It is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library under
 ``seedx_tpu_torch/_build/`` (listed in ``.gitignore``) at first use, named
-by a hash of its source and flags so an edit rebuilds, and loaded with
-``ctypes``.  Nothing here runs at import time; the CPU tests never build.
+by a hash of its source, every ``csrc/*.cuh`` header and the flags, so an
+edit to either rebuilds, and loaded with ``ctypes``.  Nothing here runs at
+import time; the CPU tests never build.
 Different kernels may build at once from several threads (one ``nvcc``
 each); a second caller of the same kernel waits for the first.
 """
@@ -45,6 +46,18 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_digest(path: str) -> str:
+    """Hash of ``path``, every header under ``csrc/`` (the sources include
+    them) and the nvcc flags: what a built library depends on."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for p in [path] + [os.path.join(CSRC, f) for f in headers]:
+        with open(p, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str, source: str,
                  signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (once per content) and bind ``signatures``:
@@ -55,9 +68,7 @@ def load_library(name: str, source: str,
         if name in _libs:
             return _libs[name]
         path = os.path.join(CSRC, source)
-        with open(path, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                    ).hexdigest()[:16]
+        digest = source_digest(path)
         os.makedirs(BUILD_DIR, exist_ok=True)
         so = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
         if not os.path.exists(so):

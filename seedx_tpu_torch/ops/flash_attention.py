@@ -4,7 +4,8 @@ kernels ``_flash_fwd_kernel`` (K1), ``_flash_bwd_dq_kernel`` (K4) and
 ``_flash_bwd_dkv_kernel`` (K5)).
 
 Kernel sources and design notes: ``seedx_tpu_torch/csrc/flash_fwd.cu``
-and ``csrc/flash_bwd.cu``.  Each wrapper launches its kernel for CUDA
+and ``csrc/flash_bwd.cu``, which share the memory and ``wgmma`` helpers
+of ``csrc/flash_common.cuh``.  Each wrapper launches its kernel for CUDA
 tensors and runs the plain version for CPU tensors; there is no other
 fallback.  ``FlashAttention`` is the autograd function around them (the
 JAX package's ``custom_vjp``): its forward is K1, which saves the row
@@ -29,12 +30,19 @@ _SIGNATURES = {"flash_fwd_bf16": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I,
                                                          _I, _P],
                "flash_wgmma_tile_debug": [_P] * 5 + [_I, _P]}
 _BWD_SIGNATURES = {
-    "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P],
-    "flash_bwd_dkv_bf16": [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]}
+    "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
+    "flash_bwd_dkv_bf16": [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I,
+                                                  _P]}
 HEAD_DIMS = (64, 128)
 # K1's block tiles (q rows, keys) by head dim: the kernels csrc/flash_fwd.cu
 # builds, exactly the ones ``tile_shape`` picks
 TILES = {128: ((128, 128), (64, 128), (64, 64)), 64: ((64, 128), (64, 64))}
+# K4's and K5's block tiles (q rows, keys) by head dim: the kernels
+# csrc/flash_bwd.cu builds, exactly the ones ``bwd_tile_shape`` picks.  K4
+# holds its q rows (64 a warpgroup) and streams keys; K5 holds its keys (64
+# a warpgroup) and streams q rows
+BWD_TILES = {128: {"dq": ((64, 64),), "dkv": ((64, 64),)},
+             64: {"dq": ((64, 64),), "dkv": ((64, 64),)}}
 
 
 def library() -> ctypes.CDLL:
@@ -121,6 +129,17 @@ def tile_shape(b: int, sq: int, h: int, d: int, causal: bool,
     return (128 if d == 128 and -(-sq // 128) * h * b >= sms else 64), 128
 
 
+def bwd_tile_shape(b: int, sq: int, skv: int, h: int, d: int, causal: bool,
+                   sms: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """K4's and K5's block tiles, each (q rows, keys): one warpgroup of 64
+    rows (K4) or keys (K5) streaming 64-wide tiles of the other, at every
+    shape.  Chosen from the kernels' times on the H100 (``flash_sweep.py
+    --bwd``, PERF.md): two warpgroups a block (128 q rows for K4, 128 keys
+    for K5) and 128-wide streamed tiles were no faster at any main-path
+    shape, causal or not, and slower at the train step's."""
+    return (64, 64), (64, 64)
+
+
 def flash_fwd(q, k, v, starts, ends, q_offset: int, causal: bool,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Wrapper: kernel for CUDA tensors, plain version for CPU tensors."""
@@ -148,9 +167,11 @@ flash_fwd.launches = 0
 
 
 def wgmma_tile_debug(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's wgmma descriptors on one tile, for the card's tests: q, k, v
-    [64, D] bf16 CUDA -> (s = q k^T [64, 64], o = bf16(s) v [64, D]), both
-    fp32 accumulators as the kernel holds them.  Not on any path."""
+    """The flash kernels' wgmma descriptors (``csrc/flash_common.cuh``:
+    K1, K4 and K5 run every product through them) on one tile, for the
+    card's tests: q, k, v [64, D] bf16 CUDA -> (s = q k^T [64, 64], o =
+    bf16(s) v [64, D]), both fp32 accumulators as the kernel holds them.
+    Not on any path."""
     d = q.shape[-1]
     for t in (q, k, v):
         if (t.shape != (64, d) or t.dtype != torch.bfloat16 or not t.is_cuda
@@ -188,15 +209,18 @@ def flash_bwd_plain(q, k, v, do, lse, delta, starts, ends, q_offset: int,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_args(what, q, k, v, do, lse, delta, starts, ends):
+def _bwd_args(what, q, k, v, do, lse, delta, starts, ends,
+              causal):
     b, sq, h, d = q.shape
     skv = k.shape[1]
     _check_inputs(what, (("q", q), ("k", k), ("v", v), ("do", do),
                          ("lse", lse), ("delta", delta)), starts, ends,
                   b, sq, skv, h, d)
+    tiles = bwd_tile_shape(b, sq, skv, h, d, causal,
+                           sm_count(q.device.index or 0))
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), starts.data_ptr(),
-            ends.data_ptr()), (b, sq, skv, h, d)
+            ends.data_ptr()), (b, sq, skv, h, d), tiles
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, starts, ends, q_offset: int,
@@ -205,13 +229,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, starts, ends, q_offset: int,
     if not q.is_cuda:
         return flash_bwd_plain(q, k, v, do, lse, delta, starts, ends,
                                q_offset, causal, scale)[0]
-    ptrs, dims = _bwd_args("flash_bwd_dq", q, k, v, do, lse, delta, starts,
-                           ends)
+    ptrs, dims, tiles = _bwd_args("flash_bwd_dq", q, k, v, do, lse, delta,
+                                  starts, ends, causal)
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = bwd_library().flash_bwd_dq_bf16(
         *ptrs, dq.data_ptr(), *dims, int(q_offset), int(bool(causal)),
-        float(scale), stream)
+        float(scale), *tiles[0], stream)
     check(err, "flash_bwd_dq_bf16")
     flash_bwd_dq.launches += 1
     return dq
@@ -228,13 +252,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, starts, ends, q_offset: int,
     if not q.is_cuda:
         return flash_bwd_plain(q, k, v, do, lse, delta, starts, ends,
                                q_offset, causal, scale)[1:]
-    ptrs, dims = _bwd_args("flash_bwd_dkv", q, k, v, do, lse, delta, starts,
-                           ends)
+    ptrs, dims, tiles = _bwd_args("flash_bwd_dkv", q, k, v, do, lse, delta,
+                                  starts, ends, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = bwd_library().flash_bwd_dkv_bf16(
         *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, int(q_offset),
-        int(bool(causal)), float(scale), stream)
+        int(bool(causal)), float(scale), *tiles[1], stream)
     check(err, "flash_bwd_dkv_bf16")
     flash_bwd_dkv.launches += 1
     return dk, dv

@@ -426,6 +426,56 @@ def test_flash_bwd_kernels_match_plain(cuda_device, b, sq, skv, h, d, causal,
             atol=1e-2 * r.float().abs().max().item())
 
 
+# K4 / K5 tile edges: window start and end inside a tile, Sq and Skv off
+# every tile with q_offset > 0 and Sq < Skv, fully masked rows (a causal
+# window that starts after them, an empty window), Sq below one tile
+FLASH_BWD_EDGE_CASES = [
+    (2, 200, 200, 4, 128, True, [37, 5], [170, 133], 0),
+    (1, 100, 300, 4, 128, True, [37], [290], 171),
+    (3, 20, 150, 8, 128, True, [5, 0, 64], [150, 149, 130], 130),
+    (2, 333, 333, 6, 64, True, [0, 45], [333, 301], 0),
+    (1, 200, 200, 4, 64, True, [100], [200], 0),
+    (2, 70, 70, 4, 128, False, [0, 30], [70, 30], 0),
+    (2, 7, 64, 2, 64, False, [0, 0], [64, 64], 0),
+    (2, 150, 190, 3, 64, False, [11, 0], [180, 77], 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,causal,st,en,q_offset",
+                         FLASH_BWD_CASES + FLASH_BWD_EDGE_CASES)
+def test_flash_bwd_every_tile_matches_plain(cuda_device, monkeypatch, b, sq,
+                                            skv, h, d, causal, st, en,
+                                            q_offset):
+    """K4 and K5 at every block tile built for the head dim (forced by
+    monkeypatch, the i-th of each kernel's list together): within 1e-2 of
+    the largest gradient of the plain version, the same bits over two runs,
+    and zero grads for dead rows (dq) and for keys no row sees (dk, dv),
+    whose outputs start as torch.empty."""
+    args = _flash_bwd_inputs(cuda_device, b, sq, skv, h, d, causal, st, en,
+                             q_offset)
+    ref = tflash.flash_bwd_plain(*args)
+    # rows with no live key (dq) and keys no row sees (dk, dv): zero
+    mask = tflash._window_mask(args[6], args[7], sq, skv, q_offset, causal,
+                               cuda_device).expand(b, 1, sq, skv)[:, 0]
+    dead = (~mask.any(-1), ~mask.any(-2), ~mask.any(-2))     # [B, S]
+    built = tflash.BWD_TILES[d]
+    for i in range(max(len(built["dq"]), len(built["dkv"]))):
+        pair = (built["dq"][i % len(built["dq"])],
+                built["dkv"][i % len(built["dkv"])])
+        monkeypatch.setattr(tflash, "bwd_tile_shape", lambda *a, p=pair: p)
+        got = tflash.flash_bwd(*args)
+        again = tflash.flash_bwd(*args)
+        torch.cuda.synchronize()
+        for name, a, a2, r, z in zip(("dq", "dk", "dv"), got, again, ref,
+                                     dead):
+            assert torch.equal(a, a2), (name, pair)
+            torch.testing.assert_close(
+                a.float(), r.float(), rtol=0,
+                atol=1e-2 * r.float().abs().max().item(),
+                msg=lambda m, n=name, p=pair: f"{n} at tiles {p}: {m}")
+            assert not a[z].any(), (name, pair)
+
+
 @pytest.mark.cuda
 def test_flash_autograd_matches_plain_autograd_on_card(cuda_device):
     """FlashAttention on the card (K1 forward, K4 / K5 backward) against
