@@ -18,7 +18,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    timed runs after warm-up, CUDA events), beside its bound (the larger
    of bytes / 3.35 TB/s and operations / the tensor cores' peak for the
    input type) and, where one exists, the time of the PyTorch call
-   computing the same function; then a tiny stack on the card against the
+   computing the same function (K2 at rows 1 / 8 / 24 / 65 / 512 / 2048
+   on the 13B's three shapes and a debug shape, with a cuBLAS int8
+   ``torch._int_mm`` yardstick line at rows >= 24, which has no group
+   scales and so is no library time); then a tiny stack on the card against the
    same weights on the CPU (plain versions): ViT features, prefill logits
    and batched decode steps;
 4. the turn: ViT-bigG/14-448 (bf16) and the SEED-X agent (LLaMA2-13B,
@@ -66,8 +69,9 @@ before it and read just after, and fails unless each kernel it runs was
 launched (the fused engines: K3 in its multi-query mode).  In the kernels
 line ``launches`` is the sum over the main path's runs of phases 4-6 and
 8 (the turn, the serving engines and HTTP, the chat sessions, the train
-steps); the forced runs, phase 7 and the gradient check print theirs on a
-line of their own.  ``max_abs_err`` is the
+steps), with K3's by mode and K2's by row tile (``launches_by_tile``; its
+calls by row band are logged); the forced runs, phase 7 and the gradient
+check print theirs on a line of their own.  ``max_abs_err`` is the
 largest over the kernel's shapes, and ``ms``, ``plain_ms`` and
 ``bound_ms`` sums of one call at each shape; ``library_ms`` sums the
 shapes named in ``library_shapes``.
@@ -186,15 +190,23 @@ def reset_counts() -> None:
         fn.launches = 0
     k3 = counters()["decode_attn"]
     k3.mode_launches = {m: 0 for m in k3.mode_launches}
+    k2 = counters()["int4_w4a8"]
+    k2.tile_launches = {t: 0 for t in k2.tile_launches}
+    k2.band_launches = {b: 0 for b in k2.band_launches}
 
 
 def read_counts():
-    """Each kernel's launches since the last reset, and K3's by mode
+    """Each kernel's launches since the last reset, K3's by mode
     ("decode_attn one_query": a 3-D q; "decode_attn multi_query": the
-    stair)."""
+    stair) and K2's by row tile ("int4_w4a8 m16") and by row band
+    ("int4_w4a8 rows 2-16")."""
     counts = {name: fn.launches for name, fn in counters().items()}
     for mode, n in counters()["decode_attn"].mode_launches.items():
         counts[f"decode_attn {mode}"] = n
+    for tile, n in counters()["int4_w4a8"].tile_launches.items():
+        counts[f"int4_w4a8 {tile}"] = n
+    for band, n in counters()["int4_w4a8"].band_launches.items():
+        counts[f"int4_w4a8 rows {band}"] = n
     return counts
 
 
@@ -382,18 +394,32 @@ def check_flash_bwd(dev, g, shapes=FLASH_BWD_SHAPES):
     return rows
 
 
+# K2's rows: the decode GEMV (1), the engines' decode batch (8), the fused
+# mixed step (24), the <img> chunk (65), a prefill bucket (512) and the
+# most rows it takes (2048), on the 13B's three projection shapes and the
+# debug agent's (hidden 128, intermediate 256)
+INT4_ROWS = (1, 8, 24, 65, 512, 2048)
+INT4_SHAPES = ((5120, 5120), (5120, 13824), (13824, 5120), (128, 256))
+
+
 def check_int4(dev, g, flush):
+    """K2 against ``int4_matmul_plain`` at every row count and shape above;
+    at rows >= 24 a yardstick line for cuBLAS's int8 GEMM
+    (``torch._int_mm``) on the unpacked weights -- not the same function
+    (no group scales, no row quantization), so not the library time."""
     import torch
 
     from seedx_tpu_torch.ops import int4_matmul as i4
+    from seedx_tpu_torch.ops._build import sm_count
     from seedx_tpu_torch.utils.quantize import quantize_kernel_int4
 
     rows = []
-    for n_in, n_out in ((5120, 5120), (5120, 13824), (13824, 5120)):
+    for n_in, n_out in INT4_SHAPES:
         w = torch.randn((n_in, n_out), generator=g, device=dev) * 0.02
         packed, scale = quantize_kernel_int4(w)
         del w
-        for r_ in (1, 65, 512):
+        w8 = i4.unpack_int4(packed)
+        for r_ in INT4_ROWS:
             x = torch.randn((r_, n_in), generator=g,
                             device=dev).to(torch.bfloat16)
             out = i4.int4_matmul(x, packed, scale)
@@ -401,11 +427,14 @@ def check_int4(dev, g, flush):
             torch.cuda.synchronize()
             mag = ref.float().abs().max().item()
             err = (out.float() - ref.float()).abs().max().item()
-            # exact int32 group dots; fp32 split-K order differs; one bf16
-            # rounding: two bf16 ULPs of the output magnitude
+            # exact int32 group dots; fp32 split-K order and FMA against
+            # mul + add differ; one bf16 rounding: two bf16 ULPs of the
+            # output magnitude
             tol = 2 * 2 ** -7 * mag
             n_bytes = (x.numel() * 2 + packed.numel() + scale.numel() * 4
                        + r_ * n_out * 2)
+            tile, splits = i4.plan(r_, n_in, n_out, n_in // scale.shape[0],
+                                   sm_count(dev.index or 0))
             # no PyTorch call computes W4A8 over this nibble packing
             r = row("int4_w4a8", f"rows{r_} {n_in}->{n_out}", err <= tol,
                     err,
@@ -413,8 +442,18 @@ def check_int4(dev, g, flush):
                     cuda_ms(lambda: i4.int4_matmul_plain(x, packed, scale),
                             flush),
                     bound(n_bytes, 2 * r_ * n_in * n_out, "int8"))
-            log(fmt_row(r, f" max_rel_err {err / mag:.3e} tol {tol:.3e}"))
+            log(fmt_row(r, f" max_rel_err {err / mag:.3e} tol {tol:.3e} "
+                           f"tile m{tile} splits {splits}"))
             rows.append(r)
+            if r_ >= 24:
+                x8 = torch.randint(-127, 128, (r_, n_in), generator=g,
+                                   device=dev, dtype=torch.int8)
+                ms = cuda_ms(lambda: torch._int_mm(x8, w8), flush)
+                log(f"yardstick int4_w4a8 rows{r_} {n_in}->{n_out}: cuBLAS "
+                    f"int8 torch._int_mm on the unpacked weights {ms:.4f} "
+                    f"ms (kernel / cuBLAS {r['ms'] / ms:.3f}; no group "
+                    f"scales, not the library time)")
+        del w8
     return rows
 
 
@@ -2083,6 +2122,21 @@ def run_train(dev):
     return totals
 
 
+def ptxas_entries(report: str):
+    """(mangled kernel name, registers line, spill line) of each entry
+    function in a ``ptxas -v`` report."""
+    out, fn, spill = [], None, ""
+    for ln in report.splitlines():
+        if "Function properties for" in ln:
+            fn, spill = ln.split("Function properties for", 1)[1].strip(), ""
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and fn:
+            out.append((fn, ln.split(":", 1)[1].strip(), spill))
+            fn = None
+    return out
+
+
 def build_kernels():
     """Phase 2: one nvcc per source, all started together."""
     from seedx_tpu_torch.ops import _build
@@ -2119,6 +2173,9 @@ def build_kernels():
         log(f"build {name}: nvcc {secs:.2f} s; {len(regs)} kernel variants"
             f"{'; ' + ' | '.join(regs) if regs else ' (cached)'}; spill "
             f"stores {spills} bytes in all")
+        if name == "int4_w4a8":
+            for fn, used, spill in ptxas_entries(report):
+                log(f"build {name} {fn}: {used}; {spill}")
 
 
 def main() -> int:
@@ -2160,6 +2217,9 @@ def main() -> int:
     add_counts(launches, run_train(dev))
     log(f"main path (turn, serving, chat, train): launches "
         f"{json.dumps(launches)}")
+    log("main path: K2 calls by row band: " + ", ".join(
+        f"rows {b} {launches[f'int4_w4a8 rows {b}']}"
+        for b in counters()["int4_w4a8"].band_launches))
     log(f"check runs (teacher-forced engines, batched loop and chat; the "
         f"{PARITY_LAYERS}-layer parity agent and gradient check): launches "
         f"{json.dumps(CHECKS)}; not in the kernels line")
@@ -2178,6 +2238,10 @@ def main() -> int:
                 m: launches[f"{name} {m}"] for m in ("one_query",
                                                      "multi_query")}}
                if name == "decode_attn" else {}),
+            **({"launches_by_tile": {
+                t: launches[f"{name} {t}"]
+                for t in counters()[name].tile_launches}}
+               if name == "int4_w4a8" else {}),
             "max_abs_err": max(r["err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),

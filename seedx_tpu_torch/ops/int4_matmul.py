@@ -26,7 +26,15 @@ from seedx_tpu_torch.ops._build import check, load_library, sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"int4_w4a8_bf16": [_P] * 7 + [_I] * 7 + [_P]}
+_SIGNATURES = {"int4_w4a8_bf16": [_P] * 6 + [_I] * 6 + [_P],
+               "int4_w4a8_fragments_debug": [_P, _P, _P]}
+
+BN = 128             # output columns a block of the kernel
+ROW_TILES = (16, 32, 64)   # rows a block: the kernel's built m-tile counts
+SPLIT_FILL = 2       # blocks an SM the split count aims for
+SPLIT_GROUPS = 10    # groups a split walks at most on the 16- / 32-row tiles
+MAX_SPLITS = 64      # the kernel's limit
+_tickets = {}        # device -> int32 tickets, zero between launches
 
 
 def library() -> ctypes.CDLL:
@@ -50,12 +58,50 @@ def quantize_rows(x: torch.Tensor):
     return torch.round(xf / xa).to(torch.int8), xa
 
 
-def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
-                      scale: torch.Tensor) -> torch.Tensor:
-    """The kernel's contract in plain torch.  Group dots run as fp32
-    matmuls of integers: |dot| <= 127 * 8 * group < 2**24 for the groups
-    used here (<= 13824), so every group sum is exact; the group scales
-    then accumulate in group order, as the TPU kernel does."""
+def plan(rows: int, n_in: int, n_out: int, group: int, sms: int,
+         tile: int = 0, splits: int = 0):
+    """(rows a block, splits) of a kernel launch.  The 16-row tile up to 16
+    rows; above, of the 32- and 64-row tiles the one that pads the rows
+    least, the 64-row tile on a tie (32 at 17-32 and 65-96 rows, 64 at
+    33-64, 97-128 and every multiple of 64; ``int4_sweep.py``).  Then,
+    where the row x column tiles number fewer than SPLIT_FILL blocks an
+    SM, the group range split into that many more blocks; on the 16- and
+    32-row tiles, which stream weights (more blocks keep more bytes in
+    flight), also into splits of at most SPLIT_GROUPS groups (the 64-row
+    tile is mostly tensor-core work, and each split adds its partials).
+    At most one split a group and MAX_SPLITS, ceil(groups / splits) groups
+    a split, none empty.  ``tile`` / ``splits`` > 0 force them."""
+    if tile <= 0:
+        pad32, pad64 = -(-rows // 32) * 32, -(-rows // 64) * 64
+        tile = 16 if rows <= 16 else 32 if pad32 < pad64 else 64
+    elif tile not in ROW_TILES:
+        raise ValueError(f"int4_matmul: row tile {tile} not in {ROW_TILES}")
+    n_groups = n_in // group
+    if splits <= 0:
+        tiles = -(-rows // tile) * -(-n_out // BN)
+        splits = -(-SPLIT_FILL * sms // tiles)
+        if tile < 64:
+            splits = max(splits, -(-n_groups // SPLIT_GROUPS))
+    splits = max(1, min(splits, n_groups, MAX_SPLITS))
+    per = -(-n_groups // splits)
+    return tile, -(-n_groups // per)
+
+
+def split_ranges(n_groups: int, splits: int):
+    """The group ranges [g0, g1) of the kernel's splits, in split order."""
+    per = -(-n_groups // splits)
+    return [(g0, min(g0 + per, n_groups)) for g0 in range(0, n_groups, per)]
+
+
+def int4_matmul_split_plain(x: torch.Tensor, packed: torch.Tensor,
+                            scale: torch.Tensor, splits: int
+                            ) -> torch.Tensor:
+    """The kernel's arithmetic at ``splits`` splits in plain torch.  Group
+    dots run as fp32 matmuls of integers: |dot| <= 127 * 8 * group < 2**24
+    for the groups used here (<= 13824), so every group sum is exact; each
+    split accumulates its groups' scaled dots in group order from zero, the
+    partials are summed from zero in split order, then times the row scale,
+    one rounding to x's dtype."""
     rows, n_in = x.shape
     n_groups, n_out = scale.shape
     group = n_in // n_groups
@@ -64,26 +110,55 @@ def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     xg = x8.float().reshape(rows, n_groups, group).transpose(0, 1)
     dots = torch.bmm(xg, w)                          # [groups, rows, out]
     acc = torch.zeros((rows, n_out), dtype=torch.float32, device=x.device)
-    for g in range(n_groups):
-        acc += dots[g] * scale[g].float()
+    for g0, g1 in split_ranges(n_groups, splits):
+        part = torch.zeros_like(acc)
+        for g in range(g0, g1):
+            part = part + dots[g] * scale[g].float()
+        acc = acc + part
     return (acc * xa).to(x.dtype)
 
 
-def _launch_shape(rows: int, n_out: int, n_groups: int, sms: int):
-    """(rows per thread, groups per split, splits): split the group range
-    across blocks until the grid covers the SMs about twice."""
-    tm = 1 if rows == 1 else 16
-    blocks = -(-rows // tm) * -(-n_out // 512)
-    want = max(1, min(n_groups, -(-2 * sms // blocks)))
-    per_split = -(-n_groups // want)
-    return tm, per_split, -(-n_groups // per_split)
+def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's contract in plain torch: one split, the group scales
+    accumulated in group order, as the TPU kernel does."""
+    return int4_matmul_split_plain(x, packed, scale, 1)
+
+
+def workspace_bytes(rows: int, n_in: int, n_out: int, group: int,
+                    splits: int) -> int:
+    """Scratch of one kernel call (the layout ``int4_w4a8_bf16`` reads):
+    x8 [rows][groups * gp] (gp: group rounded up to 32), xa [rows] and, for
+    splits > 1, the fp32 partials [splits][rows][n_out], each on a 16-byte
+    boundary."""
+    gp = -(-group // 32) * 32
+    x8 = -(-rows * (n_in // group) * gp // 16) * 16
+    part = splits * rows * n_out * 4 if splits > 1 else 0
+    return x8 + -(-rows * 4 // 16) * 16 + part
+
+
+def _tickets_for(device, n: int) -> torch.Tensor:
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
+
+
+def row_band(rows: int) -> str:
+    """The band of a call's row count in the launch histogram."""
+    return ("1" if rows == 1 else "2-16" if rows <= 16 else "17-64"
+            if rows <= 64 else "65-2048")
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
+                scale: torch.Tensor, *, _tile: int = 0,
+                _splits: int = 0) -> torch.Tensor:
     """x [rows, in] @ dequant(packed [in//2, out], scale [in/g, out]) ->
-    [rows, out] in x's dtype.  Wrapper: kernel for CUDA tensors, plain
-    version for CPU tensors."""
+    [rows, out] in x's dtype.  Wrapper: kernel for CUDA tensors (two
+    launches: the row quantization, the matmul; ``_tile`` / ``_splits``
+    force ``plan``'s row tile and split count, for tests and sweeps),
+    plain version for CPU tensors."""
     rows, n_in = x.shape
     n_groups, n_out = scale.shape
     if packed.shape != (n_in // 2, n_out) or n_in % n_groups:
@@ -100,28 +175,45 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"int4_matmul: {name} must be contiguous, "
                              f"16-byte aligned and on {x.device}")
-    if n_in % 4 or n_out % 4 or group % 4:
-        raise ValueError("int4_matmul: in, out and group must be multiples "
-                         "of 4")
-    tm, per_split, n_split = _launch_shape(rows, n_out, n_groups,
-                                           sm_count(x.device.index or 0))
+    if n_in % 4 or n_out % 16 or group % 4:
+        raise ValueError("int4_matmul: in and group must be multiples of 4, "
+                         "out of 16")
+    tile, splits = plan(rows, n_in, n_out, group,
+                        sm_count(x.device.index or 0), _tile, _splits)
     out = torch.empty((rows, n_out), dtype=x.dtype, device=x.device)
-    x8 = torch.empty((rows, n_in), dtype=torch.int8, device=x.device)
-    xa = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((n_split, rows, n_out), dtype=torch.float32,
-                           device=x.device) if n_split > 1 else None)
+    work = torch.empty(workspace_bytes(rows, n_in, n_out, group, splits),
+                       dtype=torch.uint8, device=x.device)
+    tickets = (_tickets_for(x.device, -(-rows // tile) * -(-n_out // BN))
+               if splits > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = library().int4_w4a8_bf16(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        x8.data_ptr(), xa.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        rows, n_in, n_out, group, per_split, n_split, tm, stream)
+        work.data_ptr(), tickets.data_ptr() if tickets is not None else None,
+        rows, n_in, n_out, group, tile // 16, splits, stream)
     check(err, "int4_w4a8_bf16")
     int4_matmul.launches += 1
+    int4_matmul.tile_launches[f"m{tile}"] += 1
+    int4_matmul.band_launches[row_band(rows)] += 1
     return out
 
 
 int4_matmul.launches = 0
+int4_matmul.tile_launches = {f"m{t}": 0 for t in ROW_TILES}
+int4_matmul.band_launches = {b: 0 for b in ("1", "2-16", "17-64", "65-2048")}
+
+
+def b_fragments(tile: torch.Tensor) -> torch.Tensor:
+    """The B registers the kernel builds from one packed [64, 128] uint8
+    tile on the card: int32 [warp 4][k-step 4][lane 32][n-tile 4][2]."""
+    if tile.shape != (64, BN) or tile.dtype != torch.uint8 or not tile.is_cuda:
+        raise ValueError("b_fragments: a uint8 [64, 128] CUDA tile")
+    regs = torch.empty((4, 4, 32, 4, 2), dtype=torch.int32,
+                       device=tile.device)
+    check(library().int4_w4a8_fragments_debug(
+        tile.contiguous().data_ptr(), regs.data_ptr(),
+        torch.cuda.current_stream(tile.device).cuda_stream),
+        "int4_w4a8_fragments_debug")
+    return regs
 
 
 def int4_matmul_unpack(x: torch.Tensor, packed: torch.Tensor,

@@ -129,23 +129,125 @@ def test_wgmma_descriptor_tile(cuda_device, d):
                                atol=1e-5 * o_ref.abs().max().item())
 
 
+def _int4_inputs(dev, rows, n_in, n_out, group=128, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((n_in, n_out), generator=g, device=dev) * 0.02
+    packed, scale = tquant.quantize_kernel_int4(w, group)
+    x = torch.randn((rows, n_in), generator=g, device=dev).to(torch.bfloat16)
+    return x, packed, scale
+
+
+def _int4_close(out, ref):
+    # exact int32 group dots on both sides; fp32 split-K order and FMA
+    # against mul + add differ, then one bf16 rounding: two bf16 ULPs of
+    # the output magnitude
+    tol = 2 * 2 ** -7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 65, 512])
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 24, 65, 512, 2048])
 @pytest.mark.parametrize("n_in,n_out", [(5120, 5120), (5120, 13824),
-                                        (13824, 5120)])
+                                        (13824, 5120), (128, 256),
+                                        (256, 128)])
 def test_int4_kernel_matches_plain(cuda_device, rows, n_in, n_out):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    w = torch.randn((n_in, n_out), generator=g, device=cuda_device) * 0.02
-    packed, scale = tquant.quantize_kernel_int4(w)
-    x = torch.randn((rows, n_in), generator=g,
-                    device=cuda_device).to(torch.bfloat16)
+    x, packed, scale = _int4_inputs(cuda_device, rows, n_in, n_out)
     out = tint4.int4_matmul(x, packed, scale)
     ref = tint4.int4_matmul_plain(x, packed, scale)
     torch.cuda.synchronize()
-    # exact int32 group dots on both sides; fp32 split-K order differs,
-    # then one bf16 rounding: two bf16 ULPs of the output magnitude
-    tol = 2 * 2 ** -7 * ref.float().abs().max().item()
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    assert out.shape == (rows, n_out) and out.dtype == torch.bfloat16
+    _int4_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 17, 65])
+@pytest.mark.parametrize("n_in,group", [(384, 96), (192, 192), (640, 128),
+                                        (1024, 512)])
+@pytest.mark.parametrize("tile", tint4.ROW_TILES)
+def test_int4_kernel_groups_and_tiles(cuda_device, rows, n_in, group, tile):
+    """Every built row tile, groups that are not a multiple of 128 (96:
+    a zero-filled k tail in the last 32-k step of every group; 192: two
+    k-tiles a group, the second half empty), a group above 256 (its dots
+    converted by I2F), and every split count."""
+    x, packed, scale = _int4_inputs(cuda_device, rows, n_in, 256, group)
+    ref = tint4.int4_matmul_plain(x, packed, scale)
+    for splits in range(1, n_in // group + 1):
+        out = tint4.int4_matmul(x, packed, scale, _tile=tile,
+                                _splits=splits)
+        torch.cuda.synchronize()
+        _int4_close(out, ref)
+
+
+def _b_expected(w):
+    """[warp][k-step][lane][n-tile][2] int32: the B registers of the
+    m16n8k32 fragments (4 k of one column a register, 16x the codes) the
+    kernel should build from the codes w [128 k, 128 columns]: lane (n, q)
+    holds column 32 w + 4 n + j of n-tile j, and k 8 q .. 8 q + 3 (first
+    register) and 8 q + 4 .. 8 q + 7 (second) of each 32-k step."""
+    regs = torch.empty((4, 4, 32, 4, 2, 4), dtype=torch.int8)
+    for warp in range(4):
+        for s in range(4):
+            for lane in range(32):
+                q, n = lane & 3, lane >> 2
+                for j in range(4):
+                    col = 32 * warp + 4 * n + j
+                    for h in range(2):
+                        k0 = 32 * s + 8 * q + 4 * h
+                        regs[warp, s, lane, j, h] = 16 * w[k0:k0 + 4, col]
+    return regs.view(torch.int32).reshape(4, 4, 32, 4, 2)
+
+
+@pytest.mark.cuda
+def test_int4_b_fragments(cuda_device):
+    """The B registers each lane builds from a known packed tile: the nibble
+    unpack (16x codes, no sign extension), the column and k order."""
+    g = torch.Generator().manual_seed(3)
+    w = torch.randint(-8, 8, (128, 128), generator=g, dtype=torch.int16)
+    packed = ((w[0::2] & 0xF) | ((w[1::2] & 0xF) << 4)).to(torch.uint8)
+    got = tint4.b_fragments(packed.to(cuda_device)).cpu()
+    assert torch.equal(got, _b_expected(w.to(torch.int8)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_in,n_out", [(1, 5120, 5120),
+                                             (24, 5120, 13824),
+                                             (65, 13824, 5120)])
+def test_int4_split_k_bit_equal_over_runs(cuda_device, rows, n_in, n_out):
+    """Split-K merges in split order whatever block finishes last: three
+    runs at each split count give equal bits (and the tickets are left
+    at zero for the next call), each within the tolerance of the plain
+    version."""
+    x, packed, scale = _int4_inputs(cuda_device, rows, n_in, n_out, seed=9)
+    ref = tint4.int4_matmul_plain(x, packed, scale)
+    for splits in (0, 2, 7, n_in // 128):
+        runs = [tint4.int4_matmul(x, packed, scale, _splits=splits)
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0],
+                                                             runs[2])
+        _int4_close(runs[0], ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 65, 512])
+def test_int4_two_launches_a_call(cuda_device, rows):
+    """One K2 call is at most two kernels on the card (the row
+    quantization and the matmul with its split merge), counted by
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, packed, scale = _int4_inputs(cuda_device, rows, 5120, 5120)
+    tint4.int4_matmul(x, packed, scale)          # build, first launch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tint4.int4_matmul(x, packed, scale)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "memset" not in e.name.lower()
+               and "memcpy" not in e.name.lower()]
+    assert 1 <= len(kernels) <= 2, kernels
 
 
 @pytest.mark.cuda
