@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU at the full SEED-X-I width:
 the image-in comprehension turn, batched / continuous (fused prefill too)
-/ HTTP serving, multi-turn chat with a KV prefix cache, and the SEED-X SFT
+/ HTTP serving, multi-turn chat with a KV prefix cache, image out (the
+SDXL adapter: text to image, reconstruction, editing) and the SEED-X SFT
 train step, and check its five CUDA kernels.
 
     python3 chip_smoke.py
@@ -23,7 +24,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    ``torch._int_mm`` yardstick line at rows >= 24, which has no group
    scales and so is no library time); then a tiny stack on the card against the
    same weights on the CPU (plain versions): ViT features, prefill logits
-   and batched decode steps;
+   and batched decode steps, and the debug adapter's
+   ``reconstruct_with_condition`` images from the same noise;
 4. the turn: ViT-bigG/14-448 (bf16) and the SEED-X agent (LLaMA2-13B,
    int4 weights, int8 KV cache, 64-query resamplers) with random weights
    drawn on the card from a seed; three ``comprehend`` requests on images
@@ -49,7 +51,19 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    seed runs phase 5's 16 requests non-fused and fused, and phase 6's chat
    turns; the streams must be equal or part only at a tie (``TIE_ULPS``
    bf16 steps of the forced logits);
-8. train: the SEED-X SFT step at full width (ViT-bigG frozen, LLaMA2-13B
+8. image out on the phase-4 runtime with a full-width adapter (random
+   weights from seed 0: ResamplerXL, the SDXL base UNet in bf16, the SDXL
+   VAE in fp32): one UNet eval with K1 against the plain attention
+   (``UNET_K1_REL``), the UNet's device ms a step at CFG 2 and 3 with a
+   profiled eval (busy share, K1's ms), ResamplerXL / VAE ms;
+   ``text_to_image`` (the forced ``<img>`` span, 30 Euler steps at
+   1024^2), ``reconstruct`` of a 448^2 image, 2 steps of the int8 UNet;
+   then the 8-channel edit adapter: ``reconstruct_with_condition`` at
+   1024^2 (3-way CFG), the gi = 1.0 collapse, a ``ServingEngine`` flush of
+   a t2i and an edit request and one ``/v1/generate`` POST.  Every UNet
+   eval must launch K1 70 times, every eps, latent and image (before the
+   clip) be finite, every image [B, 1024, 1024, 3];
+9. train: the SEED-X SFT step at full width (ViT-bigG frozen, LLaMA2-13B
    bf16 frozen, LoRA r32 on the seven projections, both resamplers, the
    embedding and LM head trainable in fp32) on SFT batches built by the
    port's encoders and ``collate_anyres`` (2 conversations at 880 tokens
@@ -61,17 +75,18 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    on each repeated batch, the frozen weights stay bit-equal, the final
    checkpoint read back bit-equal) and one step with gradient
    accumulation 2;
-9. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
+10. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
    line ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-8 runs with the launch counters set to 0 just
+Every path of phases 4-9 runs with the launch counters set to 0 just
 before it and read just after, and fails unless each kernel it runs was
 launched (the fused engines: K3 in its multi-query mode).  In the kernels
-line ``launches`` is the sum over the main path's runs of phases 4-6 and
-8 (the turn, the serving engines and HTTP, the chat sessions, the train
-steps), with K3's by mode and K2's by row tile (``launches_by_tile``; its
+line ``launches`` is the sum over the main path's runs of phases 4-6, 8
+and 9 (the turn, the serving engines and HTTP, the chat sessions, the
+image-out runs, the train steps), with K3's by mode and K2's by row tile (``launches_by_tile``; its
 calls by row band are logged); the forced runs, phase 7 and the gradient
-check print theirs on a line of their own.  ``max_abs_err`` is the
+check, and the UNet's K1-against-plain eval print theirs on a line of
+their own.  ``max_abs_err`` is the
 largest over the kernel's shapes, and ``ms``, ``plain_ms`` and
 ``bound_ms`` sums of one call at each shape; ``library_ms`` sums the
 shapes named in ``library_shapes``.
@@ -232,8 +247,9 @@ def fmt_row(r, extra: str = "") -> str:
 
 # K1 at every shape the main path runs it at: (name, B, Sq, Skv, H, D,
 # causal, starts, ends, q_offset), one start / end per batch row.  D 128
-# is ViT-bigG's 104 zero-padded by the dispatch; the UNet rows (SDXL's
-# self-attention at CFG batch 2) are the shapes its port will run
+# is ViT-bigG's 104 zero-padded by the dispatch; the UNet rows are SDXL's
+# self-attention at 1024^2 (levels 1 and 2) at CFG batch 2 (text to image,
+# the edit collapse) and 3 (edit)
 FLASH_SHAPES = (
     ("vit_5tiles", 5, 1024, 1024, 16, 128, False, (0,) * 5, (1024,) * 5, 0),
     ("prefill_512", 1, 512, 544, 40, 128, True, (300,), (512,), 0),
@@ -245,7 +261,11 @@ FLASH_SHAPES = (
     ("vit_train_8tiles", 8, 1024, 1024, 16, 128, False, (0,) * 8,
      (1024,) * 8, 0),
     ("unet_4096", 2, 4096, 4096, 10, 64, False, (0, 0), (4096, 4096), 0),
-    ("unet_1024", 2, 1024, 1024, 20, 64, False, (0, 0), (1024, 1024), 0))
+    ("unet_1024", 2, 1024, 1024, 20, 64, False, (0, 0), (1024, 1024), 0),
+    ("unet_edit_4096", 3, 4096, 4096, 10, 64, False, (0,) * 3, (4096,) * 3,
+     0),
+    ("unet_edit_1024", 3, 1024, 1024, 20, 64, False, (0,) * 3, (1024,) * 3,
+     0))
 
 
 def check_flash(dev, g, shapes=FLASH_SHAPES):
@@ -1601,6 +1621,484 @@ def run_parity(dev, requests, budgets) -> None:
                                   enforce=True))
 
 
+# ---- image out (phase 8) ------------------------------------------------
+
+# denoise steps: text to image at the SamplerConfig default (Euler, g 7.5),
+# the other runs a few
+T2I_STEPS = 30
+RECON_STEPS = 10
+EDIT_STEPS = 4
+SERVE_STEPS = 3
+INT8_STEPS = 2
+# one full-width UNet eval with K1 against the same weights and inputs
+# with the plain attention: the largest eps difference within this
+# fraction of the largest |eps| (bf16 on both sides; the kernel rounds P
+# against each tile's running max, the plain path against the row's, a few
+# bf16 ULPs of each of the 70 attention outputs, carried through the
+# residual stream)
+UNET_K1_REL = 5e-2
+# the debug adapter on the card against the CPU: images in [0, 1] after
+# bf16 UNets (K1 against the plain attention, cuDNN against ATen's CPU
+# convolutions) and the fp32 VAE
+TINY_IMAGE_TOL = 5e-2
+
+
+@contextlib.contextmanager
+def forced_image_prompts():
+    """The generation and instruction prompt templates end in ``<img>``
+    while active: the random agent then emits one image span (the forced
+    64-token chunk and ``</img>``), as a trained agent does for an image
+    request."""
+    from seedx_tpu_torch.text import prompts
+
+    saved = prompts.GENERATION_PROMPT, prompts.INSTRUCTION_PROMPT
+    prompts.GENERATION_PROMPT += "<img>"
+    prompts.INSTRUCTION_PROMPT += "<img>"
+    try:
+        yield
+    finally:
+        prompts.GENERATION_PROMPT, prompts.INSTRUCTION_PROMPT = saved
+
+
+class UNetWatch:
+    """Forward hooks on an adapter while active: K1's launches in each UNet
+    eval (which must be ``flash_launches_per_eval``), each eval's eps std
+    and finiteness, and whether the VAE decoder's latents and images
+    (before the clip) are finite, with their shapes.  The statistics stay
+    on the device until ``check`` reads them."""
+
+    def __init__(self, adapter):
+        import torch
+
+        from seedx_tpu_torch.models.sdxl.unet import flash_launches_per_eval
+
+        self.want = flash_launches_per_eval(adapter.cfg.unet)
+        self.size = adapter.cfg.sampler.height
+        self.per_eval, self.stds, self.finite, self.images = [], [], [], []
+        k1 = counters()["flash_fwd"]
+
+        def pre(module, args):
+            self.k1_before = k1.launches
+
+        def post(module, args, eps):
+            self.per_eval.append(k1.launches - self.k1_before)
+            self.stds.append(eps.float().std())
+            self.finite.append(torch.isfinite(eps).all())
+
+        def vae(module, args, imgs):
+            self.finite.append(torch.isfinite(args[0]).all()
+                               & torch.isfinite(imgs).all())
+            self.images.append(tuple(imgs.shape))
+
+        self.handles = [adapter.unet.register_forward_pre_hook(pre),
+                        adapter.unet.register_forward_hook(post),
+                        adapter.vae_decoder.register_forward_hook(vae)]
+
+    def check(self, label: str, steps: int, images=None) -> None:
+        """Remove the hooks; fail unless every eval launched K1
+        ``self.want`` times, ``steps`` evals ran, every latent, eps and
+        image was finite, and the images have shape [B, size, size, 3] at
+        the sampler's size."""
+        import torch
+
+        for h in self.handles:
+            h.remove()
+        if len(self.per_eval) != steps or set(self.per_eval) != {self.want}:
+            raise AssertionError(f"{label}: K1 launches per UNet eval "
+                                 f"{self.per_eval}, want {self.want} in "
+                                 f"each of {steps}")
+        if not all(bool(f) for f in self.finite):
+            raise AssertionError(f"{label}: a non-finite eps, latent or "
+                                 f"image")
+        stds = torch.stack(self.stds).tolist()
+        if images is not None:
+            if (images.ndim != 4 or images.shape[1:] != (self.size,) * 2
+                    + (3,) or not np.isfinite(images).all()):
+                raise AssertionError(f"{label}: images {images.shape}")
+        log(f"{label}: {steps} UNet evals, K1 {self.want} launches in each; "
+            f"eps std per step " + " ".join(f"{x:.3f}" for x in stds)
+            + f"; decoded {self.images}, finite before the clip")
+
+
+def build_adapter(dev, vit, edit: bool):
+    """The full-width SEED-X image stack with random weights from seed 0:
+    ResamplerXL (``DetokenizerConfig()``), the SDXL base UNet (the
+    8-channel edit UNet with ``edit``) in bf16, the SDXL VAE in fp32,
+    sharing the runtime's ViT-bigG for its CFG negatives."""
+    import torch
+
+    from seedx_tpu_torch.models.adapter import AdapterConfig, SDXLAdapter
+    from seedx_tpu_torch.models.detokenizer import DetokenizerConfig
+    from seedx_tpu_torch.models.sdxl.unet import (sdxl_base_unet,
+                                                  sdxl_edit_unet)
+
+    t0 = time.perf_counter()
+    cfg = AdapterConfig(unet=sdxl_edit_unet() if edit else sdxl_base_unet(),
+                        resampler=DetokenizerConfig(),
+                        with_latent_image=edit)
+    adapter = SDXLAdapter.random(cfg, seed=0, device=dev, visual_encoder=vit)
+    torch.cuda.synchronize()
+    n = {name: sum(t.numel() for t in getattr(adapter, name).state_dict(
+        ).values()) for name in ("unet", "resampler", "vae_decoder",
+                                 "vae_encoder")}
+    log(f"image out: built the {'edit (8-channel)' if edit else 'base'} "
+        f"adapter in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v / 1e6:.1f} M" for k, v in n.items())
+        + f"; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return adapter
+
+
+def unet_inputs(adapter, batch: int, dev, g):
+    """Random UNet inputs at the adapter's latent size (128 x 128 for
+    1024^2 images): scaled latents (+ condition latents), a mid timestep,
+    64 context tokens, pooled embeds, the default time ids."""
+    import torch
+
+    from seedx_tpu_torch.models.sdxl.pipeline import default_time_ids
+
+    cfg, sampler = adapter.cfg.unet, adapter.cfg.sampler
+    h, w = sampler.latent_hw
+    pooled = (cfg.projection_class_embeddings_input_dim
+              - 6 * cfg.addition_time_embed_dim)
+    tids = default_time_ids(sampler, batch, dev)
+    return (torch.randn((batch, h, w, cfg.in_channels), generator=g,
+                        device=dev),
+            torch.full((batch,), 501.0, device=dev),
+            torch.randn((batch, 64, cfg.cross_attention_dim), generator=g,
+                        device=dev).to(torch.bfloat16),
+            torch.randn((batch, pooled), generator=g,
+                        device=dev).to(torch.bfloat16), tids)
+
+
+@contextlib.contextmanager
+def plain_unet_attention():
+    """The UNet's attention through the plain path while active (the
+    K1-against-plain check; the package has no knob for it)."""
+    from seedx_tpu_torch.models.sdxl import unet as unet_mod
+
+    orig = unet_mod.dot_product_attention
+
+    def plain(*args, **kw):
+        return orig(*args, **{**kw, "impl": "plain"})
+
+    unet_mod.dot_product_attention = plain
+    try:
+        yield
+    finally:
+        unet_mod.dot_product_attention = orig
+
+
+def check_unet_k1(adapter, dev, g) -> None:
+    """One full-width UNet eval at CFG batch 2 with K1 against the same
+    weights and inputs with the plain attention; K1 must launch 70 times
+    in the first and never in the second.  Its launches go to CHECKS."""
+    import torch
+
+    from seedx_tpu_torch.models.sdxl.unet import flash_launches_per_eval
+
+    args = unet_inputs(adapter, 2, dev, g)
+    reset_counts()
+    with torch.no_grad():
+        eps = adapter.unet(*args)
+        torch.cuda.synchronize()
+        k1 = read_counts()["flash_fwd"]
+        with plain_unet_attention():
+            ref = adapter.unet(*args)
+        torch.cuda.synchronize()
+    add_counts(CHECKS, read_counts())
+    want = flash_launches_per_eval(adapter.cfg.unet)
+    plain_k1 = read_counts()["flash_fwd"] - k1
+    err = (eps.float() - ref.float()).abs().max().item()
+    mag = ref.float().abs().max().item()
+    ok = (k1 == want and plain_k1 == 0 and err <= UNET_K1_REL * mag
+          and bool(torch.isfinite(eps).all()))
+    log(f"image out: UNet eval B2 at {tuple(args[0].shape[1:3])} latents, "
+        f"K1 ({k1} "
+        f"launches) against the plain attention ({plain_k1}): max_abs_err "
+        f"{err:.3e} of max |eps| {mag:.3e} = {err / mag:.3e} (limit "
+        f"{UNET_K1_REL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("full-width UNet: K1 disagrees with the plain "
+                             "attention")
+
+
+def unet_step_ms(adapter, dev, g, label: str, smi: str,
+                 batches=(2, 3)) -> dict:
+    """Device ms of one UNet eval at 1024^2 at each CFG batch (CUDA
+    events, median of 5 after 2 warm-ups) and a torch.profiler window
+    over one eval at the first batch: device busy share, K1's device ms."""
+    import torch
+
+    out = {}
+    with torch.no_grad():
+        for b in batches:
+            args = unet_inputs(adapter, b, dev, g)
+            out[b] = cuda_ms(lambda: adapter.unet(*args), warmup=2, iters=5)
+            if b == batches[0]:
+                prof = device_profile(lambda: (adapter.unet(*args), 1)[1])
+    line = ", ".join(f"CFG {b} {ms:.2f} ms" for b, ms in out.items())
+    if prof is None:
+        log(f"image out: UNet {label} per step: {line}; the profiler saw "
+            f"no device events: K1 ms and busy share not measured "
+            f"({smi})")
+        return out
+    _, wall, by_name = prof
+    busy = sum(t for t, _ in by_name.values())
+    k1_ms, k1_n = kernel_ms(by_name, "flash_fwd_kernel")
+    n_events = sum(n for _, n in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
+    log(f"image out: UNet {label} per step: {line}; profiled eval at CFG "
+        f"{batches[0]}: wall {wall:.2f} ms, device busy {busy:.2f} ms = "
+        f"{100 * busy / wall:.1f}%, K1 {k1_ms:.3f} ms over {k1_n} launches "
+        f"= {100 * k1_ms / busy:.1f}% of busy, {n_events} device events; "
+        f"top: " + "; ".join(f"{n[:40]} {t:.2f} ms x{c}"
+                             for n, (t, c) in top) + f" ({smi})")
+    return out
+
+
+def image_module_ms(adapter, dev, g, smi: str) -> None:
+    """Device ms (CUDA events) of ResamplerXL over a CFG pair of 64
+    agent tokens, and of the fp32 VAE decode and encode at the sampler's
+    size (1024^2)."""
+    import torch
+
+    sampler = adapter.cfg.sampler
+    x = torch.randn((2, 64, adapter.cfg.resampler.embedding_dim),
+                    generator=g, device=dev).to(torch.bfloat16)
+    lat = torch.randn((1, *sampler.latent_hw, 4), generator=g, device=dev)
+    img = torch.rand((1, sampler.height, sampler.width, 3), generator=g,
+                     device=dev) * 2 - 1
+    with torch.no_grad():
+        res = cuda_ms(lambda: adapter.resampler(x), warmup=2, iters=10)
+        dec = cuda_ms(lambda: adapter.vae_decoder(lat), warmup=1, iters=3)
+        enc = cuda_ms(lambda: adapter.vae_encoder(img), warmup=1, iters=3)
+    log(f"image out: ResamplerXL B2 x 64 tokens {res:.3f} ms, VAE decode "
+        f"{sampler.height}^2 fp32 {dec:.2f} ms, VAE encode fp32 {enc:.2f} "
+        f"ms (TF32 off; {smi})")
+
+
+def timed_run(label: str, fn, needed=("flash_fwd",)):
+    """Run ``fn`` with the counters at 0, the peak memory reset and its
+    wall time; returns (its result, the launch counts)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = path_counts(label, needed)
+    log(f"{label}: wall {wall:.2f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return out, counts
+
+
+def run_image_out(rt, dev, smi: str):
+    """Phase 8: image out at full width on the phase-4 runtime.  The base
+    adapter: the K1-against-plain UNet check, the UNet / ResamplerXL / VAE
+    times, ``text_to_image`` (agent + 30 Euler steps at 1024^2, CFG 2),
+    ``reconstruct`` (raw ViT-bigG features, unpooled negative), then the
+    int8 UNet; the edit adapter: ``reconstruct_with_condition`` at 1024^2
+    (the VAE encoder, 3-way CFG at batch 3), the gi = 1.0 collapse (batch
+    2), a ``ServingEngine`` flush with a t2i and an edit request and one
+    ``/v1/generate`` POST."""
+    import base64
+    import io
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+    from PIL import Image
+
+    from seedx_tpu_torch.inference import apps
+    from seedx_tpu_torch.inference.server import SeedXServer
+    from seedx_tpu_torch.inference.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    totals = {}
+    g = torch.Generator(device=dev).manual_seed(99)
+    rng = np.random.default_rng(9)
+    src = Image.fromarray((rng.random((448, 448, 3)) * 255).astype(np.uint8))
+    agent = ("flash_fwd", "int4_w4a8", "decode_attn")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = build_adapter(dev, rt.vit, edit=False)
+    rt.adapter = base
+    check_unet_k1(base, dev, g)
+    unet_step_ms(base, dev, g, "base bf16", smi)
+    image_module_ms(base, dev, g, smi)
+
+    # (1) text to image (SEED-X-I): the agent's forced span, 30 steps
+    watch = UNetWatch(base)
+    timings = {}
+    with forced_image_prompts():
+        out, counts = timed_run("image out text_to_image", lambda: (
+            apps.text_to_image(rt, "a red bicycle by a lake", seed=0,
+                               num_inference_steps=T2I_STEPS,
+                               max_new_tokens=72, timings=timings)), agent)
+    add_counts(totals, counts)
+    watch.check("image out text_to_image", T2I_STEPS, out["images"])
+    feat = out["img_gen_feat"]
+    want = (1, rt.agent_cfg.num_img_out_tokens, rt.agent_cfg.vit_dim)
+    if feat is None or tuple(feat.shape) != want:
+        raise AssertionError(f"text_to_image: no forced image span {want}")
+    log("image out text_to_image: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in timings.items()
+        if isinstance(v, float)) + f"; {T2I_STEPS} steps, "
+        f"{timings['denoise'] * 1e3 / T2I_STEPS:.1f} ms a step (host); "
+        f"images {out['images'].shape}")
+
+    # (2) reconstruct: raw ViT-bigG features, the unpooled negative
+    watch = UNetWatch(base)
+    images, counts = timed_run("image out reconstruct", lambda: (
+        apps.reconstruct(rt, src, seed=1, num_inference_steps=RECON_STEPS)))
+    add_counts(totals, counts)
+    watch.check("image out reconstruct", RECON_STEPS, images)
+
+    # (5) the int8 UNet (weights int8, scales on the outputs)
+    base.quantize_unet()
+    gc.collect()
+    torch.cuda.empty_cache()
+    unet_step_ms(base, dev, g, "base int8", smi)
+    watch = UNetWatch(base)
+    images, counts = timed_run("image out int8 UNet", lambda: (
+        base.generate(feat, seed=0, num_inference_steps=INT8_STEPS)))
+    add_counts(totals, counts)
+    watch.check("image out int8 UNet", INT8_STEPS, images)
+    rt.adapter = base = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) the edit variant (SEED-X-Edit): the VAE encoder, 3-way CFG
+    edit = build_adapter(dev, rt.vit, edit=True)
+    rt.adapter = edit
+    unet_step_ms(edit, dev, g, "edit bf16", smi, batches=(3, 2))
+    watch = UNetWatch(edit)
+    timings = {}
+    images, counts = timed_run("image out reconstruct_with_condition", lambda: (
+        apps.reconstruct_with_condition(rt, src, src, seed=2,
+                                        num_inference_steps=EDIT_STEPS,
+                                        timings=timings)))
+    add_counts(totals, counts)
+    watch.check("image out reconstruct_with_condition (3-way, B3)",
+                EDIT_STEPS, images)
+    log("image out reconstruct_with_condition: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in timings.items()))
+    watch = UNetWatch(edit)
+    with torch.no_grad():
+        embeds = rt.encode_image_single(src)
+    images, counts = timed_run("image out edit collapse", lambda: (
+        edit.generate(embeds, from_vit=True,
+                      latent_image=apps.condition_input(rt, src), seed=2,
+                      num_inference_steps=EDIT_STEPS,
+                      image_guidance_scale=1.0)))
+    add_counts(totals, counts)
+    watch.check("image out edit collapse (gi 1.0, B2)", EDIT_STEPS, images)
+
+    # (4) serving: one flush with a t2i and an edit request, one POST
+    watch = UNetWatch(edit)
+    with forced_image_prompts():
+        eng = ServingEngine(rt, max_new_tokens=72,
+                            num_inference_steps=SERVE_STEPS, seed=3)
+        eng.submit_text_to_image("a red bicycle by a lake")
+        eng.submit_edit(src, "make it a sunset")
+        results, counts = timed_run("image out serving flush", eng.flush,
+                                    agent)
+    add_counts(totals, counts)
+    size = edit.cfg.sampler.height
+    for kind, res in zip(("t2i", "edit"), results):
+        if res["images"] is None or res["images"].shape != (1, size, size,
+                                                            3):
+            raise AssertionError(f"serving flush {kind}: no {size}^2 image")
+    watch.check("image out serving flush (t2i, edit)", 2 * SERVE_STEPS)
+
+    server = SeedXServer(rt, max_new_tokens=72, num_inference_steps=2)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler())
+    serve_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serve_thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post():
+        req = urllib.request.Request(
+            url + "/v1/generate",
+            data=json.dumps({"caption": "a red bicycle"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+
+    try:
+        with forced_image_prompts():
+            (status, reply), counts = timed_run("image out /v1/generate",
+                                                post, agent)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+        serve_thread.join(60)
+    add_counts(totals, counts)
+    pngs = reply.get("images") or []
+    size = (Image.open(io.BytesIO(base64.b64decode(pngs[0]))).size
+            if pngs else None)
+    if status != 200 or len(pngs) != 1 or size != (edit.cfg.sampler.width,
+                                                   edit.cfg.sampler.height):
+        raise AssertionError(f"/v1/generate: {status} {len(pngs)} images "
+                             f"{size}")
+    log(f"image out /v1/generate: 200, one {size[0]}x{size[1]} PNG")
+    rt.adapter = None
+    del edit, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"image out: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def check_tiny_adapter(dev):
+    """The debug adapter on the card (K1 in the UNet's self-attention at
+    head dim 32 padded to 64, CFG batch 3) against the same weights on the
+    CPU (plain attention): ``reconstruct_with_condition`` from the same
+    initial noise, the images within ``TINY_IMAGE_TOL``."""
+    import torch
+    from PIL import Image
+
+    from seedx_tpu_torch.inference import apps
+    from seedx_tpu_torch.inference.runtime import SeedXRuntime
+    from seedx_tpu_torch.models import adapter as adapter_mod
+
+    rts = {d: SeedXRuntime.debug(seed=7, device=d, with_adapter=True)
+           for d in ("cpu", dev)}
+    rts[dev].vit.load_state_dict(rts["cpu"].vit.state_dict())
+    for name in ("unet", "resampler", "vae_decoder", "vae_encoder"):
+        getattr(rts[dev].adapter, name).load_state_dict(
+            getattr(rts["cpu"].adapter, name).state_dict())
+    noise = torch.randn((1, 32, 32, 4), generator=torch.Generator(
+        ).manual_seed(7))
+
+    def same_noise(generator, batch, cfg, schedule, dtype=torch.float32):
+        return noise.to(generator.device, dtype) * schedule.init_noise_sigma
+
+    rng = np.random.default_rng(8)
+    img = Image.fromarray((rng.random((90, 150, 3)) * 255).astype(np.uint8))
+    out, orig = {}, adapter_mod.prepare_latents
+    adapter_mod.prepare_latents = same_noise
+    try:
+        for d, rt in rts.items():
+            watch = UNetWatch(rt.adapter) if d != "cpu" else None
+            out[d] = apps.reconstruct_with_condition(rt, img, img, seed=0,
+                                                     num_inference_steps=3)
+            if watch is not None:
+                watch.check("tiny adapter on the card", 3, out[d])
+    finally:
+        adapter_mod.prepare_latents = orig
+    err = float(np.abs(out[dev] - out["cpu"]).max())
+    if not err <= TINY_IMAGE_TOL:
+        raise AssertionError(f"tiny adapter disagrees: {err:.3e} > "
+                             f"{TINY_IMAGE_TOL}")
+    log(f"tiny adapter: reconstruct_with_condition on the card vs the CPU "
+        f"max_abs_err {err:.3e} (tol {TINY_IMAGE_TOL}) ok")
+
+
 def device_profile(run):
     """torch.profiler over one window: ``run()`` does its work and returns
     how many steps it ran.  Returns the steps, the profiled wall ms (the
@@ -2200,28 +2698,29 @@ def main() -> int:
     if not all(r["ok"] for r in rows):
         raise AssertionError("a kernel disagrees with its plain version")
     check_tiny_stack(dev)
+    check_tiny_adapter(dev)
 
     rt = build_runtime(dev)
     launches = run_turn(rt)
     served, requests, budgets, limit = run_serving(rt)
     add_counts(launches, served)
     add_counts(launches, run_chat(rt, limit))
+    run_parity(dev, requests, budgets)
+    add_counts(launches, run_image_out(rt, dev, smi))
     # the HTTP handler classes hold the servers, and so the runtime, in
-    # reference cycles: collect them before the parity agent is built
+    # reference cycles: collect them before the train model is built
     del rt
     gc.collect()
     torch.cuda.empty_cache()
-    run_parity(dev, requests, budgets)
-    gc.collect()
-    torch.cuda.empty_cache()
     add_counts(launches, run_train(dev))
-    log(f"main path (turn, serving, chat, train): launches "
+    log(f"main path (turn, serving, chat, image out, train): launches "
         f"{json.dumps(launches)}")
     log("main path: K2 calls by row band: " + ", ".join(
         f"rows {b} {launches[f'int4_w4a8 rows {b}']}"
         for b in counters()["int4_w4a8"].band_launches))
     log(f"check runs (teacher-forced engines, batched loop and chat; the "
-        f"{PARITY_LAYERS}-layer parity agent and gradient check): launches "
+        f"{PARITY_LAYERS}-layer parity agent and gradient check; the UNet's "
+        f"K1-against-plain eval): launches "
         f"{json.dumps(CHECKS)}; not in the kernels line")
 
     kernels = []

@@ -1,10 +1,11 @@
-"""Host-side CLIP image transform, numpy/PIL, NHWC float32 output (a copy
-of the ``clip`` type of seedx_tpu/data/transforms.py, so the port imports
-nothing of the JAX package; keep the two identical).
+"""Host-side image transforms, numpy/PIL, NHWC float32 output (a copy of
+the ``clip`` and ``sd`` types of seedx_tpu/data/transforms.py, so the port
+imports nothing of the JAX package; keep the two identical).
 
-Mirrors the reference's torchvision pipeline (src/processer/transforms.py):
+Mirrors the reference's torchvision pipelines (src/processer/transforms.py):
 bicubic resize (or shorter-side resize + center crop with ``keep_ratio``),
-scale to [0, 1], CLIP mean/std.
+scale to [0, 1], then CLIP mean/std (``clip``) or [-1, 1] (``sd``, the
+SDXL VAE's input).
 """
 
 from __future__ import annotations
@@ -20,9 +21,12 @@ CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 def get_transform(type: str = "clip", keep_ratio: bool = True,
                   image_size: int = 224) -> Callable[[Image.Image], np.ndarray]:
-    """PIL.Image -> float32 [H, W, 3].  Only ``type="clip"`` is ported."""
-    if type != "clip":
+    """PIL.Image -> float32 [H, W, 3].  ``type`` "clip" or "sd"; the JAX
+    package's "clipa" and "clipb" are not ported."""
+    if type not in ("clip", "sd"):
         raise NotImplementedError(f"transform type {type!r} is not ported")
+    mean, std = ((CLIP_MEAN, CLIP_STD) if type == "clip"
+                 else ((0.5,) * 3, (0.5,) * 3))
 
     def apply(img: Image.Image) -> np.ndarray:
         img = img.convert("RGB")
@@ -39,7 +43,7 @@ def get_transform(type: str = "clip", keep_ratio: bool = True,
         else:
             img = img.resize((image_size, image_size), resample=Image.BICUBIC)
         arr = np.asarray(img, np.float32) / 255.0
-        return ((arr - np.asarray(CLIP_MEAN, np.float32))
-                / np.asarray(CLIP_STD, np.float32))
+        return ((arr - np.asarray(mean, np.float32))
+                / np.asarray(std, np.float32))
 
     return apply

@@ -6,9 +6,9 @@ training one: ``[INST] ... [/INST]\\n`` turns joined by ``\\n`` with image
 spans spliced into user turns (reference: src/data/sft_clm.py:230-272).
 ``ChatSession`` keeps that history, re-serializes it each turn, and feeds
 every referenced image's ViT features through the comprehension splice.
-An image the model generates joins the context as ViT-space features.
-The SDXL adapter is not ported, so a reply's ``images`` is None (as the
-JAX package gives without an adapter).
+An image the model generates joins the context as ViT-space features, and
+the runtime's SDXL adapter turns it into pixels for the reply's ``images``
+(None without an adapter or an image span).
 """
 
 from __future__ import annotations
@@ -208,10 +208,14 @@ class ChatSession:
                             rt.tokenizer, vocab, n_img)
 
     def send(self, text: str, image=None, max_new_tokens: int = 512,
-             spec_k: int = 0, timings: Optional[Dict[str, float]] = None):
+             num_inference_steps: int = 30, seed: int = 42, spec_k: int = 0,
+             timings: Optional[Dict[str, float]] = None):
         """One user turn -> the assistant's reply {text, images,
-        num_gen_imgs, tokens}.  ``timings`` receives the prefill / decode host
-        seconds of the turn (see ``generate_tokens``)."""
+        num_gen_imgs, tokens}; ``images`` [n, H, W, 3] in [0, 1] when the
+        reply holds image spans and the runtime has an adapter
+        (``num_inference_steps`` and ``seed`` go to its ``generate``).
+        ``timings`` receives the prefill / decode host seconds of the turn
+        (see ``generate_tokens``) and the adapter's phases."""
         if spec_k > 0:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP Queue 1 "
@@ -245,8 +249,14 @@ class ChatSession:
                                    timings=timings)
             self.last_prefill_tokens = len(input_ids)
 
+        images = None
         reply_patches = 0
         if out["has_img_output"]:
+            if self.rt.adapter is not None:
+                images = self.rt.adapter.generate(
+                    out["img_gen_feat"], seed=seed,
+                    num_inference_steps=num_inference_steps,
+                    timings=timings)
             # the generated image joins the context for later turns: the
             # output resampler emits ViT-space features (seed_x.py:109-111)
             for i in range(out["num_gen_imgs"]):
@@ -255,6 +265,6 @@ class ChatSession:
 
         reply = prompts.strip_markup(out["text"])
         self.turns.append(Turn("assistant", reply, reply_patches))
-        return {"text": reply, "images": None,
+        return {"text": reply, "images": images,
                 "num_gen_imgs": out["num_gen_imgs"],
                 "tokens": out["tokens"]}

@@ -1,9 +1,19 @@
-"""Command-line entry points of the port (reference:
-seedx_tpu/inference/eval_cli.py): ``serve`` and ``chat``.
+"""Command-line entry points of the port, one per reference eval script
+(reference: seedx_tpu/inference/eval_cli.py):
 
-  python -m seedx_tpu_torch.inference.eval_cli serve --requests reqs.jsonl \\
-      --debug [--device cpu] [--engine batched|continuous [--paged]]
-  python -m seedx_tpu_torch.inference.eval_cli chat --debug [--device cpu]
+  python -m seedx_tpu_torch.inference.eval_cli img2text --image X --question Q
+      <- src/inference/eval_img2text_seed_x_i.py (--prompt_style pretrain:
+         eval_img2text_seed_x.py)
+  ... ground     --image X --question Q   <- eval_img2text_seed_x_i.py
+  ... text2img   --caption C              <- eval_text2img_seed_x_i.py
+  ... edit       --image X --instruction I <- eval_img2edit_seed_x_edit.py
+  ... detokenize --image X [--condition Y] <- eval_seed_x_detokenizer.py /
+                                     eval_seed_x_detokenizer_with_condition.py
+  ... serve --requests reqs.jsonl [--engine batched|continuous [--paged]]
+  ... chat
+
+each with ``--debug [--device cpu]``.  Generated images are saved as PNGs
+under ``--out_dir`` (default ``vis``) and their paths printed.
 
 JSONL in (one request per line: ``{"kind": "comprehend", "image": PATH,
 "question": Q}``, ``{"kind": "t2i", "caption": C}``, ``{"kind": "edit",
@@ -12,18 +22,17 @@ JSONL in (one request per line: ``{"kind": "comprehend", "image": PATH,
 by default), one JSONL result per request out, in request order.
 ``--engine batched`` groups requests into prompt buckets
 (``ServingEngine``); ``continuous`` runs a slot pool with rolling
-admission (``ContinuousEngine``, ``--paged`` for the page pool).  The
-SDXL adapter is not ported, so t2i / edit requests give text and
-``images: null``.
+admission (``ContinuousEngine``, ``--paged`` for the page pool), then the
+SDXL adapter over each result's image spans.  A result's ``images`` lists
+the saved PNGs of its generated images (null without any).
 
 ``chat`` reads one user turn per stdin line (``img:PATH text`` attaches an
-image; ``exit`` or ``quit`` ends) and prints each reply, over one
-``ChatSession`` with its KV prefix cache.
+image; ``exit`` or ``quit`` ends) and prints each reply (and the paths of
+its images), over one ``ChatSession`` with its KV prefix cache.
 
-``--debug`` (or SEEDX_DEBUG=1) runs the tiny random stack; the released
-weights cannot be loaded yet.  Everything runs on the card unless
-``--device cpu``.  The other subcommands (img2text, ground, text2img,
-edit, detokenize) are not ported yet.
+``--debug`` (or SEEDX_DEBUG=1) runs the tiny random stack with the debug
+SDXL adapter; the released weights cannot be loaded yet.  Everything runs
+on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -34,11 +43,26 @@ import os
 import sys
 
 
+def _save_images(images, out_dir: str, stem: str):
+    """[N, H, W, 3] floats in [0, 1] -> PNG paths under ``out_dir``."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i, img in enumerate(np.asarray(images)):
+        path = os.path.join(out_dir, f"{stem}_{i}.png")
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)
+                        ).save(path)
+        paths.append(path)
+    return paths
+
+
 def _load_runtime(args):
     from seedx_tpu_torch.inference.runtime import SeedXRuntime
 
     if args.debug or os.environ.get("SEEDX_DEBUG") in ("1", "True"):
-        return SeedXRuntime.debug(device=args.device)
+        return SeedXRuntime.debug(device=args.device, with_adapter=True)
     raise SystemExit(
         "non-debug runtime requires released checkpoints, which the port "
         "cannot load yet: pass --debug or SEEDX_DEBUG=1 for the tiny random "
@@ -76,7 +100,9 @@ def _request(rt, r):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("command", choices=["serve", "chat"])
+    p.add_argument("command", choices=["img2text", "ground", "text2img",
+                                       "edit", "detokenize", "chat",
+                                       "serve"])
     p.add_argument("--requests",
                    help="JSONL file of requests (default stdin)")
     p.add_argument("--engine", default="batched",
@@ -91,7 +117,24 @@ def main(argv=None):
     p.add_argument("--pool_tokens", type=int, default=0,
                    help="paged KV pool size in tokens (default: the dense "
                         "footprint, slots x (max bucket + max_new_tokens))")
+    p.add_argument("--image")
+    p.add_argument("--condition")
+    p.add_argument("--question", default="What is in this image?")
+    p.add_argument("--caption", default="a red car on a beach")
+    p.add_argument("--instruction", default="make it a sunset")
+    p.add_argument("--prompt_style", default="instruct",
+                   choices=["instruct", "pretrain"])
     p.add_argument("--max_new_tokens", type=int, default=512)
+    p.add_argument("--num_inference_steps", type=int, default=50)
+    p.add_argument("--solver", default="euler",
+                   choices=["euler", "dpmpp_2m", "dpmpp_3m"],
+                   help="diffusion sampler (euler: the reference's)")
+    p.add_argument("--image_cfg", type=float, default=None,
+                   help="edit: image_guidance_scale (default: the adapter "
+                        "config's 1.5; exactly 1.0 drops the uncond CFG "
+                        "branch)")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--out_dir", default="vis")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device of the runtime (default: the card)")
@@ -99,11 +142,14 @@ def main(argv=None):
 
     from PIL import Image
 
+    from seedx_tpu_torch.inference import apps
     from seedx_tpu_torch.text import prompts
 
     rt = _load_runtime(args)
     if args.command == "chat":
-        return _chat(rt, args.max_new_tokens)
+        return _chat(rt, args)
+    if args.command != "serve":
+        return _app(rt, args)
     if args.requests:
         with open(args.requests) as f:
             reqs = [json.loads(ln) for ln in f if ln.strip()]
@@ -114,7 +160,10 @@ def main(argv=None):
         from seedx_tpu_torch.inference.serving import ServingEngine
 
         eng = ServingEngine(rt, max_batch_size=args.max_batch_size,
-                            max_new_tokens=args.max_new_tokens)
+                            max_new_tokens=args.max_new_tokens,
+                            num_inference_steps=args.num_inference_steps,
+                            seed=args.seed,
+                            image_guidance_scale=args.image_cfg)
         submit = {"comprehend": eng.submit_comprehend,
                   "edit": eng.submit_edit}
         for r in reqs:
@@ -140,21 +189,92 @@ def main(argv=None):
                  for r in reqs]
         done = eng.run()
         results = [done[rid] for rid in order]
+        for r, res in zip(reqs, results):
+            res["images"] = None
+            if res["has_img_output"] and rt.adapter is not None:
+                cond = None
+                if r.get("kind") == "edit":      # one condition per span
+                    src = Image.open(r["image"]).convert("RGB")
+                    cond = apps.condition_input(rt, src).expand(
+                        res["num_gen_imgs"], -1, -1, -1)
+                res["images"] = rt.adapter.generate(
+                    res["img_gen_feat"], latent_image=cond, seed=args.seed,
+                    num_inference_steps=args.num_inference_steps,
+                    solver=args.solver,
+                    image_guidance_scale=(args.image_cfg if cond is not None
+                                          else None))
     for i, res in enumerate(results):
+        paths = None
+        if res.get("images") is not None:
+            paths = _save_images(res["images"], args.out_dir, f"serve_{i}")
         print(json.dumps({
             "id": i, "text": prompts.strip_markup(res["text"]),
             "num_gen_imgs": int(res.get("num_gen_imgs", 0)),
-            "images": None}))
+            "images": paths}))
     return 0
 
 
-def _chat(rt, max_new_tokens: int) -> int:
+def _app(rt, args) -> int:
+    """img2text, ground, text2img, edit and detokenize (reference
+    eval_cli.py): one app call, its text printed and its images saved."""
+    from PIL import Image
+
+    from seedx_tpu_torch.inference import apps
+
+    image = Image.open(args.image).convert("RGB") if args.image else None
+    gen = dict(seed=args.seed, num_inference_steps=args.num_inference_steps,
+               solver=args.solver)
+    images, stem = None, args.command
+    if args.command == "img2text":
+        out = apps.comprehend(rt, image, args.question,
+                              prompt_style=args.prompt_style,
+                              max_new_tokens=args.max_new_tokens)
+        print(out["clean_text"])
+        return 0
+    if args.command == "ground":
+        out = apps.ground(rt, image, args.question,
+                          max_new_tokens=args.max_new_tokens)
+        print(out["clean_text"])
+        print("boxes:", out.get("boxes_pixels"))
+        if out["boxes_image"] is not None:
+            os.makedirs(args.out_dir, exist_ok=True)
+            path = os.path.join(args.out_dir, "ground.png")
+            out["boxes_image"].save(path)
+            print("saved:", path)
+        return 0
+    if args.command == "text2img":
+        out = apps.text_to_image(rt, args.caption,
+                                 max_new_tokens=args.max_new_tokens, **gen)
+        print(out["text"])
+        images, stem = out["images"], "t2i"
+    elif args.command == "edit":
+        out = apps.edit_image(rt, image, args.instruction,
+                              max_new_tokens=args.max_new_tokens,
+                              image_guidance_scale=args.image_cfg, **gen)
+        print(out["text"])
+        images = out["images"]
+    else:                                # detokenize
+        if args.condition:
+            cond = Image.open(args.condition).convert("RGB")
+            images = apps.reconstruct_with_condition(rt, image, cond, **gen)
+        else:
+            images = apps.reconstruct(rt, image, **gen)
+        stem = "recon"
+    if images is None:
+        print("(no image span generated)")
+    else:
+        print("saved:", _save_images(images, args.out_dir, stem))
+    return 0
+
+
+def _chat(rt, args) -> int:
     """One ChatSession over stdin lines (reference eval_cli.py:196-220)."""
     from PIL import Image
 
     from seedx_tpu_torch.inference.chat import ChatSession
 
     session = ChatSession(rt)
+    n_img = 0
     print("chat ready: 'img:PATH text' attaches an image, 'exit' quits",
           flush=True)
     for line in sys.stdin:
@@ -167,8 +287,15 @@ def _chat(rt, max_new_tokens: int) -> int:
         if line.startswith("img:"):
             path, _, line = line[4:].partition(" ")
             image = Image.open(path).convert("RGB")
-        out = session.send(line, image=image, max_new_tokens=max_new_tokens)
+        out = session.send(line, image=image,
+                           max_new_tokens=args.max_new_tokens,
+                           num_inference_steps=args.num_inference_steps,
+                           seed=args.seed)
         print(out["text"], flush=True)
+        if out["images"] is not None:
+            n_img += len(out["images"])
+            print("saved:", _save_images(out["images"], args.out_dir,
+                                         f"chat_{n_img}"), flush=True)
     return 0
 
 

@@ -1,13 +1,15 @@
-"""SeedXRuntime: tokenizer, image transform, ViT and agent bundled once
-(reference: seedx_tpu/inference/runtime.py).
+"""SeedXRuntime: tokenizer, image transform, ViT, agent and the optional
+SDXL adapter (image out) bundled once (reference:
+seedx_tpu/inference/runtime.py).
 
-``SeedXRuntime.debug()`` builds the tiny random stack;
+``SeedXRuntime.debug()`` builds the tiny random stack (with
+``with_adapter=True`` the JAX package's debug adapter too);
 ``SeedXRuntime.random()`` builds any configuration with random weights
 made on the device from a seed, quantizing the int4 agent one layer at a
-time so no full-precision 13B tree ever exists.  Both build on the card
-(``cuda``) unless the caller passes ``device="cpu"``.  Loading released
-checkpoints (``from_checkpoints`` / ``from_pretrained``) and the SDXL
-adapter are not ported yet (``adapter`` stays None).
+time so no full-precision 13B tree ever exists, and an adapter when given
+its config.  Both build on the card (``cuda``) unless the caller passes
+``device="cpu"``.  Loading released checkpoints (``from_checkpoints`` /
+``from_pretrained``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,11 +23,16 @@ import torch
 from seedx_tpu_torch.data.anyres import (grid_pinpoints_from_strings,
                                          process_anyres_image)
 from seedx_tpu_torch.data.transforms import get_transform
+from seedx_tpu_torch.models.adapter import AdapterConfig, SDXLAdapter
 from seedx_tpu_torch.models.agent import AgentConfig, ContinuousLVLM
+from seedx_tpu_torch.models.detokenizer import DetokenizerConfig
 from seedx_tpu_torch.models.generation import (GenerationConfig, generate,
                                                generate_batch)
 from seedx_tpu_torch.models.layers import init_normal_
 from seedx_tpu_torch.models.llama import llama_debug
+from seedx_tpu_torch.models.sdxl.pipeline import SamplerConfig
+from seedx_tpu_torch.models.sdxl.unet import sdxl_debug_unet
+from seedx_tpu_torch.models.sdxl.vae import VAEConfig, vae_debug
 from seedx_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
                                         vit_tiny_debug)
 from seedx_tpu_torch.text.tokenizer import load_tokenizer
@@ -48,15 +55,20 @@ class SeedXRuntime:
     # Pad every anyres tile stack up to the next bucket before the ViT
     # runs (fewer distinct shapes); callers see exact shapes either way.
     tile_buckets: Optional[Sequence[int]] = None
-    adapter: Any = None        # the SDXL adapter (image out): not ported
+    adapter: Optional[SDXLAdapter] = None    # image out (SDXL)
 
     # ---- constructors ------------------------------------------------------
 
     @classmethod
     def random(cls, vit_cfg: ViTConfig, agent_cfg: AgentConfig,
-               seed: int = 0, device="cuda", **kw) -> "SeedXRuntime":
+               seed: int = 0, device="cuda",
+               adapter_cfg: Optional[AdapterConfig] = None,
+               vae_cfg: Optional[VAEConfig] = None,
+               **kw) -> "SeedXRuntime":
         """Random weights from ``seed``, drawn on ``device`` (the card
-        unless the caller asks for ``"cpu"``)."""
+        unless the caller asks for ``"cpu"``).  With ``adapter_cfg`` the
+        SDXL adapter too (``SDXLAdapter.random``, same seed), sharing the
+        runtime's ViT for its CFG negatives."""
         device = torch.device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -64,16 +76,24 @@ class SeedXRuntime:
         agent = init_normal_(ContinuousLVLM(agent_cfg, device).eval(), gen)
         if agent_cfg.llm.quantization != "none":
             random_quantized_llama_(agent.llm, gen)
+        adapter = None
+        if adapter_cfg is not None:
+            adapter = SDXLAdapter.random(adapter_cfg, vae_cfg, seed=seed,
+                                         device=device, visual_encoder=vit)
         return cls(tokenizer=load_tokenizer(), vit_cfg=vit_cfg, vit=vit,
-                   agent_cfg=agent_cfg, agent=agent, **kw)
+                   agent_cfg=agent_cfg, agent=agent, adapter=adapter, **kw)
 
     @classmethod
     def debug(cls, seed: int = 0, image_size: int = 56,
               dtype: torch.dtype = torch.bfloat16, device="cuda",
               quantization: str = "none", kv_quantization: str = "none",
-              decode_attention: str = "auto") -> "SeedXRuntime":
+              decode_attention: str = "auto",
+              with_adapter: bool = False) -> "SeedXRuntime":
         """Tiny random stack with the JAX package's ``debug()`` geometry,
-        on the card unless ``device="cpu"``."""
+        on the card unless ``device="cpu"``.  ``with_adapter``: the JAX
+        package's debug adapter (the 8-channel debug UNet, a one-block
+        detokenizer, ``vae_debug``; 64^2 images at ``vae_scale`` 2, 3
+        steps), its UNet and detokenizer in ``dtype``, the VAE fp32."""
         vit_cfg = vit_tiny_debug(image_size=image_size, output_dim=64,
                                  dtype=dtype)
         llm_cfg = llama_debug(hidden_size=128, intermediate_size=256,
@@ -85,7 +105,22 @@ class SeedXRuntime:
                                 num_img_in_tokens=64,
                                 num_img_out_tokens=vit_cfg.n_queries,
                                 vit_down=False, dtype=dtype)
+        adapter_cfg = None
+        if with_adapter:
+            ucfg = sdxl_debug_unet(in_channels=8, dtype=dtype)
+            out2 = (ucfg.projection_class_embeddings_input_dim
+                    - 6 * ucfg.addition_time_embed_dim)
+            rcfg = DetokenizerConfig(
+                dim=64, depth=1, dim_head=16, heads=4, num_queries=8,
+                embedding_dim=64, output1_dim=ucfg.cross_attention_dim - out2,
+                output2_dim=out2, ff_mult=2, dtype=dtype)
+            adapter_cfg = AdapterConfig(
+                unet=ucfg, resampler=rcfg,
+                sampler=SamplerConfig(height=64, width=64,
+                                      num_inference_steps=3, vae_scale=2),
+                vit_down=False, with_latent_image=True)
         return cls.random(vit_cfg, agent_cfg, seed=seed, device=device,
+                          adapter_cfg=adapter_cfg, vae_cfg=vae_debug(),
                           base_resolution=image_size, vit_down=False)
 
     @property

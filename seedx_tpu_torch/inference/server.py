@@ -10,13 +10,15 @@ Endpoints (JSON bodies; images travel as base64 PNG/JPEG):
   POST /v1/generate    {"caption"}
   POST /v1/edit        {"image", "instruction"}
   POST /v1/raw         {"input_ids": [...]}           (pre-tokenized)
-  POST /v1/chat        {"session", "message", "image"?, "max_new_tokens"?}
+  POST /v1/chat        {"session", "message", "image"?, "max_new_tokens"?,
+                        "num_inference_steps"?, "seed"?}
 
-``/v1/generate`` and ``/v1/edit`` answer with their text and ``images:
-null`` until the SDXL adapter is ported, as does ``/v1/chat``, whose
-replies carry ``session`` too.  Each chat session owns a KV prefix cache on
-the device (``inference/chat.py``); at most ``max_sessions`` live at once,
-the least recently used evicted first.
+``/v1/generate``, ``/v1/edit`` and ``/v1/chat`` answer with their text and
+``images``: a list of base64 PNGs when the reply holds image spans and the
+runtime has an SDXL adapter, else null.  Chat replies carry ``session``
+too.  Each chat session owns a KV prefix cache on the device
+(``inference/chat.py``); at most ``max_sessions`` live at once, the least
+recently used evicted first.
 
 Threading model: one dispatcher thread owns every device call.  HTTP
 handler threads enqueue jobs and wait on a per-job event.  Everything
@@ -39,6 +41,8 @@ from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 __all__ = ["SeedXServer", "main"]
 
 _BATCHABLE = {"comprehend", "generate", "edit", "raw"}
@@ -48,6 +52,22 @@ def _decode_image(b64: str):
     from PIL import Image
 
     return Image.open(io.BytesIO(base64.b64decode(b64))).convert("RGB")
+
+
+def _encode_images(images) -> Optional[List[str]]:
+    """[N, H, W, 3] float array in [0, 1] -> base64 PNGs (None stays
+    None)."""
+    if images is None:
+        return None
+    from PIL import Image
+
+    out = []
+    for img in np.asarray(images):
+        buf = io.BytesIO()
+        Image.fromarray((np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+                        ).save(buf, format="PNG")
+        out.append(base64.b64encode(buf.getvalue()).decode("ascii"))
+    return out
 
 
 class _Job:
@@ -66,15 +86,17 @@ class SeedXServer:
     """Dispatcher + HTTP plumbing around one ``SeedXRuntime``."""
 
     def __init__(self, rt, max_batch_size: int = 8,
-                 max_new_tokens: int = 512, request_timeout: float = 600.0,
-                 max_sessions: int = 8):
+                 max_new_tokens: int = 512, num_inference_steps: int = 30,
+                 request_timeout: float = 600.0, max_sessions: int = 8):
         """``max_sessions`` bounds the live chat sessions (LRU eviction):
-        each holds a preallocated KV cache on the device."""
+        each holds a preallocated KV cache on the device.
+        ``num_inference_steps``: the SDXL steps of generated images."""
         from seedx_tpu_torch.inference.serving import ServingEngine
 
         self.rt = rt
         self.engine = ServingEngine(rt, max_batch_size=max_batch_size,
-                                    max_new_tokens=max_new_tokens)
+                                    max_new_tokens=max_new_tokens,
+                                    num_inference_steps=num_inference_steps)
         self.request_timeout = request_timeout
         self._queue: "queue.Queue[Optional[_Job]]" = queue.Queue()
         self._sessions: "OrderedDict[str, Any]" = OrderedDict()
@@ -172,7 +194,7 @@ class SeedXServer:
         for j, out in zip(live, results[-len(live):]):
             self._finish(j, result={
                 "text": out.get("clean_text", out.get("text", "")),
-                "images": None,
+                "images": _encode_images(out.get("images")),
                 "has_img_output": bool(out.get("has_img_output")),
             })
 
@@ -199,11 +221,15 @@ class SeedXServer:
                 self._sessions.move_to_end(sid)
             out = sess.send(message, image=image,
                             max_new_tokens=p.get("max_new_tokens", 512),
+                            num_inference_steps=p.get(
+                                "num_inference_steps",
+                                self.engine.num_inference_steps),
+                            seed=p.get("seed", 42),
                             spec_k=p.get("spec_k", 0))
         except Exception as e:
             return self._finish(job, error=f"{type(e).__name__}: {e}")
         self._finish(job, result={"session": sid, "text": out["text"],
-                                  "images": None})
+                                  "images": _encode_images(out["images"])})
 
     def _run_single(self, job: _Job):
         from seedx_tpu_torch.inference import apps
@@ -325,8 +351,10 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max_batch_size", type=int, default=8)
     p.add_argument("--max_new_tokens", type=int, default=512)
+    p.add_argument("--num_inference_steps", type=int, default=30)
     p.add_argument("--debug", action="store_true",
-                   help="tiny random debug stack (SEEDX_DEBUG)")
+                   help="tiny random debug stack with the debug SDXL "
+                        "adapter (SEEDX_DEBUG)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the runtime (default: the card)")
     args = p.parse_args(argv)
@@ -339,9 +367,10 @@ def main(argv=None):
             "port cannot load yet; pass --debug (or SEEDX_DEBUG=1), or "
             "embed SeedXServer around a runtime built with "
             "SeedXRuntime.random()")
-    rt = SeedXRuntime.debug(device=args.device)
+    rt = SeedXRuntime.debug(device=args.device, with_adapter=True)
     SeedXServer(rt, max_batch_size=args.max_batch_size,
-                max_new_tokens=args.max_new_tokens
+                max_new_tokens=args.max_new_tokens,
+                num_inference_steps=args.num_inference_steps
                 ).serve_forever(args.host, args.port)
 
 

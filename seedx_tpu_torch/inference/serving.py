@@ -8,19 +8,22 @@ multiplies tokens per second until the matmuls stop being bound by
 memory.  The engine queues heterogeneous requests (comprehension, t2i,
 edit, raw), groups them by prompt-length bucket, runs one prefill + decode
 loop (``generate_batch``) per chunk of ``max_batch_size`` requests of a
-bucket, and returns results in submission order.
-
-The SDXL adapter (image out) is not ported yet: t2i and edit requests
-return their text with ``images: None``, as any request does when the
-runtime has no adapter.
+bucket, then turns every image span of the chunk into pixels with one
+batched SDXL run per kind (t2i-like spans, edit spans with their source
+images as the condition), and returns results in submission order.
+Without an adapter a request's ``images`` is None.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
-from seedx_tpu_torch.inference.apps import _prepare_image_prompt
+import numpy as np
+import torch
+
+from seedx_tpu_torch.inference.apps import (_prepare_image_prompt,
+                                            condition_input)
 from seedx_tpu_torch.inference.runtime import SeedXRuntime
 from seedx_tpu_torch.models.generation import (GenerationConfig,
                                                generate_batch)
@@ -31,25 +34,35 @@ from seedx_tpu_torch.text import prompts
 class _Pending:
     idx: int                      # submission order
     request: Dict[str, Any]      # generate_batch schema
+    kind: str                    # "comprehend" | "t2i" | "edit" | "raw"
+    image: Any = None            # source PIL image (edit condition)
 
 
 class ServingEngine:
     """In-process micro-batching server over a SeedXRuntime."""
 
     def __init__(self, rt: SeedXRuntime, max_batch_size: int = 8,
-                 max_new_tokens: int = 512):
+                 max_new_tokens: int = 512, num_inference_steps: int = 50,
+                 seed: int = 42,
+                 image_guidance_scale: Optional[float] = None):
+        """``image_guidance_scale`` of edit requests: None takes the
+        adapter config's (1.5, the reference's); exactly 1.0 selects the
+        2-branch CFG of ``denoise_edit``."""
         self.rt = rt
         self.max_batch_size = max_batch_size
         self.max_new_tokens = max_new_tokens
+        self.num_inference_steps = num_inference_steps
+        self.seed = seed
+        self.image_guidance_scale = image_guidance_scale
         self._pending: List[_Pending] = []
         self._count = 0
 
     # ---- submission --------------------------------------------------------
 
-    def _push(self, request: Dict[str, Any]) -> int:
+    def _push(self, request: Dict[str, Any], kind: str, image=None) -> int:
         idx = self._count
         self._count += 1
-        self._pending.append(_Pending(idx, request))
+        self._pending.append(_Pending(idx, request, kind, image))
         return idx
 
     def submit_comprehend(self, image, question: str,
@@ -58,21 +71,25 @@ class ServingEngine:
             self.rt, image, question, prompt_style)
         return self._push({"input_ids": ids, "image_embeds": embeds,
                            "embeds_cmp_mask": ecm, "ids_cmp_mask": cmp_mask,
-                           "patch_positions": ppos})
+                           "patch_positions": ppos}, "comprehend")
 
     def submit_text_to_image(self, caption: str) -> int:
         text = prompts.generation_prompt(caption)
         ids = [self.rt.tokenizer.bos_token_id] + self.rt.tokenizer.encode(text)
-        return self._push({"input_ids": ids})
+        return self._push({"input_ids": ids}, "t2i")
 
     def submit_edit(self, image, instruction: str) -> int:
-        """The edit prompt (image + instruction); its text comes back, the
-        image edit itself needs the SDXL adapter."""
-        return self.submit_comprehend(image, instruction)
+        """The edit prompt (image + instruction); the image is kept as the
+        condition of the request's generated images."""
+        ids, cmp_mask, embeds, ecm, ppos = _prepare_image_prompt(
+            self.rt, image, instruction)
+        return self._push({"input_ids": ids, "image_embeds": embeds,
+                           "embeds_cmp_mask": ecm, "ids_cmp_mask": cmp_mask,
+                           "patch_positions": ppos}, "edit", image=image)
 
     def submit_raw(self, request: Dict[str, Any]) -> int:
         """A pre-built generate_batch request dict."""
-        return self._push(request)
+        return self._push(request, "raw")
 
     # ---- execution ---------------------------------------------------------
 
@@ -103,14 +120,40 @@ class ServingEngine:
                     out["clean_text"] = prompts.strip_markup(out["text"])
                     out["images"] = None
                     results[p.idx] = out
-                self._decode_images()
+                self._decode_images(chunk, outs, results)
 
         return [results[i] for i in sorted(results)]
 
-    def _decode_images(self) -> None:
+    def _decode_images(self, chunk: List[_Pending], outs: List[Dict],
+                       results: Dict[int, Dict]) -> None:
         """One batched SDXL run per kind for every image span of a chunk
-        (reference serving.py:140-185): nothing to do without the adapter,
-        which is not ported yet."""
+        (reference serving.py:140-185): t2i-like spans (the 2-way CFG
+        pipeline; the 8-channel UNet with zero condition latents), then
+        edit spans, each with its request's source image as the
+        condition."""
         if self.rt.adapter is None:
             return
-        raise NotImplementedError("the SDXL adapter is not ported yet")
+        for edit in (False, True):
+            feats, owners, conds = [], [], []
+            for p, out in zip(chunk, outs):
+                if (p.kind == "edit") != edit or not out["has_img_output"]:
+                    continue
+                n = out["num_gen_imgs"]
+                feats.append(out["img_gen_feat"])
+                owners.extend([p.idx] * n)
+                if edit:
+                    conds.append(condition_input(self.rt, p.image).expand(
+                        n, -1, -1, -1))
+            if not feats:
+                continue
+            images = self.rt.adapter.generate(
+                torch.cat(feats),
+                latent_image=torch.cat(conds) if edit else None,
+                seed=self.seed, num_inference_steps=self.num_inference_steps,
+                image_guidance_scale=(self.image_guidance_scale if edit
+                                      else None))
+            for owner, img in zip(owners, images):
+                prev = results[owner]["images"]
+                results[owner]["images"] = (
+                    img[None] if prev is None
+                    else np.concatenate([prev, img[None]]))

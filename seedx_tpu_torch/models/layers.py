@@ -231,7 +231,9 @@ class TorchMHA(nn.Module):
 def init_normal_(module: nn.Module, generator: torch.Generator,
                  std: float = 0.02) -> nn.Module:
     """Random weights for a module built with zeros: normal(0, s) with
-    s = min(std, fan_in ** -0.5) for float kernels, tables and queries;
+    s = min(std, fan_in ** -0.5) for float kernels, tables and queries
+    (fan_in: the ``in`` of a JAX-layout [..., in, out] kernel; in * kh * kw
+    of a torch-layout conv ``weight`` [out, in, kh, kw]);
     1 + normal(0, 0.1) for norm scales; normal(0, 0.02) for biases.
     Integer leaves and quantizer scales are left to the quantizer.  Values
     are drawn in fp32 on the module's device, one buffer (or trainable
@@ -249,7 +251,10 @@ def init_normal_(module: nn.Module, generator: torch.Generator,
         elif leaf == "bias":
             noise = 0.02 * noise
         else:
-            fan_in = buf.shape[-2] if buf.dim() >= 2 else buf.shape[-1]
+            if leaf == "weight":     # torch-layout conv [out, in, kh, kw]
+                fan_in = buf[0].numel()
+            else:                    # JAX-layout [..., in, out]
+                fan_in = buf.shape[-2] if buf.dim() >= 2 else buf.shape[-1]
             noise = noise * min(std, 1.0 / math.sqrt(fan_in))
         buf.copy_(noise)
     return module

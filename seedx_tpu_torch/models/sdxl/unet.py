@@ -1,0 +1,456 @@
+"""SDXL UNet2DCondition (reference: seedx_tpu/models/sdxl/unet.py; the
+diffusers UNet the reference drives, src/inference/eval_text2img_seed_x_i.py:64,
+and the 8-channel ``conv_in`` of SEED-X-Edit, adapter_modules.py:183-209).
+
+SDXL base geometry: block channels (320, 640, 1280), transformer depths
+(0, 2, 10), heads = C / 64, 2 resnets a down block and 3 an up block, a
+depth-10 mid block, 2048-d cross-attention context, and the "text_time"
+added embedding (1280-d pooled ``text_embeds`` + 6 ``time_ids`` through
+256-d sincos -> 2816 -> 1280).
+
+Activations are NHWC, as in the JAX package; each convolution runs on a
+permuted view (channels-last memory), and conv weights are stored in
+torch's ``[out, in, kh, kw]`` order in channels-last memory
+(``utils/convert.py`` transposes the JAX ``[kh, kw, in, out]`` kernels).
+Dense and conv weights are stored in the compute dtype (the JAX package
+keeps fp32 parameters and casts them at every use: the same values); norm
+scales and biases stay fp32, as the JAX norms read them.  With
+``quantize="int8"`` every block Dense / conv holds an int8 weight and an
+fp32 per-output-channel scale applied to the output (``Dense8`` /
+``Conv8``).  Self-attention goes through ``dot_product_attention(...,
+impl="auto")``, as in the JAX module: the flash kernel (K1) for a CUDA
+bf16 tensor, the plain path otherwise; cross-attention (64 context
+tokens) is plain.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from seedx_tpu_torch.ops.attention import dot_product_attention
+from seedx_tpu_torch.ops.norms import (group_norm_fp32_stats,
+                                       layer_norm_fp32_stats)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4               # 8 for the Edit variant
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280)
+    layers_per_block: int = 2
+    transformer_layers: Tuple[int, ...] = (0, 2, 10)  # 0 = plain DownBlock
+    cross_attention_dim: int = 2048
+    attention_head_dim: int = 64
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
+    norm_num_groups: int = 32
+    # "int8": every block Dense / conv weight int8 with per-output fp32
+    # scales (utils/quantize.quantize_unet_params); the time / added-cond
+    # embeds and conv_in / conv_out stay high precision
+    quantize: str = "none"
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+def sdxl_base_unet(**overrides) -> UNetConfig:
+    return UNetConfig(**overrides)
+
+
+def sdxl_edit_unet(**overrides) -> UNetConfig:
+    """8-channel conv_in variant for SEED-X-Edit
+    (reference: adapter_modules.py:183-198)."""
+    overrides.setdefault("in_channels", 8)
+    return UNetConfig(**overrides)
+
+
+def sdxl_debug_unet(**overrides) -> UNetConfig:
+    kw = dict(block_out_channels=(32, 64), transformer_layers=(0, 1),
+              cross_attention_dim=64, attention_head_dim=32,
+              norm_num_groups=8, addition_time_embed_dim=32,
+              projection_class_embeddings_input_dim=32 * 6 + 64)
+    kw.update(overrides)
+    return UNetConfig(**kw)
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       max_period: float = 10000.0,
+                       flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0) -> torch.Tensor:
+    """Sinusoidal embedding (diffusers get_timestep_embedding semantics),
+    fp32."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device)
+    exponent = exponent / (half - downscale_freq_shift)
+    freqs = torch.exp(exponent)
+    args = timesteps.float()[..., None] * freqs
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over NHWC with fp32 statistics, input-dtype output."""
+
+    def __init__(self, channels: int, num_groups: int, epsilon: float = 1e-5,
+                 device=None):
+        super().__init__()
+        self.num_groups, self.epsilon = num_groups, epsilon
+        self.register_buffer("scale", torch.ones(channels, device=device))
+        self.register_buffer("bias", torch.zeros(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_fp32_stats(x, self.scale, self.bias,
+                                     self.num_groups, self.epsilon)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with fp32 statistics and affine, input-dtype output."""
+
+    def __init__(self, dim: int, epsilon: float = 1e-5, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.register_buffer("scale", torch.ones(dim, device=device))
+        self.register_buffer("bias", torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_fp32_stats(x, self.scale, self.bias, self.epsilon)
+
+
+class Dense(nn.Module):
+    """``nn.Dense`` (``kernel`` [in, out] in the compute dtype) or, with
+    ``quantize="int8"``, ``Dense8``: ``kernel_q`` int8 and a per-output fp32
+    ``kernel_scale`` applied to the output, ``(x @ w) * s == x @ (w * s)``
+    for per-output scales, so the int8 weight is only cast."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 quantize: str = "none", dtype=torch.bfloat16, device=None):
+        super().__init__()
+        if quantize not in ("none", "int8"):
+            raise ValueError(f"quantize must be none|int8: {quantize}")
+        self.quantize, self.dtype, self.use_bias = quantize, dtype, use_bias
+        if quantize == "int8":
+            self.register_buffer("kernel_q", torch.zeros(
+                (in_features, features), dtype=torch.int8, device=device))
+            self.register_buffer("kernel_scale", torch.ones(
+                features, device=device))
+        else:
+            self.register_buffer("kernel", torch.zeros(
+                (in_features, features), dtype=dtype, device=device))
+        if use_bias:
+            self.register_buffer("bias", torch.zeros(features, dtype=dtype,
+                                                     device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if self.quantize == "int8":
+            y = (x @ self.kernel_q.to(self.dtype)) \
+                * self.kernel_scale.to(self.dtype)
+        else:
+            y = x @ self.kernel
+        return y + self.bias if self.use_bias else y
+
+
+Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
+
+
+class Conv(nn.Module):
+    """2-D convolution on NHWC activations: ``nn.Conv`` (``weight`` [out,
+    in, kh, kw] in the compute dtype, channels-last memory) or, with
+    ``quantize="int8"``, ``Conv8``: ``weight_q`` int8 and a per-output fp32
+    ``kernel_scale`` applied to the output.  ``padding`` is symmetric (an
+    int) or ((top, bottom), (left, right))."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: Tuple[int, int], stride: int = 1,
+                 padding: Padding = 0, quantize: str = "none",
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        if quantize not in ("none", "int8"):
+            raise ValueError(f"quantize must be none|int8: {quantize}")
+        self.quantize, self.dtype = quantize, dtype
+        self.stride, self.padding = stride, padding
+        shape = (features, in_channels) + tuple(kernel_size)
+        if quantize == "int8":
+            self.register_buffer("weight_q", torch.zeros(
+                shape, dtype=torch.int8, device=device).contiguous(
+                    memory_format=torch.channels_last))
+            self.register_buffer("kernel_scale", torch.ones(
+                features, device=device))
+        else:
+            self.register_buffer("weight", torch.zeros(
+                shape, dtype=dtype, device=device).contiguous(
+                    memory_format=torch.channels_last))
+        self.register_buffer("bias", torch.zeros(features, dtype=dtype,
+                                                 device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        pad = self.padding
+        if not isinstance(pad, int):
+            (top, bottom), (left, right) = pad
+            x, pad = F.pad(x, (left, right, top, bottom)), 0
+        if self.quantize == "int8":
+            y = F.conv2d(x, self.weight_q.to(self.dtype), None, self.stride,
+                         pad)
+            y = y * self.kernel_scale.to(self.dtype)[:, None, None] \
+                + self.bias[:, None, None]
+        else:
+            y = F.conv2d(x, self.weight, self.bias, self.stride, pad)
+        return y.permute(0, 2, 3, 1)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, cfg: UNetConfig,
+                 device=None):
+        super().__init__()
+        kw = dict(quantize=cfg.quantize, dtype=cfg.dtype, device=device)
+        g = cfg.norm_num_groups
+        self.norm1 = GroupNorm(in_channels, g, device=device)
+        self.conv1 = Conv(in_channels, out_channels, (3, 3), padding=1, **kw)
+        self.time_emb_proj = Dense(cfg.time_embed_dim, out_channels, **kw)
+        self.norm2 = GroupNorm(out_channels, g, device=device)
+        self.conv2 = Conv(out_channels, out_channels, (3, 3), padding=1, **kw)
+        if in_channels != out_channels:
+            self.conv_shortcut = Conv(in_channels, out_channels, (1, 1), **kw)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if hasattr(self, "conv_shortcut"):
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, query_dim: int, context_dim: int, cfg: UNetConfig,
+                 device=None):
+        super().__init__()
+        kw = dict(quantize=cfg.quantize, dtype=cfg.dtype, device=device)
+        self.heads = query_dim // cfg.attention_head_dim
+        self.head_dim = cfg.attention_head_dim
+        self.to_q = Dense(query_dim, query_dim, use_bias=False, **kw)
+        self.to_k = Dense(context_dim, query_dim, use_bias=False, **kw)
+        self.to_v = Dense(context_dim, query_dim, use_bias=False, **kw)
+        self.to_out = Dense(query_dim, query_dim, **kw)
+
+    def forward(self, x: torch.Tensor, context=None) -> torch.Tensor:
+        context = x if context is None else context
+
+        def split(t):
+            return t.reshape(*t.shape[:-1], self.heads, self.head_dim)
+
+        # auto: self-attention (4096 / 1024 tokens at 1024^2, no mask) takes
+        # the flash kernel on the card; cross-attention (kv = the 64
+        # detokenizer tokens) stays plain
+        out = dot_product_attention(split(self.to_q(x)),
+                                    split(self.to_k(context)),
+                                    split(self.to_v(context)), impl="auto")
+        return self.to_out(out.reshape(*x.shape[:-1], -1))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, dim_out: int, cfg: UNetConfig, device=None):
+        super().__init__()
+        self.proj = Dense(dim, dim_out * 2, quantize=cfg.quantize,
+                          dtype=cfg.dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, cfg: UNetConfig, device=None):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, device=device)
+        self.attn1 = CrossAttention(dim, dim, cfg, device)
+        self.norm2 = LayerNorm(dim, device=device)
+        self.attn2 = CrossAttention(dim, cfg.cross_attention_dim, cfg, device)
+        self.norm3 = LayerNorm(dim, device=device)
+        self.ff_geglu = GEGLU(dim, dim * 4, cfg, device)
+        self.ff_out = Dense(dim * 4, dim, quantize=cfg.quantize,
+                            dtype=cfg.dtype, device=device)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff_out(self.ff_geglu(self.norm3(x)))
+
+
+class Transformer2D(nn.Module):
+    def __init__(self, channels: int, depth: int, cfg: UNetConfig,
+                 device=None):
+        super().__init__()
+        kw = dict(quantize=cfg.quantize, dtype=cfg.dtype, device=device)
+        # diffusers Transformer2DModel's GroupNorm uses eps 1e-6 (the
+        # resnets' 1e-5)
+        self.norm = GroupNorm(channels, cfg.norm_num_groups, 1e-6, device)
+        self.proj_in = Dense(channels, channels, **kw)
+        self.depth = depth
+        for i in range(depth):
+            setattr(self, f"block_{i}",
+                    BasicTransformerBlock(channels, cfg, device))
+        self.proj_out = Dense(channels, channels, **kw)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        hidden = self.proj_in(self.norm(x).reshape(b, h * w, c))
+        for i in range(self.depth):
+            hidden = getattr(self, f"block_{i}")(hidden, context)
+        return self.proj_out(hidden).reshape(b, h, w, c) + x
+
+
+class Downsample(nn.Module):
+    def __init__(self, channels: int, cfg: UNetConfig, device=None):
+        super().__init__()
+        self.conv = Conv(channels, channels, (3, 3), stride=2, padding=1,
+                         quantize=cfg.quantize, dtype=cfg.dtype,
+                         device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
+    """NHWC nearest-neighbour x2 (every pixel repeated 2 x 2)."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+class Upsample(nn.Module):
+    def __init__(self, channels: int, cfg: UNetConfig, device=None):
+        super().__init__()
+        self.conv = Conv(channels, channels, (3, 3), padding=1,
+                         quantize=cfg.quantize, dtype=cfg.dtype,
+                         device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(upsample_nearest(x))
+
+
+class UNet2DCondition(nn.Module):
+    def __init__(self, cfg: UNetConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        ch0, ted, dt = cfg.block_out_channels[0], cfg.time_embed_dim, cfg.dtype
+        self.time_embed_1 = Dense(ch0, ted, dtype=dt, device=device)
+        self.time_embed_2 = Dense(ted, ted, dtype=dt, device=device)
+        self.add_embed_1 = Dense(cfg.projection_class_embeddings_input_dim,
+                                 ted, dtype=dt, device=device)
+        self.add_embed_2 = Dense(ted, ted, dtype=dt, device=device)
+        self.conv_in = Conv(cfg.in_channels, ch0, (3, 3), padding=1, dtype=dt,
+                            device=device)
+
+        n_blocks = len(cfg.block_out_channels)
+        ch_in, skips = ch0, [ch0]
+        for i, ch in enumerate(cfg.block_out_channels):
+            for j in range(cfg.layers_per_block):
+                setattr(self, f"down_{i}_res_{j}",
+                        ResnetBlock(ch_in, ch, cfg, device))
+                if cfg.transformer_layers[i]:
+                    setattr(self, f"down_{i}_attn_{j}", Transformer2D(
+                        ch, cfg.transformer_layers[i], cfg, device))
+                ch_in = ch
+                skips.append(ch)
+            if i < n_blocks - 1:
+                setattr(self, f"down_{i}_downsample",
+                        Downsample(ch, cfg, device))
+                skips.append(ch)
+
+        ch = cfg.block_out_channels[-1]
+        self.mid_res_0 = ResnetBlock(ch, ch, cfg, device)
+        if cfg.transformer_layers[-1]:
+            self.mid_attn = Transformer2D(ch, cfg.transformer_layers[-1], cfg,
+                                          device)
+        self.mid_res_1 = ResnetBlock(ch, ch, cfg, device)
+
+        for i, ch in enumerate(reversed(cfg.block_out_channels)):
+            depth = cfg.transformer_layers[n_blocks - 1 - i]
+            for j in range(cfg.layers_per_block + 1):
+                setattr(self, f"up_{i}_res_{j}",
+                        ResnetBlock(ch_in + skips.pop(), ch, cfg, device))
+                if depth:
+                    setattr(self, f"up_{i}_attn_{j}",
+                            Transformer2D(ch, depth, cfg, device))
+                ch_in = ch
+            if i < n_blocks - 1:
+                setattr(self, f"up_{i}_upsample", Upsample(ch, cfg, device))
+
+        self.conv_norm_out = GroupNorm(ch0, cfg.norm_num_groups, device=device)
+        self.conv_out = Conv(ch0, cfg.out_channels, (3, 3), padding=1,
+                             dtype=dt, device=device)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                text_embeds: torch.Tensor,
+                time_ids: torch.Tensor) -> torch.Tensor:
+        """Args (NHWC): sample [B, H, W, in_channels] noisy latents (+ the
+        condition latents channel-concat for the Edit variant), timesteps
+        [B] or scalar, encoder_hidden_states [B, T, cross_attention_dim],
+        text_embeds [B, pooled], time_ids [B, 6].  Returns the eps
+        prediction [B, H, W, out_channels] in the compute dtype."""
+        cfg = self.cfg
+        b = sample.shape[0]
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(b)
+
+        temb = timestep_embedding(timesteps, cfg.block_out_channels[0])
+        temb = self.time_embed_2(F.silu(self.time_embed_1(temb)))
+        tids = timestep_embedding(time_ids.reshape(-1),
+                                  cfg.addition_time_embed_dim).reshape(b, -1)
+        add = torch.cat([text_embeds.float(), tids], dim=-1)
+        temb = temb + self.add_embed_2(F.silu(self.add_embed_1(add)))
+
+        context = encoder_hidden_states.to(cfg.dtype)
+        x = self.conv_in(sample)
+
+        skips = [x]
+        n_blocks = len(cfg.block_out_channels)
+        for i in range(n_blocks):
+            for j in range(cfg.layers_per_block):
+                x = getattr(self, f"down_{i}_res_{j}")(x, temb)
+                if cfg.transformer_layers[i]:
+                    x = getattr(self, f"down_{i}_attn_{j}")(x, context)
+                skips.append(x)
+            if i < n_blocks - 1:
+                x = getattr(self, f"down_{i}_downsample")(x)
+                skips.append(x)
+
+        x = self.mid_res_0(x, temb)
+        if cfg.transformer_layers[-1]:
+            x = self.mid_attn(x, context)
+        x = self.mid_res_1(x, temb)
+
+        for i in range(n_blocks):
+            depth = cfg.transformer_layers[n_blocks - 1 - i]
+            for j in range(cfg.layers_per_block + 1):
+                x = torch.cat([x, skips.pop()], dim=-1)
+                x = getattr(self, f"up_{i}_res_{j}")(x, temb)
+                if depth:
+                    x = getattr(self, f"up_{i}_attn_{j}")(x, context)
+            if i < n_blocks - 1:
+                x = getattr(self, f"up_{i}_upsample")(x)
+
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
+def flash_launches_per_eval(cfg: UNetConfig) -> int:
+    """Self-attention calls of one UNet eval (one K1 launch each on the
+    card): down and up blocks of every level with transformers, and the
+    mid block (70 for SDXL base)."""
+    per_level = sum(d * (2 * cfg.layers_per_block + 1)
+                    for d in cfg.transformer_layers)
+    return per_level + cfg.transformer_layers[-1]

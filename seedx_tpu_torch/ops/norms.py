@@ -29,3 +29,19 @@ def layer_norm_fp32_stats(x: torch.Tensor, scale: torch.Tensor,
     normed = (xf - mean) * torch.rsqrt(var + eps)
     out = normed * scale.float() + bias.float()
     return out.to(dtype)
+
+
+def group_norm_fp32_stats(x: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, num_groups: int,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over a channels-last tensor ([B, ..., C]) with fp32
+    statistics and input-dtype output: mean and E[x^2] - mean^2 per (batch,
+    group) over every spatial position and the group's channels, the
+    affine in fp32."""
+    dtype = x.dtype
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(b, -1, num_groups, c // num_groups)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean
+    normed = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return (normed * scale.float() + bias.float()).to(dtype)

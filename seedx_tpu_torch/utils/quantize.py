@@ -4,7 +4,10 @@ whose numpy packers cannot be imported here: that module imports jax).
 The packers give the same bytes as the JAX package's, so one quantized
 tree feeds both packages: int8 per-output-channel kernels, int8 per-row
 embedding tables, and int4 row-pair nibbles with per-(group, out) scales.
-They run on whatever device the weight lives on, one matrix at a time.
+They run on whatever device the weight lives on, one matrix at a time,
+and give the same bytes on the card as on the CPU: each scale divides by
+a tensor (ATen divides a CUDA tensor by a Python number as a multiply by
+its reciprocal, one ulp off the division).
 """
 
 from __future__ import annotations
@@ -18,11 +21,17 @@ QUANT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
                  "gate_proj", "up_proj", "down_proj")
 
 
+def _absmax_scale(absmax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """max(absmax, 1e-8) / qmax, a true fp32 division on every device."""
+    absmax = torch.clamp(absmax, min=1e-8)
+    return absmax / torch.full_like(absmax, qmax)
+
+
 def quantize_kernel(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[..., in, out] -> (int8 same shape, fp32 scale [..., out]):
     symmetric absmax over the in dim."""
     k = kernel.float()
-    scale = torch.clamp(k.abs().amax(dim=-2), min=1e-8) / 127.0
+    scale = _absmax_scale(k.abs().amax(dim=-2), 127.0)
     q = torch.clamp(torch.round(k / scale.unsqueeze(-2)), -127, 127)
     return q.to(torch.int8), scale
 
@@ -41,7 +50,7 @@ def quantize_kernel_int4(kernel: torch.Tensor, group: int = 128
     if n_in % group:
         group = n_in
     g = k.reshape(*lead, n_in // group, group, n_out)
-    scale = torch.clamp(g.abs().amax(dim=-2), min=1e-8) / 7.0
+    scale = _absmax_scale(g.abs().amax(dim=-2), 7.0)
     q = torch.clamp(torch.round(g / scale.unsqueeze(-2)), -7, 7)
     q = q.to(torch.int16).reshape(*lead, n_in, n_out)
     packed = (q[..., 0::2, :] & 0xF) | ((q[..., 1::2, :] & 0xF) << 4)
@@ -52,7 +61,7 @@ def quantize_embedding(table: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[vocab, hidden] -> (int8 table, fp32 per-row scale [vocab])."""
     t = table.float()
-    scale = torch.clamp(t.abs().amax(dim=-1), min=1e-8) / 127.0
+    scale = _absmax_scale(t.abs().amax(dim=-1), 127.0)
     q = torch.clamp(torch.round(t / scale[:, None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -85,6 +94,39 @@ def quantize_llama_params(state: Dict[str, torch.Tensor],
         elif full and parts[-1] == "embedding":
             out[base + ".embedding_q"], out[base + ".embedding_scale"] = \
                 quantize_embedding(v)
+        else:
+            out[key] = v
+    return out
+
+
+# kept high precision in the int8 UNet: tiny and numerically sensitive
+UNET_SKIP_PREFIXES = ("time_embed_1", "time_embed_2", "add_embed_1",
+                      "add_embed_2", "conv_in", "conv_out")
+
+
+def quantize_unet_params(state: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """Full-precision SDXL UNet state (the port's flat names) -> the layout
+    ``UNetConfig(quantize="int8")`` expects: every block Dense ``kernel``
+    [in, out] becomes ``kernel_q`` int8 + ``kernel_scale`` fp32 [out], every
+    block conv ``weight`` [out, in, kh, kw] ``weight_q`` int8 (same layout
+    and memory format) + ``kernel_scale``, symmetric per-output-channel
+    absmax (the JAX package's bytes: it takes the absmax of its
+    [kh, kw, in, out] kernel over all but the out axis); biases and norms
+    stay as they are, and so do the time / added-cond embeds and conv_in /
+    conv_out (``UNET_SKIP_PREFIXES``)."""
+    out = {}
+    for key, v in state.items():
+        base, _, leaf = key.rpartition(".")
+        skip = key.split(".")[0] in UNET_SKIP_PREFIXES
+        if leaf == "kernel" and not skip:
+            out[base + ".kernel_q"], out[base + ".kernel_scale"] = \
+                quantize_kernel(v)
+        elif leaf == "weight" and not skip:
+            q, scale = quantize_kernel(v.reshape(v.shape[0], -1).T)
+            out[base + ".weight_q"] = q.T.reshape(v.shape).contiguous(
+                memory_format=torch.channels_last)
+            out[base + ".kernel_scale"] = scale
         else:
             out[key] = v
     return out

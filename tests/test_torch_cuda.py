@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, at the shapes of the image-in comprehension turn, of batched decode
-and of the SFT train step (the flash backward).
+card, at the shapes of the image-in comprehension turn, of batched decode,
+of the SFT train step (the flash backward) and of the SDXL UNet (K1 in its
+self-attention, and the UNet with K1 against the plain attention).
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  This file
 imports no JAX, so it runs on a machine that has none; the suite's
@@ -12,11 +13,14 @@ tests/test_torch_cuda.py``.
 import pytest
 import torch
 
+from seedx_tpu_torch.models.layers import init_normal_
+from seedx_tpu_torch.models.sdxl import unet as tunet
 from seedx_tpu_torch.ops import attention as tattn
 from seedx_tpu_torch.ops import decode_attention as tdecode
 from seedx_tpu_torch.ops import flash_attention as tflash
 from seedx_tpu_torch.ops import int4_matmul as tint4
 from seedx_tpu_torch.utils import quantize as tquant
+from seedx_tpu_torch.utils.quantize import quantize_unet_params
 
 
 @pytest.fixture
@@ -65,6 +69,9 @@ def reachable_tiles(d: int, causal: bool):
     # flash backward checks read lse from
     (2, 4096, 4096, 10, 64, False, 0, 4096, 0),
     (2, 1024, 1024, 20, 64, False, 0, 1024, 0),
+    # ... and at the edit UNet's CFG batch 3
+    (3, 4096, 4096, 10, 64, False, 0, 4096, 0),
+    (3, 1024, 1024, 20, 64, False, 0, 1024, 0),
     (2, 512, 512, 16, 64, False, (0, 7), (512, 400), 0),
     # tile edges: q_offset and window start off the 64 grid, Sq < 64, a
     # row with an empty window, causal rows wholly before the window (dead
@@ -600,3 +607,88 @@ def test_flash_autograd_matches_plain_autograd_on_card(cuda_device):
     for a, r in zip(grads["flash"], grads["plain"]):
         torch.testing.assert_close(a.float(), r.float(), rtol=0,
                                    atol=2e-2 * r.float().abs().max().item())
+
+
+# UNet eps with K1 against the plain attention (or the card against the
+# CPU), bf16: each of the attention outputs differs by a few bf16 ULPs,
+# carried through the residual stream to the output
+UNET_REL = 5e-2
+
+
+def _unet(cfg, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return init_normal_(tunet.UNet2DCondition(cfg, device).eval(), g)
+
+
+def _unet_args(cfg, b, hw, device, seed=1):
+    g = torch.Generator(device=device).manual_seed(seed)
+    pooled = (cfg.projection_class_embeddings_input_dim
+              - 6 * cfg.addition_time_embed_dim)
+    return (torch.randn((b, hw, hw, cfg.in_channels), generator=g,
+                        device=device),
+            torch.tensor([981.0, 501.0, 21.0][:b], device=device),
+            torch.randn((b, 64, cfg.cross_attention_dim), generator=g,
+                        device=device),
+            torch.randn((b, pooled), generator=g, device=device),
+            torch.tensor([[hw * 8.0, hw * 8.0, 0.0, 0.0, hw * 8.0,
+                           hw * 8.0]], device=device).expand(b, 6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["debug", "mid"])
+def test_unet_k1_matches_plain_attention(cuda_device, monkeypatch, which):
+    """The debug UNet (head dim 32, padded to 64 for K1; 3 CFG branches at
+    16 x 16) and a mid-width UNet (one level of 640 channels, 10 heads of
+    64, 32 x 32 latents: K1 at 1024 tokens) with K1 against the same
+    weights with the plain attention; K1 launches once per self-attention
+    and never under the plain path."""
+    if which == "debug":
+        cfg, b, hw = tunet.sdxl_debug_unet(in_channels=8), 3, 32
+    else:
+        cfg, b, hw = tunet.UNetConfig(block_out_channels=(640,),
+                                      transformer_layers=(2,)), 2, 32
+    unet = _unet(cfg, cuda_device)
+    args = _unet_args(cfg, b, hw, cuda_device)
+    n1 = tflash.flash_fwd.launches
+    with torch.no_grad():
+        eps = unet(*args)
+    torch.cuda.synchronize()
+    assert tflash.flash_fwd.launches - n1 == tunet.flash_launches_per_eval(
+        cfg)
+    orig = tunet.dot_product_attention
+    monkeypatch.setattr(tunet, "dot_product_attention",
+                        lambda *a, **kw: orig(*a, **{**kw, "impl": "plain"}))
+    n2 = tflash.flash_fwd.launches
+    with torch.no_grad():
+        ref = unet(*args)
+    torch.cuda.synchronize()
+    assert tflash.flash_fwd.launches == n2
+    assert eps.shape == (b, hw, hw, 4) and torch.isfinite(eps).all()
+    torch.testing.assert_close(eps.float(), ref.float(), rtol=0,
+                               atol=UNET_REL * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_quantize_unet_on_card_matches_cpu(cuda_device):
+    """``quantize_unet_params`` on the card gives the CPU's int8 bytes and
+    scales, and the int8 debug UNet on the card (K1) the CPU's eps (plain
+    attention)."""
+    cfg = tunet.sdxl_debug_unet(in_channels=8)
+    cpu = _unet(cfg, "cpu")
+    card = tunet.UNet2DCondition(cfg, cuda_device).eval()
+    card.load_state_dict(cpu.state_dict())
+    q_cpu = quantize_unet_params(cpu.state_dict())
+    q_card = quantize_unet_params(card.state_dict())
+    assert set(q_cpu) == set(q_card)
+    for k, v in q_cpu.items():
+        assert torch.equal(q_card[k].cpu(), v), k
+    qcfg = tunet.sdxl_debug_unet(in_channels=8, quantize="int8")
+    args = _unet_args(qcfg, 3, 32, "cpu")
+    eps = []
+    for dev, q in (("cpu", q_cpu), (cuda_device, q_card)):
+        unet = tunet.UNet2DCondition(qcfg, dev).eval()
+        unet.load_state_dict(q)
+        with torch.no_grad():
+            eps.append(unet(*(t.to(dev) for t in args)).float().cpu())
+    torch.testing.assert_close(eps[1], eps[0], rtol=0,
+                               atol=UNET_REL * eps[0].abs().max().item())
