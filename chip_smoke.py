@@ -22,48 +22,65 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    computing the same function (K2 at rows 1 / 8 / 24 / 65 / 512 / 2048
    on the 13B's three shapes and a debug shape, with a cuBLAS int8
    ``torch._int_mm`` yardstick line at rows >= 24, which has no group
-   scales and so is no library time); then a tiny stack on the card against the
-   same weights on the CPU (plain versions): ViT features, prefill logits
-   and batched decode steps, and the debug adapter's
+   scales and so is no library time); the agent's quantizers (int4 group
+   128 and int8 at the 13B's projection shapes, the int8 embedding) on
+   the card against the CPU, byte for byte; then a tiny stack on the card
+   against the same weights on the CPU (plain versions): ViT features,
+   prefill logits and batched decode steps, and the debug adapter's
    ``reconstruct_with_condition`` images from the same noise;
 4. the turn: ViT-bigG/14-448 (bf16) and the SEED-X agent (LLaMA2-13B,
    int4 weights, int8 KV cache, 64-query resamplers) with random weights
    drawn on the card from a seed; three ``comprehend`` requests on images
    of three aspect ratios and one ``generate`` request ending in ``<img>``
-   (the forced 65-token chunk and the output resampler);
+   (the forced 65-token chunk and the output resampler).  Decode runs as
+   it does for a user: its one-token step a captured CUDA graph,
+   replayed (``seedx_tpu_torch/utils/graphs.py``), and so do the denoise
+   loop's UNet evals and the engines' steps in the phases below;
 5. serving on the same runtime: a ``ServingEngine`` flush of 8 requests,
    ``ContinuousEngine`` with 8 slots over 16 requests, dense, paged, fused
-   dense and fused paged (paged streams must equal dense ones, fused paged
-   fused dense); then the non-fused dense engine's tokens are forced
-   (``Teacher``) through the fused engine, packed and windowed (dense and
-   paged), and through the batched loop: each fused run's logits must lie
-   within ``LOGIT_FACTOR`` times the batched loop's difference from the
-   engine, windowed paged must equal windowed dense, and where the greedy
-   fused and non-fused streams part the gap is logged; a torch.profiler
-   window over one decode chunk at 1 and at 8 live slots and over one
-   fused mixed chunk at 8 (device busy share, K3's device ms), and
-   ``SeedXServer`` answering 4 concurrent HTTP requests on 127.0.0.1;
+   dense, fused paged (packed) and fused windowed paged, each run with
+   its step programs captured and then again eager (token streams and
+   hidden states bit-equal; paged streams must equal dense ones, fused
+   paged fused dense); then the non-fused dense engine's tokens are forced
+   (``Teacher``, eager) through the fused engine, packed and windowed
+   (dense and paged), and through the batched loop: each fused run's
+   logits must lie within ``LOGIT_FACTOR`` times the batched loop's
+   difference from the engine, windowed paged must equal windowed dense,
+   and where the greedy fused and non-fused streams part the gap is
+   logged; a torch.profiler window over one decode chunk at 1 and at 8
+   live slots and over one fused mixed chunk at 8, captured and eager
+   (device busy share, K3's device ms), and ``SeedXServer`` (warmed up)
+   answering 4 concurrent HTTP requests on 127.0.0.1;
 6. chat: three turns (an image in the first) through a ``ChatSession``
    with the KV prefix cache and one without (the cache must be reused),
    a cached session forced along the uncached replies (its logits held to
    the same limit), then two ``/v1/chat`` POSTs on one session;
-7. parity: the agent cut to ``PARITY_LAYERS`` layers at the same width and
+7. graphs: the turn at B 1 (the ``<img>`` request and a comprehension
+   reply), ``generate_batch`` at B 8 and three chat turns (the last
+   ending at n == t), each with its decode captured and then eager:
+   tokens, hidden states, finished flags, the chat cache's bytes and the
+   kernels' launches must be equal; decode ms a step and tok/s of both;
+8. parity: the agent cut to ``PARITY_LAYERS`` layers at the same width and
    seed runs phase 5's 16 requests non-fused and fused, and phase 6's chat
    turns; the streams must be equal or part only at a tie (``TIE_ULPS``
    bf16 steps of the forced logits);
-8. image out on the phase-4 runtime with a full-width adapter (random
+9. image out on the phase-4 runtime with a full-width adapter (random
    weights from seed 0: ResamplerXL, the SDXL base UNet in bf16, the SDXL
    VAE in fp32): one UNet eval with K1 against the plain attention
    (``UNET_K1_REL``), the UNet's device ms a step at CFG 2 and 3 with a
-   profiled eval (busy share, K1's ms), ResamplerXL / VAE ms;
-   ``text_to_image`` (the forced ``<img>`` span, 30 Euler steps at
-   1024^2), ``reconstruct`` of a 448^2 image, 2 steps of the int8 UNet;
-   then the 8-channel edit adapter: ``reconstruct_with_condition`` at
-   1024^2 (3-way CFG), the gi = 1.0 collapse, a ``ServingEngine`` flush of
-   a t2i and an edit request and one ``/v1/generate`` POST.  Every UNet
-   eval must launch K1 70 times, every eps, latent and image (before the
-   clip) be finite, every image [B, 1024, 1024, 3];
-9. train: the SEED-X SFT step at full width (ViT-bigG frozen, LLaMA2-13B
+   profiled eval (busy share, K1's ms), the denoise loop's CFG eval
+   captured and eager (eps bit-equal; wall ms, busy share, capture time
+   and graph pool of each: base bf16 and int8 at CFG 2, edit bf16 and
+   int8 at CFG 3), ResamplerXL / VAE ms; ``text_to_image`` (the forced
+   ``<img>`` span, 30 Euler steps at 1024^2) captured and again eager
+   (the images bit-equal), ``reconstruct`` of a 448^2 image, 2 steps of
+   the int8 UNet; then the 8-channel edit adapter:
+   ``reconstruct_with_condition`` at 1024^2 (3-way CFG), the gi = 1.0
+   collapse, a ``ServingEngine`` flush of a t2i and an edit request and
+   one ``/v1/generate`` POST.  Every UNet eval must launch K1 70 times,
+   every eps, latent and image (before the clip) be finite, every image
+   [B, 1024, 1024, 3];
+10. train: the SEED-X SFT step at full width (ViT-bigG frozen, LLaMA2-13B
    bf16 frozen, LoRA r32 on the seven projections, both resamplers, the
    embedding and LM head trainable in fp32) on SFT batches built by the
    port's encoders and ``collate_anyres`` (2 conversations at 880 tokens
@@ -75,18 +92,20 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    on each repeated batch, the frozen weights stay bit-equal, the final
    checkpoint read back bit-equal) and one step with gradient
    accumulation 2;
-10. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
+11. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
    line ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-9 runs with the launch counters set to 0 just
+Every path of phases 4-10 runs with the launch counters set to 0 just
 before it and read just after, and fails unless each kernel it runs was
-launched (the fused engines: K3 in its multi-query mode).  In the kernels
-line ``launches`` is the sum over the main path's runs of phases 4-6, 8
-and 9 (the turn, the serving engines and HTTP, the chat sessions, the
-image-out runs, the train steps), with K3's by mode and K2's by row tile (``launches_by_tile``; its
-calls by row band are logged); the forced runs, phase 7 and the gradient
-check, and the UNet's K1-against-plain eval print theirs on a line of
-their own.  ``max_abs_err`` is the
+launched (the fused engines: K3 in its multi-query mode); a captured
+program adds its launches at every replay, so the counters count what
+ran.  In the kernels line ``launches`` is the sum over the main path's
+runs of phases 4-6, 9 and 10 (the turn, the serving engines and HTTP,
+the chat sessions, the image-out runs, the train steps), with K3's by
+mode and K2's by row tile (``launches_by_tile``; its calls by row band
+are logged); the eager twins of phases 5, 7 and 9, the forced runs,
+phase 8 and the gradient check, and the UNet's K1-against-plain eval
+print theirs on a line of their own.  ``max_abs_err`` is the
 largest over the kernel's shapes, and ``ms``, ``plain_ms`` and
 ``bound_ms`` sums of one call at each shape; ``library_ms`` sums the
 shapes named in ``library_shapes``.
@@ -725,6 +744,39 @@ def check_kernels(dev):
     return rows
 
 
+def check_quantizers(dev) -> None:
+    """The agent's quantizers on the card against the CPU, byte for byte:
+    ``quantize_kernel_int4`` (group 128) and ``quantize_kernel`` at the
+    13B's three projection shapes, ``quantize_embedding`` over the 32330
+    x 5120 table."""
+    import torch
+
+    from seedx_tpu_torch.utils import quantize as q
+
+    g = torch.Generator().manual_seed(11)
+    cases = []
+    for n_in, n_out in ((5120, 5120), (5120, 13824), (13824, 5120)):
+        w = torch.empty((n_in, n_out)).normal_(0.0, 0.02, generator=g)
+        cases += [(f"int4 {n_in}->{n_out}", lambda x: q.quantize_kernel_int4(
+            x, 128), w), (f"int8 {n_in}->{n_out}", q.quantize_kernel, w)]
+    cases.append(("embedding 32330x5120", q.quantize_embedding,
+                  torch.empty((32330, 5120)).normal_(0.0, 0.02,
+                                                     generator=g)))
+    for name, fn, w in cases:
+        want = fn(w)
+        got = fn(w.to(dev))
+        same = all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                   for a, b in zip(got, want))
+        if not same:
+            diff = [int((a.cpu() != b).sum()) for a, b in zip(got, want)]
+            raise AssertionError(f"quantizer {name}: the card's codes / "
+                                 f"scales differ from the CPU's in {diff} "
+                                 f"elements")
+    log(f"quantizers: {len(cases)} cases (int4 group 128 and int8 at the "
+        f"13B's projection shapes, the int8 embedding) bit-equal on the "
+        f"card and the CPU")
+
+
 def check_tiny_stack(dev):
     """A tiny int4 + int8-KV stack on the card (kernels) against the same
     weights on the CPU (plain versions): ViT features, prefill logits, and
@@ -833,29 +885,37 @@ def add_counts(into, counts) -> None:
 class Teacher:
     """Teacher forcing through a greedy decode loop.  While active it
     stands in for ``_sample`` in ``module`` (``models.generation``: the
-    batched loop and chat; ``inference.continuous``: the engine).  On each
-    call ``where(call)`` gives every row's key (a request; -1 for none) and
-    the index of the token it samples (an int, or a tensor of one per row).
-    A row whose key has a sequence in ``seqs`` takes that sequence's token,
+    batched loop and chat; ``inference.continuous``: the engine) and runs
+    ``rt``'s programs eagerly (a Python stand-in runs only when a step is
+    traced, not when a captured graph replays).  On each call
+    ``where(call)`` gives every row's key (a request; -1 for none) and the
+    index of the token it samples (an int, or a tensor of one per row).  A
+    row whose key has a sequence in ``seqs`` takes that sequence's token,
     any other row its argmax.  The constrained logits of every call are
     kept by (key, index), a later call winning: a slot that is still
-    prefilling records garbage, which its first decode step overwrites."""
+    prefilling records garbage, which its first decode step overwrites
+    (and a predicated step after decode stopped records garbage past
+    every sequence's end)."""
 
-    def __init__(self, module, where, seqs=None):
-        self.module, self.where, self.seqs = module, where, seqs or {}
+    def __init__(self, rt, module, where, seqs=None):
+        self.rt, self.module, self.where = rt, module, where
+        self.seqs = seqs or {}
         self.calls = []
         self._table = self._index = None
 
     def __enter__(self):
         self.base = self.module._sample
         self.module._sample = self._sample
+        self.graphs = self.rt.graphs.enabled
+        self.rt.graphs.enabled = False
         return self
 
     def __exit__(self, *exc):
         self.module._sample = self.base
-        self.where = None      # it may hold an engine and its KV cache
+        self.rt.graphs.enabled = self.graphs
+        self.where = self.rt = None   # they may hold an engine, a KV cache
 
-    def _sample(self, logits, cfg, generator):
+    def _sample(self, logits, cfg, generator=None, noise=None):
         import torch
 
         keys, idx = self.where(len(self.calls))
@@ -897,6 +957,72 @@ class Teacher:
                             (self._index[(key, j)] for j in range(n))])
 
 
+def keep_hidden(eng) -> dict:
+    """{request id: its hidden states [n, D]}, filled as ``eng``
+    harvests each request."""
+    store = {}
+    base = eng._harvest
+
+    def harvest():
+        running = eng.state["running"].cpu()
+        n = eng.state["n"].cpu()
+        for i, rid in enumerate(eng._slot_req):
+            if rid is not None and not running[i]:
+                store[rid] = eng.state["out_hidden"][i, :n[i]].clone()
+        base()
+
+    eng._harvest = harvest
+    return store
+
+
+@contextlib.contextmanager
+def stash_decode():
+    """Every decode loop's outputs (tokens, hidden, finished; copies)
+    while active, in call order."""
+    from seedx_tpu_torch.models import generation
+
+    outs = []
+    base = generation._decode_loop
+
+    def keep(*a, **kw):
+        out, forwards, n = base(*a, **kw)
+        outs.append({k: v.clone() for k, v in out.items()})
+        return out, forwards, n
+
+    generation._decode_loop = keep
+    try:
+        yield outs
+    finally:
+        generation._decode_loop = base
+
+
+def same_outputs(a, b) -> bool:
+    """Two stashes of decode outputs equal bit for bit."""
+    return len(a) == len(b) and all(
+        torch_equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+def torch_equal(x, y) -> bool:
+    """Two tensors (or two Nones) equal bit for bit."""
+    import torch
+
+    if x is None or y is None:
+        return x is None and y is None
+    return x.shape == y.shape and torch.equal(x, y)
+
+
+def log_programs(label: str, programs) -> None:
+    """Each captured program's capture time, graph pool memory, replays
+    and kernel launches a replay."""
+    for i, p in enumerate(programs):
+        st = p.stats()
+        if st["captured"]:
+            log(f"{label}: graph {i}: captured in {st['capture_s'] * 1e3:.1f}"
+                f" ms, pool {st['pool_bytes'] / 2**20:.1f} MiB, "
+                f"{st['replays']} replays, {st['launches_per_replay']} "
+                f"kernel launches a replay")
+
+
 def engine_rows(eng):
     """``Teacher.where`` for a ``ContinuousEngine``: each slot's request
     id and the index of the token it samples next."""
@@ -932,7 +1058,7 @@ def forced_engine(rt, requests, budgets, seqs, label: str, **kw):
     reset_counts()
     t0 = time.perf_counter()
     eng = continuous.ContinuousEngine(rt, **ENGINE, **kw)
-    with Teacher(continuous, engine_rows(eng), seqs) as t:
+    with Teacher(rt, continuous, engine_rows(eng), seqs) as t:
         ids = [eng.submit(r, max_new_tokens=b)
                for r, b in zip(requests, budgets)]
         res = eng.run()
@@ -988,7 +1114,7 @@ def forced_batched(rt, requests, seqs):
         eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
         prompt_buckets=ENGINE["prompt_buckets"])
     keys = list(range(len(requests)))
-    with Teacher(generation, lambda call: (keys, call), seqs) as t:
+    with Teacher(rt, generation, lambda call: (keys, call), seqs) as t:
         outs = generation.generate_batch(rt.agent, tok, requests, gen_cfg)
     bad = [i for i, o in enumerate(outs)
            if [int(x) for x in o["tokens"][:len(seqs[i])]] != seqs[i]]
@@ -1229,75 +1355,101 @@ def run_serving(rt):
                 sum(len(o["tokens"]) for o in outs), wall, steps,
                 read_counts())
 
-    # -- ContinuousEngine: 8 slots, 16 requests with budgets 8..64
-    # per-chunk host time (closed by a synchronize) of both chunk kinds
+    # -- ContinuousEngine: 8 slots, 16 requests with budgets 8..64; each
+    # variant with its step programs captured (the main path), then the
+    # same run eager: streams and hidden states must be bit-equal
+    # per-chunk host time (closed by the chunk's host read) of both kinds
     timed = {"decode": [0.0, 0], "mixed": [0.0, 0]}
-    bases = {"decode": continuous._decode_chunk,
-             "mixed": continuous._mixed_chunk}
+    base_chunk = continuous.run_chunk
+    current = {}
 
-    def timer(kind):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            n = bases[kind](*a, **kw)
-            torch.cuda.synchronize()
-            timed[kind][0] += time.perf_counter() - t1
-            timed[kind][1] += n
-            return n
-        return run
+    def timed_chunk(program, state, k, *a):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n = base_chunk(program, state, k, *a)
+        kind = ("mixed" if program is current["eng"]._programs.get("mixed")
+                else "decode")
+        timed[kind][0] += time.perf_counter() - t1
+        timed[kind][1] += n
+        return n
 
-    streams = {}
+    streams, eager_streams = {}, {}
     variants = (("dense", {}), ("paged", {"paged": True}),
                 ("fused dense", FUSED),
-                ("fused paged", dict(FUSED, paged=True)))
-    continuous._decode_chunk = timer("decode")
-    continuous._mixed_chunk = timer("mixed")
+                ("fused paged", dict(FUSED, paged=True)),
+                ("fused windowed paged", dict(FUSED, packed=False,
+                                              paged=True)))
+    continuous.run_chunk = timed_chunk
     try:
         for variant, kw in variants:
-            name = f"serving continuous {variant}"
-            for v in timed.values():
-                v[:] = [0.0, 0]
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts()
-            t0 = time.perf_counter()
-            eng = continuous.ContinuousEngine(rt, **ENGINE, **kw)
-            # the non-fused dense run keeps its logits: the reference the
-            # forced runs below are held to (greedy tokens unchanged)
-            rec = (Teacher(continuous, engine_rows(eng)) if variant == "dense"
-                   else contextlib.nullcontext())
-            with rec as t:
-                ids = [eng.submit(r, max_new_tokens=b)
-                       for r, b in zip(requests, budgets)]
-                res = eng.run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            if variant == "dense":
-                ref = t
-            fused = "fused_prefill" in kw
-            add_counts(totals, path_counts(
-                name, ("int4_w4a8", "decode_attn") if fused
-                else ("flash_fwd", "int4_w4a8", "decode_attn")))
-            modes = k3_modes()
-            if fused and modes["multi_query"] <= 0:
-                raise AssertionError(f"{name}: K3 never ran its multi-query "
-                                     f"mode: {modes}")
-            streams[variant] = [list(res[i]["tokens"]) for i in ids]
-            for s_, b in zip(streams[variant], budgets):
-                check_tokens(s_, vocab_size, b)
-            st = eng.stats()
-            per = ", ".join(
-                f"{kind} {t_ / n * 1e3:.2f} ms/step over {n} steps"
-                for kind, (t_, n) in timed.items() if n)
-            engine_line(name, len(ids), sum(map(len, streams[variant])),
-                        wall, f"B8 {per} in {st['chunks']} chunks "
-                        f"({st['mixed_chunks']} mixed)", read_counts())
-            if kw.get("paged") and st["kv_tiles_free"] != st["kv_tiles_total"]:
-                raise AssertionError(f"paged pool leaked pages: {st}")
-            del eng
+            hidden = {}
+            for mode in ("graphs", "eager"):
+                name = f"serving continuous {variant} ({mode})"
+                rt.graphs.enabled = mode == "graphs"
+                for v in timed.values():
+                    v[:] = [0.0, 0]
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.perf_counter()
+                eng = continuous.ContinuousEngine(rt, **ENGINE, **kw)
+                current["eng"] = eng
+                hidden[mode] = keep_hidden(eng)
+                # the non-fused dense eager run keeps its logits: the
+                # reference the forced runs below are held to (greedy
+                # tokens unchanged)
+                rec = (Teacher(rt, continuous, engine_rows(eng))
+                       if (variant, mode) == ("dense", "eager")
+                       else contextlib.nullcontext())
+                with rec as t:
+                    ids = [eng.submit(r, max_new_tokens=b)
+                           for r, b in zip(requests, budgets)]
+                    res = eng.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if (variant, mode) == ("dense", "eager"):
+                    ref = t
+                fused = "fused_prefill" in kw
+                counts = path_counts(
+                    name, ("int4_w4a8", "decode_attn") if fused
+                    else ("flash_fwd", "int4_w4a8", "decode_attn"))
+                add_counts(totals if mode == "graphs" else CHECKS, counts)
+                modes = k3_modes()
+                if fused and modes["multi_query"] <= 0:
+                    raise AssertionError(f"{name}: K3 never ran its "
+                                         f"multi-query mode: {modes}")
+                got = [list(res[i]["tokens"]) for i in ids]
+                (streams if mode == "graphs" else eager_streams)[variant] = got
+                hidden[mode] = [hidden[mode][i] for i in ids]
+                for s_, b in zip(got, budgets):
+                    check_tokens(s_, vocab_size, b)
+                st = eng.stats()
+                per = ", ".join(
+                    f"{kind} {t_ / n * 1e3:.2f} ms/step over {n} steps"
+                    for kind, (t_, n) in timed.items() if n)
+                engine_line(name, len(ids), sum(map(len, got)), wall,
+                            f"B8 {per} in {st['chunks']} chunks "
+                            f"({st['mixed_chunks']} mixed)", read_counts())
+                if mode == "graphs":
+                    log_programs(name, eng._programs.values())
+                if kw.get("paged") and (st["kv_tiles_free"]
+                                        != st["kv_tiles_total"]):
+                    raise AssertionError(f"paged pool leaked pages: {st}")
+                del eng
+                current.clear()
+            same = (streams[variant] == eager_streams[variant],
+                    all(torch.equal(a, b) for a, b in
+                        zip(hidden["graphs"], hidden["eager"])))
+            if not all(same):
+                raise AssertionError(f"serving continuous {variant}: the "
+                                     f"captured run differs from the eager "
+                                     f"one (streams, hidden equal: {same})")
+            log(f"serving continuous {variant}: captured and eager token "
+                f"streams and hidden states bit-equal for all "
+                f"{len(requests)} requests")
     finally:
-        continuous._decode_chunk = bases["decode"]
-        continuous._mixed_chunk = bases["mixed"]
+        continuous.run_chunk = base_chunk
+        rt.graphs.enabled = True
     for a_, b_ in (("paged", "dense"), ("fused paged", "fused dense")):
         if streams[a_] != streams[b_]:
             bad = [i for i, (x, y) in enumerate(zip(streams[a_],
@@ -1309,15 +1461,18 @@ def run_serving(rt):
         "the pool")
     limit = fused_logits_check(rt, requests, budgets, streams, ref)
 
-    for slots in (1, 8):
-        profile_decode(rt, requests, slots)
-    profile_mixed(rt, requests)
+    for graphs in (True, False):
+        rt.graphs.enabled = graphs
+        for slots in (1, 8):
+            profile_decode(rt, requests, slots)
+        profile_mixed(rt, requests)
+    rt.graphs.enabled = True
 
     # -- SeedXServer: 4 concurrent POSTs on 127.0.0.1
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    server = SeedXServer(rt, max_batch_size=8, max_new_tokens=16)
+    server = SeedXServer(rt, max_batch_size=8, max_new_tokens=16).warmup()
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler())
     serve_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     serve_thread.start()
@@ -1467,7 +1622,7 @@ def chat_turns(rt, label: str, enforce: bool, limit=None):
         for name, sess in sessions.items():
             t = {}
             # the uncached session keeps its logits (greedy tokens unchanged)
-            with (Teacher(generation, one_row) if name == "full"
+            with (Teacher(rt, generation, one_row) if name == "full"
                   else contextlib.nullcontext()) as rec:
                 out[name] = sess.send(text, image=img, max_new_tokens=32,
                                       timings=t)
@@ -1494,7 +1649,7 @@ def chat_turns(rt, label: str, enforce: bool, limit=None):
     for turn, ((text, img), out, ref) in enumerate(zip(sends, outs, refs),
                                                    1):
         seq = forcing_sequence(out["full"]["tokens"], rt.tokenizer)
-        with Teacher(generation, one_row, {0: seq}) as t:
+        with Teacher(rt, generation, one_row, {0: seq}) as t:
             got = forced.send(text, image=img, max_new_tokens=32)
         if [int(x) for x in got["tokens"]] != seq:
             raise AssertionError(f"{label} turn {turn}: forcing failed")
@@ -1543,7 +1698,7 @@ def run_chat(rt, limit: float):
     # -- /v1/chat: two POSTs on one session
     torch.cuda.empty_cache()
     reset_counts()
-    server = SeedXServer(rt, max_new_tokens=16)
+    server = SeedXServer(rt, max_new_tokens=16).warmup()
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler())
     serve_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     serve_thread.start()
@@ -1582,6 +1737,191 @@ def run_chat(rt, limit: float):
         f"second turn reused {reused} cached tokens; server stats "
         f"{json.dumps(stats)}")
     return totals
+
+
+def decode_twin(rt, label: str, fn, extra=None):
+    """``fn(timings)`` (a request through the runtime's public entry
+    points) with the decode programs captured -- twice: the first call
+    may capture, the second replays -- then eager: every decode loop's
+    tokens, hidden states and finished flags must be bit-equal (and
+    ``extra(result, eager result)``, where given), and the kernels'
+    launches equal (the counters count replays).  Logs decode ms a step
+    and tok/s of each; returns {mode: (result, timings)}.  Launches go to
+    CHECKS."""
+    import torch
+
+    res = {}
+    for mode in ("graphs, first call", "graphs", "eager"):
+        rt.graphs.enabled = mode != "eager"
+        t = {}
+        reset_counts()
+        with stash_decode() as outs:
+            out = fn(t)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add_counts(CHECKS, counts)
+        res[mode] = (out, outs, t, counts)
+        log(f"{label} ({mode}): prefill {t['prefill'] * 1e3:.1f} ms, "
+            f"decode {t['decode'] * 1e3:.1f} ms for {t['decode_tokens']} "
+            f"tokens in {t['decode_forwards']} forwards = "
+            f"{t['decode'] / t['decode_forwards'] * 1e3:.2f} ms a step, "
+            f"{t['decode_tokens'] / t['decode']:.2f} tok/s")
+    rt.graphs.enabled = True
+    e = res["eager"]
+    for mode in ("graphs, first call", "graphs"):
+        g = res[mode]
+        ok = (same_outputs(g[1], e[1]), g[3] == e[3],
+              extra(g[0], e[0]) if extra else True)
+        if not all(ok):
+            raise AssertionError(f"{label}: {mode} vs eager (outputs, "
+                                 f"launches, results) equal: {ok}; "
+                                 f"launches {g[3]} vs {e[3]}")
+    log(f"{label}: captured and eager tokens, hidden states and finished "
+        f"flags bit-equal, the same kernel launches "
+        f"{ {k: n for k, n in e[3].items() if n} }")
+    return {m: (r[0], r[2]) for m, r in res.items()}
+
+
+def run_graph_twins(rt, requests, smi: str) -> None:
+    """The turn at B 1 (with the forced ``<img>`` chunk), a comprehension
+    reply at B 1, ``generate_batch`` at B 8 and three chat turns (the last
+    ending at n == t), each with its decode captured and then eager, held
+    bit for bit; decode ms a step and tok/s of both (``smi``: the card)."""
+    import torch
+
+    from seedx_tpu_torch.inference.chat import ChatSession
+    from seedx_tpu_torch.models.generation import decode_programs
+
+    tok = rt.tokenizer
+    img_ids = [tok.bos_token_id] + tok.encode(
+        "[INST] Generate an image: a red bicycle by a lake [/INST]\n<img>")
+
+    def same_feat(a, b):
+        return torch_equal(a["img_gen_feat"], b["img_gen_feat"])
+
+    decode_twin(rt, "graphs turn B1 <img>", lambda t: rt.generate(
+        img_ids, max_new_tokens=72, timings=t), same_feat)
+    decode_twin(rt, "graphs turn B1 comprehend", lambda t: rt.generate_batch(
+        requests[:1], max_new_tokens=32, timings=t))
+    decode_twin(rt, "graphs generate_batch B8", lambda t: rt.generate_batch(
+        requests[:8], max_new_tokens=32, timings=t))
+
+    sends = [("Describe the image in detail.", chat_image(), 32),
+             ("What colors stand out?", None, 32),
+             ("One word.", None, 8)]
+    res = {}
+    for mode in ("graphs", "eager"):
+        rt.graphs.enabled = mode == "graphs"
+        sess = ChatSession(rt, prefix_cache=True, cache_capacity=2048)
+        reset_counts()
+        with stash_decode() as outs:
+            replies, ns = [], []
+            for text, img, n_new in sends:
+                t = {}
+                replies.append(list(sess.send(text, image=img,
+                                              max_new_tokens=n_new,
+                                              timings=t)["tokens"]))
+                ns.append(t["decode_tokens"])
+        torch.cuda.synchronize()
+        add_counts(CHECKS, read_counts())
+        n_cached = len(sess._cached_ids)
+        res[mode] = (replies, ns, outs,
+                     [c[:, :, :n_cached].clone() for c in sess._cache])
+        log(f"graphs chat ({mode}): 3 turns, decoded {ns} tokens")
+    rt.graphs.enabled = True
+    g, e = res["graphs"], res["eager"]
+    ok = (g[0] == e[0], same_outputs(g[2], e[2]),
+          all(torch_equal(a, b) for a, b in zip(g[3], e[3])),
+          g[1][-1] == sends[-1][2])
+    if not all(ok):
+        raise AssertionError(f"graphs chat: (replies, decode outputs, "
+                             f"cache bytes, last turn at n == t) {ok}")
+    log(f"graphs chat: captured and eager replies, hidden states and the "
+        f"session cache bytes bit-equal over 3 turns; the last turn ended "
+        f"at n == t = {sends[-1][2]} ({smi})")
+    log_programs("graphs agent", decode_programs(rt.agent).programs())
+
+
+MEM_NEW_TOKENS = 64     # the server's 512 cut: 32 flushes in ~1 minute
+
+
+def run_graph_memory(rt, smi: str) -> None:
+    """The memory the captured decode programs hold, on a mixed-shape
+    serving run: a warmed ``ServingEngine`` (max batch 8, max_new_tokens
+    ``MEM_NEW_TOKENS``) flushing every batch size 1-8 at every prompt
+    bucket, then three chat sessions kept open.  Logs the agent's decode
+    states, their shared KV storage and small buffers, the graph pool, the
+    memory held after the run (allocated, against before it) and the peak
+    (``smi``: the card).  The image-out phase runs after with all of it
+    still held, and logs its own peaks."""
+    import torch
+
+    from seedx_tpu_torch.inference.chat import ChatSession
+    from seedx_tpu_torch.inference.serving import ServingEngine
+    from seedx_tpu_torch.models.generation import decode_programs
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    pool0 = torch.cuda.memory_reserved()
+    tok = rt.tokenizer
+    words = tok.encode(" ".join(["the quick brown fox jumps over the lazy "
+                                 "dog"] * 150))
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = ServingEngine(rt, max_batch_size=8,
+                        max_new_tokens=MEM_NEW_TOKENS).warmup()
+    warm_s = time.perf_counter() - t0
+    buckets = eng._gen_cfg().prompt_buckets
+    flushes = 0
+    for bucket in buckets:
+        for b in range(1, 9):
+            for i in range(b):
+                eng.submit_raw({"input_ids": [tok.bos_token_id]
+                                + words[:bucket - 2 - i]})
+            for out in eng.flush():
+                check_tokens(out["tokens"], rt.agent_cfg.llm.vocab_size,
+                             MEM_NEW_TOKENS)
+            flushes += 1
+    sessions = [ChatSession(rt, prefix_cache=True, cache_capacity=2048)
+                for _ in range(3)]
+    for i, sess in enumerate(sessions):
+        sess.send(f"Say something about the number {i}.", max_new_tokens=16)
+    torch.cuda.synchronize()
+    add_counts(CHECKS, read_counts())
+    store = decode_programs(rt.agent)
+    progs = store.programs() + [sess._decode.program for sess in sessions]
+
+    def small_bytes(st):
+        return sum(v.numel() * v.element_size() for v in vars(st).values()
+                   if torch.is_tensor(v))
+
+    storage = sum(x.numel() * x.element_size() for x in store._storage)
+    small = sum(small_bytes(st) for st in store.states.values())
+    per_pos = storage / (8 * (max(buckets) + MEM_NEW_TOKENS))
+    session_kv = sum(x.numel() * x.element_size() for sess in sessions
+                     for x in sess._cache)
+    gib = 2**30
+    log(f"graphs memory: warmup {warm_s:.2f} s, {flushes} flushes (B 1-8 x "
+        f"buckets {list(buckets)}, {MEM_NEW_TOKENS} new tokens) and 3 chat "
+        f"sessions in {time.perf_counter() - t0:.1f} s; "
+        f"{len(store.states)} decode states kept, "
+        f"{sum(p.graph is not None for p in progs)} graphs")
+    log(f"graphs memory: shared KV storage {storage / gib:.3f} GiB "
+        f"({per_pos / 2**20:.3f} MiB a position a row), the states' own "
+        f"buffers {small / gib:.3f} GiB, the sessions' caches "
+        f"{session_kv / gib:.3f} GiB; the graph pool grew "
+        f"{sum(p.pool_bytes for p in progs) / gib:.3f} GiB over "
+        f"{sum(p.graph is not None for p in progs)} captures; held after the "
+        f"run {(torch.cuda.memory_allocated() - held0) / gib:.3f} GiB more "
+        f"than before it (reserved "
+        f"{(torch.cuda.memory_reserved() - pool0) / gib:.3f} GiB more); "
+        f"peak allocated "
+        f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB, reserved "
+        f"{torch.cuda.max_memory_reserved() / gib:.2f} GiB ({smi})")
+    del sessions
 
 
 def run_parity(dev, requests, budgets) -> None:
@@ -1661,38 +2001,42 @@ def forced_image_prompts():
 
 
 class UNetWatch:
-    """Forward hooks on an adapter while active: K1's launches in each UNet
-    eval (which must be ``flash_launches_per_eval``), each eval's eps std
-    and finiteness, and whether the VAE decoder's latents and images
-    (before the clip) are finite, with their shapes.  The statistics stay
-    on the device until ``check`` reads them."""
+    """While active: K1's launches in each CFG UNet eval of the denoise
+    loop (``pipeline.CFGEval``, a replay of its captured graph or an
+    eager eval; each must be ``flash_launches_per_eval``: the counters
+    count replays), each eval's eps std and finiteness, and whether the
+    VAE decoder's latents and images (before the clip) are finite, with
+    their shapes.  The statistics stay on the device until ``check``
+    reads them."""
 
     def __init__(self, adapter):
         import torch
 
+        from seedx_tpu_torch.models.sdxl import pipeline
         from seedx_tpu_torch.models.sdxl.unet import flash_launches_per_eval
 
         self.want = flash_launches_per_eval(adapter.cfg.unet)
         self.size = adapter.cfg.sampler.height
         self.per_eval, self.stds, self.finite, self.images = [], [], [], []
         k1 = counters()["flash_fwd"]
+        base = pipeline.CFGEval.__call__
 
-        def pre(module, args):
-            self.k1_before = k1.launches
-
-        def post(module, args, eps):
-            self.per_eval.append(k1.launches - self.k1_before)
+        def call(ev, lat, sigma, t):
+            before = k1.launches
+            eps = base(ev, lat, sigma, t)
+            self.per_eval.append(k1.launches - before)
             self.stds.append(eps.float().std())
             self.finite.append(torch.isfinite(eps).all())
+            return eps
 
         def vae(module, args, imgs):
             self.finite.append(torch.isfinite(args[0]).all()
                                & torch.isfinite(imgs).all())
             self.images.append(tuple(imgs.shape))
 
-        self.handles = [adapter.unet.register_forward_pre_hook(pre),
-                        adapter.unet.register_forward_hook(post),
-                        adapter.vae_decoder.register_forward_hook(vae)]
+        pipeline.CFGEval.__call__ = call
+        self.restore = lambda: setattr(pipeline.CFGEval, "__call__", base)
+        self.handles = [adapter.vae_decoder.register_forward_hook(vae)]
 
     def check(self, label: str, steps: int, images=None) -> None:
         """Remove the hooks; fail unless every eval launched K1
@@ -1701,6 +2045,7 @@ class UNetWatch:
         the sampler's size."""
         import torch
 
+        self.restore()
         for h in self.handles:
             h.remove()
         if len(self.per_eval) != steps or set(self.per_eval) != {self.want}:
@@ -1718,6 +2063,80 @@ class UNetWatch:
         log(f"{label}: {steps} UNet evals, K1 {self.want} launches in each; "
             f"eps std per step " + " ".join(f"{x:.3f}" for x in stds)
             + f"; decoded {self.images}, finite before the clip")
+
+
+def wall_ms(fn, iters: int = 5) -> float:
+    """Host ms a call of ``fn`` over ``iters`` calls after one warm call,
+    closed by a synchronize: what a caller waits, launch overhead and
+    all."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def cfg_eval_twin(adapter, dev, g, n: int, label: str, smi: str) -> dict:
+    """One CFG UNet eval at the adapter's 1024^2 with ``n`` branches (2:
+    text to image on the base UNet or the edit's collapse; 3: the edit's
+    3-way), as the denoise loop's captured program and eager: eps must be
+    bit-equal.  Logs the wall ms an eval of each, the device-busy share of
+    one profiled eval of each, the capture time and graph pool.  Returns
+    {mode: wall ms}.  Launches go to CHECKS."""
+    import torch
+
+    from seedx_tpu_torch.models.sdxl.pipeline import CFGEval
+    from seedx_tpu_torch.utils.graphs import Graphs
+
+    lat, _, ctx, pooled, tids = unet_inputs(adapter, n, dev, g)
+    lat = lat[:1, ..., :4].contiguous()
+    cond = (torch.randn((n,) + lat.shape[1:], generator=g, device=dev)
+            if adapter.cfg.with_latent_image else None)
+    sigma = torch.tensor(7.0, device=dev)
+    t = torch.tensor(501.0, device=dev)
+    out, ms, eps = {}, {}, {}
+    reset_counts()
+    for mode in ("graphs", "eager"):
+        switch = Graphs(enabled=mode == "graphs")
+        ev = CFGEval(adapter.unet, lat, ctx, pooled, tids, cond, 7.5, 1.5,
+                     0.0, switch)
+        ev.set_conditioning(ctx, pooled, tids, cond)
+        with torch.no_grad():
+            ev(lat, sigma, t)                 # graphs: warm run + capture
+            eps[mode] = ev(lat, sigma, t).clone()    # graphs: a replay
+            ms[mode] = wall_ms(lambda: ev(lat, sigma, t))
+            prof = device_profile(lambda: (ev(lat, sigma, t), 1)[1])
+        if prof is None:
+            busy = "not measured (the profiler saw no device events)"
+        else:
+            _, wall, by_name = prof
+            b_ms = sum(t_ for t_, _ in by_name.values())
+            busy = (f"{b_ms:.2f} ms busy of {wall:.2f} ms profiled = "
+                    f"{100 * b_ms / wall:.1f}%, "
+                    f"{sum(c for _, c in by_name.values())} device events")
+        pool = ""
+        if mode == "graphs":
+            st = ev.program.stats()
+            pool = (f"; captured in {st['capture_s'] * 1e3:.1f} ms, graph "
+                    f"pool {st['pool_bytes'] / 2**30:.2f} GiB")
+        log(f"image out: UNet {label} CFG {n} ({mode}): {ms[mode]:.2f} ms "
+            f"an eval (wall); profiled eval: {busy}{pool} ({smi})")
+        out[mode] = ms[mode]
+        del ev, switch
+        gc.collect()
+        torch.cuda.empty_cache()
+    add_counts(CHECKS, read_counts())
+    if not torch_equal(eps["graphs"], eps["eager"]):
+        raise AssertionError(f"UNet {label} CFG {n}: the captured eval's "
+                             f"eps differs from the eager one")
+    log(f"image out: UNet {label} CFG {n}: captured and eager eps "
+        f"bit-equal; eager / captured wall "
+        f"{ms['eager'] / ms['graphs']:.2f}")
+    return out
 
 
 def build_adapter(dev, vit, edit: bool):
@@ -1914,6 +2333,7 @@ def run_image_out(rt, dev, smi: str):
     from seedx_tpu_torch.inference import apps
     from seedx_tpu_torch.inference.server import SeedXServer
     from seedx_tpu_torch.inference.serving import ServingEngine
+    from seedx_tpu_torch.models.generation import decode_programs
 
     t_phase = time.perf_counter()
     totals = {}
@@ -1925,9 +2345,10 @@ def run_image_out(rt, dev, smi: str):
     gc.collect()
     torch.cuda.empty_cache()
     base = build_adapter(dev, rt.vit, edit=False)
-    rt.adapter = base
+    rt.adapter = base                  # takes the runtime's graphs switch
     check_unet_k1(base, dev, g)
     unet_step_ms(base, dev, g, "base bf16", smi)
+    cfg_eval_twin(base, dev, g, 2, "base bf16", smi)
     image_module_ms(base, dev, g, smi)
 
     # (1) text to image (SEED-X-I): the agent's forced span, 30 steps
@@ -1949,6 +2370,27 @@ def run_image_out(rt, dev, smi: str):
         if isinstance(v, float)) + f"; {T2I_STEPS} steps, "
         f"{timings['denoise'] * 1e3 / T2I_STEPS:.1f} ms a step (host); "
         f"images {out['images'].shape}")
+    # the same request with the runtime's programs eager: the same image
+    timings = {}
+    rt.graphs.enabled = False
+    try:
+        with forced_image_prompts():
+            eager, counts = timed_run(
+                "image out text_to_image (eager)", lambda: (
+                    apps.text_to_image(rt, "a red bicycle by a lake", seed=0,
+                                       num_inference_steps=T2I_STEPS,
+                                       max_new_tokens=72, timings=timings)),
+                agent)
+    finally:
+        rt.graphs.enabled = True
+    add_counts(CHECKS, counts)
+    log("image out text_to_image (eager): " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in timings.items()
+        if isinstance(v, float)))
+    if not np.array_equal(out["images"], eager["images"]):
+        raise AssertionError("text_to_image: the captured run's image "
+                             "differs from the eager run's")
+    log("image out text_to_image: captured and eager images bit-equal")
 
     # (2) reconstruct: raw ViT-bigG features, the unpooled negative
     watch = UNetWatch(base)
@@ -1962,6 +2404,7 @@ def run_image_out(rt, dev, smi: str):
     gc.collect()
     torch.cuda.empty_cache()
     unet_step_ms(base, dev, g, "base int8", smi)
+    cfg_eval_twin(base, dev, g, 2, "base int8", smi)
     watch = UNetWatch(base)
     images, counts = timed_run("image out int8 UNet", lambda: (
         base.generate(feat, seed=0, num_inference_steps=INT8_STEPS)))
@@ -1975,6 +2418,7 @@ def run_image_out(rt, dev, smi: str):
     edit = build_adapter(dev, rt.vit, edit=True)
     rt.adapter = edit
     unet_step_ms(edit, dev, g, "edit bf16", smi, batches=(3, 2))
+    cfg_eval_twin(edit, dev, g, 3, "edit bf16", smi)
     watch = UNetWatch(edit)
     timings = {}
     images, counts = timed_run("image out reconstruct_with_condition", lambda: (
@@ -2014,7 +2458,8 @@ def run_image_out(rt, dev, smi: str):
             raise AssertionError(f"serving flush {kind}: no {size}^2 image")
     watch.check("image out serving flush (t2i, edit)", 2 * SERVE_STEPS)
 
-    server = SeedXServer(rt, max_new_tokens=72, num_inference_steps=2)
+    server = SeedXServer(rt, max_new_tokens=72,
+                         num_inference_steps=2).warmup()
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler())
     serve_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     serve_thread.start()
@@ -2046,6 +2491,10 @@ def run_image_out(rt, dev, smi: str):
         raise AssertionError(f"/v1/generate: {status} {len(pngs)} images "
                              f"{size}")
     log(f"image out /v1/generate: 200, one {size[0]}x{size[1]} PNG")
+    log_programs("image out", decode_programs(rt.agent).programs()
+                 + [ev.program for ev in edit.evals.values()])
+    edit.quantize_unet()
+    cfg_eval_twin(edit, dev, g, 3, "edit int8", smi)
     rt.adapter = None
     del edit, server
     gc.collect()
@@ -2191,16 +2640,21 @@ def engine_chunk(eng, kind: str):
 
 def profile_decode(rt, requests, slots: int) -> None:
     """Device busy share of a steady decode window: one 16-step chunk of
-    the continuous engine with every slot live and nothing waiting."""
+    the continuous engine with every slot live and nothing waiting, its
+    steps replayed as a captured program or eager, as ``rt.graphs``
+    says."""
     eng = steady_engine(rt, requests, slots, fused=False)
-    profile_window(f"B{slots} decode", lambda: engine_chunk(eng, "decode"))
+    mode = "graphs" if rt.graphs.enabled else "eager"
+    profile_window(f"B{slots} decode ({mode})",
+                   lambda: engine_chunk(eng, "decode"))
 
 
 def profile_mixed(rt, requests, slots: int = 8) -> None:
     """The same over one fused mixed chunk (prefill + decode, K3's
     multi-query mode) with every slot live."""
     eng = steady_engine(rt, requests, slots, fused=True)
-    profile_window(f"B{slots} fused mixed",
+    mode = "graphs" if rt.graphs.enabled else "eager"
+    profile_window(f"B{slots} fused mixed ({mode})",
                    lambda: engine_chunk(eng, "mixed"))
 
 
@@ -2697,6 +3151,7 @@ def main() -> int:
     rows = check_kernels(dev)
     if not all(r["ok"] for r in rows):
         raise AssertionError("a kernel disagrees with its plain version")
+    check_quantizers(dev)
     check_tiny_stack(dev)
     check_tiny_adapter(dev)
 
@@ -2705,6 +3160,8 @@ def main() -> int:
     served, requests, budgets, limit = run_serving(rt)
     add_counts(launches, served)
     add_counts(launches, run_chat(rt, limit))
+    run_graph_twins(rt, requests, smi)
+    run_graph_memory(rt, smi)
     run_parity(dev, requests, budgets)
     add_counts(launches, run_image_out(rt, dev, smi))
     # the HTTP handler classes hold the servers, and so the runtime, in
@@ -2713,14 +3170,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     add_counts(launches, run_train(dev))
-    log(f"main path (turn, serving, chat, image out, train): launches "
+    log(f"main path (turn, serving, chat, image out, train; decode, the "
+        f"engines' steps and the UNet evals captured): launches "
         f"{json.dumps(launches)}")
     log("main path: K2 calls by row band: " + ", ".join(
         f"rows {b} {launches[f'int4_w4a8 rows {b}']}"
         for b in counters()["int4_w4a8"].band_launches))
-    log(f"check runs (teacher-forced engines, batched loop and chat; the "
-        f"{PARITY_LAYERS}-layer parity agent and gradient check; the UNet's "
-        f"K1-against-plain eval): launches "
+    log(f"check runs (the eager twins; teacher-forced engines, batched "
+        f"loop and chat; the {PARITY_LAYERS}-layer parity agent and "
+        f"gradient check; the UNet's K1-against-plain eval): launches "
         f"{json.dumps(CHECKS)}; not in the kernels line")
 
     kernels = []

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from seedx_tpu_torch.models.generation import (GenerationConfig,
+from seedx_tpu_torch.models.generation import (DecodeState,
+                                               GenerationConfig,
                                                _trim_and_spans, build_result,
                                                generate_tokens_cached)
 from seedx_tpu_torch.models.llama import init_kv_cache
@@ -48,7 +49,9 @@ class ChatSession:
     token embeddings, but the next turn splices the image's features in),
     never splits an image span, and always leaves at least one token to
     prefill; so replies equal those of a full prefill, which
-    ``prefix_cache=False`` runs every turn."""
+    ``prefix_cache=False`` runs every turn.  The session keeps its decode
+    state with its cache (``generation.DecodeState``, its step captured
+    while the runtime's graphs are on), so both go with the session."""
 
     def __init__(self, rt, system_message: str = "",
                  prefix_cache: bool = True, cache_capacity: int = 2048):
@@ -60,6 +63,7 @@ class ChatSession:
         self.prefix_cache = prefix_cache
         self.cache_capacity = cache_capacity
         self._cache = None
+        self._decode: Optional[DecodeState] = None   # over self._cache
         self._cached_ids: List[int] = []   # ids whose KV fills cache[0:len)
         # was each cached position's KV computed with image features
         # spliced in (True) or from token-id embeddings (False)?
@@ -184,9 +188,14 @@ class ChatSession:
                 torch.as_tensor(ids_padded, device=rt.device), img_delta,
                 torch.as_tensor(dm, device=rt.device)
                 if img_delta is not None else None, ecm, ppos_delta)
+        if (self._decode is None or self._decode.cache is not self._cache
+                or self._decode.gen_cfg != gen_cfg):
+            self._decode = DecodeState(rt.agent, self._cache, 1, gen_cfg,
+                                       vocab, rt.agent.graphs)
         out, self._cache, _ = generate_tokens_cached(
             rt.agent, self._cache, seg_embeds, lcp, len(delta),
-            int(input_ids[-1]), gen_cfg, vocab, timings=timings)
+            int(input_ids[-1]), gen_cfg, vocab, timings=timings,
+            decode=self._decode)
         self.last_prefill_tokens = len(delta)
 
         tokens = out["tokens"][0].cpu().numpy()

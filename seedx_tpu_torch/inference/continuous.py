@@ -32,9 +32,20 @@ prefilling rows; otherwise (or with ``packed=False``) every row gets a
 ``prefill_width``-slot window.  The host keeps
 an exact replay of the prompt tokens each slot still has to prefill.
 
+Each chunk is ``chunk_steps`` replays of one step program
+(``decode_step`` or ``mixed_step``, in place on the engine's state
+tensors; on the card a captured CUDA graph, ``utils/graphs.py``), then
+one host read of the steps in which some row ran: a step after the last
+running row stopped is a no-op, as the JAX chunk's while-loop would not
+have run it.  Admission and harvest write into the same tensors, never
+replace them.  ``warmup`` runs the admission grid and captures the step
+programs ahead of serving.
+
 Greedy by default; ``do_sample`` draws from a ``torch.Generator`` seeded
-with ``seed`` (the JAX engine's ``jax.random`` stream gives other numbers).
-Not ported: ``warmup``, which only precompiles XLA programs.
+with ``seed`` (the JAX engine's ``jax.random`` stream gives other
+numbers): a chunk's draws are made before it and the ones its no-op steps
+did not take are given back (``generation.SampleNoise``), so the stream
+advances one draw a step that ran, as the eager chunk loop's.
 """
 
 from __future__ import annotations
@@ -44,10 +55,12 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from seedx_tpu_torch.models.generation import (GenerationConfig, _sample,
+from seedx_tpu_torch.models.generation import (GenerationConfig,
+                                               SampleNoise, _sample,
                                                _trim_and_spans, build_result,
                                                constrain_image_tokens)
 from seedx_tpu_torch.models.llama import init_kv_cache, init_paged_kv_pool
+from seedx_tpu_torch.utils.graphs import Program
 
 
 @torch.no_grad()
@@ -114,58 +127,82 @@ def _admit_paged(state, row, mini_cache, src_row, p_len, last_logits,
 
 
 @torch.no_grad()
-def _decode_chunk(model, state, gen_cfg: GenerationConfig, vocab, k: int,
-                  s_max: int, generator: Optional[torch.Generator] = None
-                  ) -> int:
-    """Advance every running slot by up to ``k`` steps (all slots run the
-    forward; frozen rows compute masked garbage).  Returns the steps
-    run."""
+def decode_step(model, state, gen_cfg: GenerationConfig, vocab,
+                s_max: int, noise: Optional[SampleNoise] = None) -> None:
+    """One decode step of every slot, in place on ``state`` (the body of
+    the reference ``_decode_chunk``): every slot runs the forward, frozen
+    rows compute masked garbage into their own cells (or, once harvested,
+    the dump page).  ``state["steps"]`` counts the steps some row ran, so
+    a step after the last running row stopped is a no-op; a sampling step
+    takes its chunk's draws ``noise.at(state["steps"])``."""
     b, t = state["out_tokens"].shape
     n_img = gen_cfg.num_img_gen_tokens
     dev = state["pos"].device
     rows = torch.arange(b, device=dev)
     span = torch.arange(s_max, device=dev)
-    steps = 0
-    while steps < k and bool(state["running"].any()):
-        running = state["running"]
-        constrained = constrain_image_tokens(
-            state["prev_token"], state["prev_logits"], vocab, n_img)
-        token = _sample(constrained, gen_cfg, generator)
-        token = torch.where(running, token, gen_cfg.pad_token_id)
+    running = state["running"]
+    constrained = constrain_image_tokens(
+        state["prev_token"], state["prev_logits"], vocab, n_img)
+    draws = None if noise is None else noise.at(state["steps"])
+    token = _sample(constrained, gen_cfg, noise=draws)
+    token = torch.where(running, token, gen_cfg.pad_token_id)
 
-        # collect (read-modify-write so frozen rows keep their cells)
-        n_w = torch.clamp(state["n"], max=t - 1)
-        cur_tok = state["out_tokens"][rows, n_w]
-        state["out_tokens"][rows, n_w] = torch.where(running, token, cur_tok)
-        cur_hid = state["out_hidden"][rows, n_w]
-        state["out_hidden"][rows, n_w] = torch.where(
-            running[:, None], state["prev_hidden"], cur_hid)
+    # collect (read-modify-write so frozen rows keep their cells)
+    n_w = torch.clamp(state["n"], max=t - 1)
+    cur_tok = state["out_tokens"][rows, n_w]
+    state["out_tokens"][rows, n_w] = torch.where(running, token, cur_tok)
+    cur_hid = state["out_hidden"][rows, n_w]
+    state["out_hidden"][rows, n_w] = torch.where(
+        running[:, None], state["prev_hidden"], cur_hid)
 
-        ended = token == gen_cfg.eos_token_id
-        n_new = torch.where(running, state["n"] + 1, state["n"])
-        still = running & ~ended & (n_new < state["budget"])
+    ended = token == gen_cfg.eos_token_id
+    n_new = torch.where(running, state["n"] + 1, state["n"])
+    still = running & ~ended & (n_new < state["budget"])
 
-        pos = state["pos"]
-        kv_valid = span[None, :] <= pos[:, None]
-        # a frozen row may sit at pos == s_max; its garbage write stays in
-        # range (its own last row, or the dump page once harvested)
-        logits, hidden, _ = model.llm_step(
-            model.embed_ids(token[:, None]), pos[:, None], kv_valid,
-            state["cache"], torch.clamp(pos, max=s_max - 1),
-            block_tables=state.get("tables"))
+    pos = state["pos"]
+    kv_valid = span[None, :] <= pos[:, None]
+    # a frozen row may sit at pos == s_max; its garbage write stays in
+    # range (its own last row, or the dump page once harvested)
+    logits, hidden, _ = model.llm_step(
+        model.embed_ids(token[:, None]), pos[:, None], kv_valid,
+        state["cache"], torch.clamp(pos, max=s_max - 1),
+        block_tables=state.get("tables"))
 
-        keep = running[:, None]
-        state["prev_logits"] = torch.where(keep, logits[:, 0].float(),
-                                           state["prev_logits"])
-        state["prev_hidden"] = torch.where(keep, hidden[:, 0],
-                                           state["prev_hidden"])
-        state["prev_token"] = torch.where(running, token,
-                                          state["prev_token"])
-        state["n"] = n_new
-        state["running"] = still
-        state["pos"] = torch.where(running, pos + 1, pos)
-        steps += 1
-    return steps
+    keep = running[:, None]
+    _commit(state, running.any(), n=n_new, running=still,
+            pos=torch.where(running, pos + 1, pos),
+            prev_logits=torch.where(keep, logits[:, 0].float(),
+                                    state["prev_logits"]),
+            prev_hidden=torch.where(keep, hidden[:, 0],
+                                    state["prev_hidden"]),
+            prev_token=torch.where(running, token, state["prev_token"]))
+
+
+def _commit(state, ran: torch.Tensor, **new) -> None:
+    """Write a step's new values into the state's tensors in place (a
+    captured program holds those tensors) and count the step if ``ran``;
+    every new value was computed before any is written."""
+    state["steps"].add_(ran.long())
+    for name, value in new.items():
+        state[name].copy_(value)
+
+
+def run_chunk(program, state, k: int, noise: Optional[SampleNoise] = None,
+              generator: Optional[torch.Generator] = None) -> int:
+    """``k`` steps of ``program`` (a captured one on the card), then one
+    host read: the steps in which some row was running (those the eager
+    loop's early exit would have run).  With ``noise``, the chunk's draws
+    from ``generator`` are made before it and those of its no-op steps
+    given back after."""
+    state["steps"].zero_()
+    if noise is not None:
+        noise.draw(generator, k)
+    for _ in range(k):
+        program()
+    ran = int(state["steps"])
+    if noise is not None:
+        noise.give_back(ran)
+    return ran
 
 
 def _admit_fused(state, row: int, embeds, p_len: int, last_token: int,
@@ -193,115 +230,109 @@ def _admit_fused(state, row: int, embeds, p_len: int, last_token: int,
 
 
 @torch.no_grad()
-def _mixed_chunk(model, state, gen_cfg: GenerationConfig, vocab, k: int,
-                 s_max: int, w: int, packed: bool,
-                 generator: Optional[torch.Generator] = None) -> int:
-    """Advance every slot by up to ``k`` mixed steps (reference
-    ``_mixed_chunk``): decoding rows emit one token a step, prefilling
-    rows consume prompt-buffer tokens; a row whose prompt completes at
-    step i samples from step i + 1 on.  ``packed`` carries P = slots + w
-    real tokens a step (decoding rows' tokens, then a w-token prompt chunk
-    shared greedily in row order); else each row gets a w-slot window.
-    Returns the steps run."""
+def mixed_step(model, state, gen_cfg: GenerationConfig, vocab, s_max: int,
+               w: int, packed: bool,
+               noise: Optional[SampleNoise] = None) -> None:
+    """One mixed step of every slot, in place on ``state`` (the body of
+    the reference ``_mixed_chunk``): decoding rows emit one token,
+    prefilling rows consume prompt-buffer tokens; a row whose prompt
+    completes at step i samples from step i + 1 on.  ``packed`` carries
+    P = slots + w real tokens a step (decoding rows' tokens, then a
+    w-token prompt chunk shared greedily in row order); else each row
+    gets a w-slot window.  A step with no running row is a no-op (every
+    write is dropped to a dump cell)."""
     b, t = state["out_tokens"].shape
     n_img = gen_cfg.num_img_gen_tokens
     dev = state["pos"].device
     rows = torch.arange(b, device=dev)
     span = torch.arange(s_max, device=dev)
     off = torch.arange(w, device=dev)
-    steps = 0
-    while steps < k and bool(state["running"].any()):
-        running = state["running"]
-        prefilling = running & (state["p_pos"] < state["p_len"])
-        decoding = running & ~prefilling
+    running = state["running"]
+    prefilling = running & (state["p_pos"] < state["p_len"])
+    decoding = running & ~prefilling
 
-        constrained = constrain_image_tokens(
-            state["prev_token"], state["prev_logits"], vocab, n_img)
-        token = _sample(constrained, gen_cfg, generator)
-        token = torch.where(decoding, token, gen_cfg.pad_token_id)
+    constrained = constrain_image_tokens(
+        state["prev_token"], state["prev_logits"], vocab, n_img)
+    draws = None if noise is None else noise.at(state["steps"])
+    token = _sample(constrained, gen_cfg, noise=draws)
+    token = torch.where(decoding, token, gen_cfg.pad_token_id)
 
-        # collect (read-modify-write so non-decoding rows keep their cells)
-        n_w = torch.clamp(state["n"], max=t - 1)
-        cur_tok = state["out_tokens"][rows, n_w]
-        state["out_tokens"][rows, n_w] = torch.where(decoding, token, cur_tok)
-        cur_hid = state["out_hidden"][rows, n_w]
-        state["out_hidden"][rows, n_w] = torch.where(
-            decoding[:, None], state["prev_hidden"], cur_hid)
+    # collect (read-modify-write so non-decoding rows keep their cells)
+    n_w = torch.clamp(state["n"], max=t - 1)
+    cur_tok = state["out_tokens"][rows, n_w]
+    state["out_tokens"][rows, n_w] = torch.where(decoding, token, cur_tok)
+    cur_hid = state["out_hidden"][rows, n_w]
+    state["out_hidden"][rows, n_w] = torch.where(
+        decoding[:, None], state["prev_hidden"], cur_hid)
 
-        ended = token == gen_cfg.eos_token_id
-        n_new = torch.where(decoding, state["n"] + 1, state["n"])
-        still = torch.where(decoding,
-                            decoding & ~ended & (n_new < state["budget"]),
-                            running)
+    ended = token == gen_cfg.eos_token_id
+    n_new = torch.where(decoding, state["n"] + 1, state["n"])
+    still = torch.where(decoding,
+                        decoding & ~ended & (n_new < state["budget"]),
+                        running)
 
-        pos = state["pos"]
-        left = state["p_len"] - state["p_pos"]
-        if packed:
-            # the prompt chunk: w tokens shared greedily in row order (the
-            # host's _prefill_remaining replays this rule exactly)
-            need = torch.where(prefilling, torch.clamp(left, max=w), 0)
-            cum = torch.cumsum(need, 0)
-            alloc = torch.minimum(torch.clamp(w - (cum - need), min=0), need)
-            w_valid = torch.where(decoding, 1, alloc)
-            acum = torch.cumsum(alloc, 0)
-            # prompt token o belongs to the first row whose acum exceeds o
-            r_j = torch.searchsorted(acum, off, right=True)
-            valid_p = off < acum[-1]
-            r_c = torch.clamp(r_j, max=b - 1)
-            slot_p = off - (acum[r_c] - alloc[r_c])
-            emb_p = state["prompt_embeds"][r_c, state["p_pos"][r_c] + slot_p]
-            embeds = torch.cat([model.embed_ids(token).to(emb_p.dtype),
-                                emb_p])                          # [P, D]
-            tok_row = torch.cat([torch.where(decoding, rows, b),
-                                 torch.where(valid_p, r_j, b)])
-            tok_slot = torch.cat([torch.zeros_like(rows), slot_p])
-            positions = pos[torch.clamp(tok_row, max=b - 1)] + tok_slot
-            kv_valid = span[None, :] <= (pos + w_valid - 1)[:, None]
-            logits, hidden, _ = model.llm_step(
-                embeds, positions, kv_valid, state["cache"], pos,
-                block_tables=state.get("tables"), write_widths=w_valid,
-                tok_row=tok_row, tok_slot=tok_slot, packed_window=w)
-            # each row's LAST token: a decoding row's sole token sits at
-            # packed index row, a prefilling row's chunk ends at
-            # b + acum - 1; rows given no token gather what `active` masks
-            last = torch.clamp(torch.where(decoding, rows, b + acum - 1), 0,
-                               b + w - 1)
-            last_logits, last_hidden = logits[last], hidden[last]
-            active = decoding | (prefilling & (alloc > 0))
-        else:
-            # [b, w] window: the prompt slice for prefilling rows, the
-            # sampled token in slot 0 (the rest garbage) for decoding rows
-            prompt_win = state["prompt_embeds"][rows[:, None],
-                                                state["p_pos"][:, None] + off]
-            tok_win = torch.nn.functional.pad(
-                model.embed_ids(token[:, None]).to(prompt_win.dtype),
-                (0, 0, 0, w - 1))
-            embeds = torch.where(prefilling[:, None, None], prompt_win,
-                                 tok_win)
-            w_valid = torch.where(prefilling, torch.clamp(left, max=w),
-                                  decoding.long())
-            positions = pos[:, None] + off
-            kv_valid = span[None, :] <= (pos + w_valid - 1)[:, None]
-            logits, hidden, _ = model.llm_step(
-                embeds, positions, kv_valid, state["cache"], pos,
-                block_tables=state.get("tables"), write_widths=w_valid)
-            last = torch.clamp(w_valid - 1, min=0)
-            last_logits, last_hidden = logits[rows, last], hidden[rows, last]
-            active = prefilling | decoding
+    pos = state["pos"]
+    left = state["p_len"] - state["p_pos"]
+    if packed:
+        # the prompt chunk: w tokens shared greedily in row order (the
+        # host's _prefill_remaining replays this rule exactly)
+        need = torch.where(prefilling, torch.clamp(left, max=w), 0)
+        cum = torch.cumsum(need, 0)
+        alloc = torch.minimum(torch.clamp(w - (cum - need), min=0), need)
+        w_valid = torch.where(decoding, 1, alloc)
+        acum = torch.cumsum(alloc, 0)
+        # prompt token o belongs to the first row whose acum exceeds o
+        r_j = torch.searchsorted(acum, off, right=True)
+        valid_p = off < acum[-1]
+        r_c = torch.clamp(r_j, max=b - 1)
+        slot_p = off - (acum[r_c] - alloc[r_c])
+        emb_p = state["prompt_embeds"][r_c, state["p_pos"][r_c] + slot_p]
+        embeds = torch.cat([model.embed_ids(token).to(emb_p.dtype),
+                            emb_p])                          # [P, D]
+        tok_row = torch.cat([torch.where(decoding, rows, b),
+                             torch.where(valid_p, r_j, b)])
+        tok_slot = torch.cat([torch.zeros_like(rows), slot_p])
+        positions = pos[torch.clamp(tok_row, max=b - 1)] + tok_slot
+        kv_valid = span[None, :] <= (pos + w_valid - 1)[:, None]
+        logits, hidden, _ = model.llm_step(
+            embeds, positions, kv_valid, state["cache"], pos,
+            block_tables=state.get("tables"), write_widths=w_valid,
+            tok_row=tok_row, tok_slot=tok_slot, packed_window=w)
+        # each row's LAST token: a decoding row's sole token sits at
+        # packed index row, a prefilling row's chunk ends at
+        # b + acum - 1; rows given no token gather what `active` masks
+        last = torch.clamp(torch.where(decoding, rows, b + acum - 1), 0,
+                           b + w - 1)
+        last_logits, last_hidden = logits[last], hidden[last]
+        active = decoding | (prefilling & (alloc > 0))
+    else:
+        # [b, w] window: the prompt slice for prefilling rows, the
+        # sampled token in slot 0 (the rest garbage) for decoding rows
+        prompt_win = state["prompt_embeds"][rows[:, None],
+                                            state["p_pos"][:, None] + off]
+        tok_win = torch.nn.functional.pad(
+            model.embed_ids(token[:, None]).to(prompt_win.dtype),
+            (0, 0, 0, w - 1))
+        embeds = torch.where(prefilling[:, None, None], prompt_win,
+                             tok_win)
+        w_valid = torch.where(prefilling, torch.clamp(left, max=w),
+                              decoding.long())
+        positions = pos[:, None] + off
+        kv_valid = span[None, :] <= (pos + w_valid - 1)[:, None]
+        logits, hidden, _ = model.llm_step(
+            embeds, positions, kv_valid, state["cache"], pos,
+            block_tables=state.get("tables"), write_widths=w_valid)
+        last = torch.clamp(w_valid - 1, min=0)
+        last_logits, last_hidden = logits[rows, last], hidden[rows, last]
+        active = prefilling | decoding
 
-        keep = active[:, None]
-        state["prev_logits"] = torch.where(keep, last_logits.float(),
-                                           state["prev_logits"])
-        state["prev_hidden"] = torch.where(keep, last_hidden,
-                                           state["prev_hidden"])
-        state["prev_token"] = torch.where(decoding, token,
-                                          state["prev_token"])
-        state["n"] = n_new
-        state["running"] = still
-        state["pos"] = pos + w_valid
-        state["p_pos"] = state["p_pos"] + torch.where(prefilling, w_valid, 0)
-        steps += 1
-    return steps
+    keep = active[:, None]
+    _commit(state, running.any(), n=n_new, running=still, pos=pos + w_valid,
+            p_pos=state["p_pos"] + torch.where(prefilling, w_valid, 0),
+            prev_logits=torch.where(keep, last_logits.float(),
+                                    state["prev_logits"]),
+            prev_hidden=torch.where(keep, last_hidden, state["prev_hidden"]),
+            prev_token=torch.where(decoding, token, state["prev_token"]))
 
 
 class ContinuousEngine:
@@ -359,14 +390,17 @@ class ContinuousEngine:
         self._steps = 0
         self._mixed_chunks = 0
         self._mixed_steps = 0
+        self._programs: Dict[str, Any] = {}
 
         cfg = self.model.cfg.llm
         dev = next(self.model.buffers()).device
         self.device = dev
-        self._generator = None
+        self._generator = self._noise = None
         if do_sample:
             self._generator = torch.Generator(device=dev)
             self._generator.manual_seed(seed)
+            self._noise = SampleNoise(slots, cfg.vocab_size, chunk_steps,
+                                      dev)
         t = max_new_tokens
         s_max = max(self.gen_cfg.prompt_buckets) + t
         self._s_max = s_max
@@ -415,6 +449,7 @@ class ContinuousEngine:
             "out_tokens": torch.zeros((slots, t), **i64),
             "out_hidden": torch.zeros((slots, t, cfg.hidden_size),
                                       dtype=cfg.dtype, device=dev),
+            "steps": torch.zeros((), **i64),
         }
         if paged:
             self.state["tables"] = torch.zeros(
@@ -428,6 +463,62 @@ class ContinuousEngine:
                 device=dev)
             self.state["p_pos"] = torch.zeros((slots,), **i64)
             self.state["p_len"] = torch.zeros((slots,), **i64)
+
+    def warmup(self, buckets=None):
+        """Warm the admission grid: one batched prefill AND one admit per
+        (power-of-two admission batch <= slots) x (prompt bucket), then the
+        decode step captured.  Without this, a live server pays each
+        shape's first-call costs (library handles and workspaces, the
+        kernels' one-time set-up, the allocator's first segments) and the
+        capture of the step programs the first time some number of slots
+        frees together.  Text-only shapes; image-carrying prompts add their
+        own embed_with_images variants on first use.  Call before
+        submitting (warm admits scribble on a FREE slot's inert rows --
+        paged: the reserved dump page 0 -- and clear the running flag
+        after).
+
+        Fused mode needs only THREE programs regardless of bucket/batch
+        shape: the prompt embed at the single padded length, the admit,
+        and the mixed step (+ the pure-decode step).  Returns ``self``.
+        (Reference: ``ContinuousEngine.warmup``, continuous.py:564-600;
+        there the programs are XLA compiles, here CUDA graph captures.)"""
+        free = next((i for i, r in enumerate(self._slot_req) if r is None),
+                    None)
+        if free is None:
+            return self
+        dummy = {"input_ids": [1, 2]}
+        # all-zero table: every write resolves to the reserved dump page's
+        # rows (never referenced by a live window)
+        tiles = (np.zeros((self._s_max // self.page,), np.int32)
+                 if self.paged else None)
+        st = self.state
+        if self.fused:
+            _admit_fused(st, free, self._embed_prompt(dummy), 2, 2, 0,
+                         tile_ids=tiles)
+            self.program("mixed")()
+            self.program("decode")()
+            st["running"][free] = False
+            st["p_len"][free] = 0
+            st["p_pos"][free] = 0
+            return self
+        buckets = (tuple(buckets) if buckets is not None
+                   else self.gen_cfg.prompt_buckets)
+        limit = 1
+        while limit < self.slots:      # admission batches of every power
+            limit *= 2                 # of two up to the next one
+        bb = 1
+        while bb <= limit:
+            for bucket in buckets:
+                minis, lgs, lhs = self._prefill_group([dummy] * bb, bucket)
+                args = (st, free, minis, 0, 2, lgs, lhs, 2, 0)
+                if self.paged:
+                    _admit_paged(*args, tiles, page=self.page)
+                else:
+                    _admit(*args)
+                st["running"][free] = False
+            bb *= 2
+        self.program("decode")()
+        return self
 
     # ---- submission ------------------------------------------------------
 
@@ -663,20 +754,39 @@ class ContinuousEngine:
         if any(r is not None for r in self._slot_req):
             if self.fused and any(self._prefill_remaining):
                 # a slot is mid-prompt: the mixed (prefill + decode) chunk
-                n = _mixed_chunk(self.model, self.state, self.gen_cfg,
-                                 self.vocab, self.chunk_steps, self._s_max,
-                                 self.prefill_width, self._packed,
-                                 self._generator)
+                n = run_chunk(self.program("mixed"), self.state,
+                              self.chunk_steps, self._noise, self._generator)
                 self._replay_prefill(n)
                 self._mixed_steps += n
                 self._mixed_chunks += 1
             else:
-                self._steps += _decode_chunk(
-                    self.model, self.state, self.gen_cfg, self.vocab,
-                    self.chunk_steps, self._s_max, self._generator)
+                self._steps += run_chunk(self.program("decode"), self.state,
+                                         self.chunk_steps, self._noise,
+                                         self._generator)
             self._chunks += 1
         self._harvest()
         return len(self._results)
+
+    def program(self, kind: str):
+        """The engine's one-step program of ``kind`` ("decode" or "mixed")
+        over its state: captured at its first call on the card (or at
+        ``warmup``), replayed after (``utils/graphs.py``)."""
+        prog = self._programs.get(kind)
+        if prog is None:
+            if kind == "decode":
+                def fn():
+                    decode_step(self.model, self.state, self.gen_cfg,
+                                self.vocab, self._s_max, self._noise)
+            elif kind == "mixed" and self.fused:
+                def fn():
+                    mixed_step(self.model, self.state, self.gen_cfg,
+                               self.vocab, self._s_max, self.prefill_width,
+                               self._packed, self._noise)
+            else:
+                raise ValueError(f"no {kind!r} program in this engine")
+            prog = Program(fn, self.device, self.model.graphs)
+            self._programs[kind] = prog
+        return prog
 
     def _replay_prefill(self, steps: int) -> None:
         """The device's prompt consumption over ``steps`` mixed steps,

@@ -23,7 +23,9 @@ by default), one JSONL result per request out, in request order.
 ``--engine batched`` groups requests into prompt buckets
 (``ServingEngine``); ``continuous`` runs a slot pool with rolling
 admission (``ContinuousEngine``, ``--paged`` for the page pool), then the
-SDXL adapter over each result's image spans.  A result's ``images`` lists
+SDXL adapter over each result's image spans; either engine warms up
+(``warmup``: its captured decode programs) before the first request.  A
+result's ``images`` lists
 the saved PNGs of its generated images (null without any).
 
 ``chat`` reads one user turn per stdin line (``img:PATH text`` attaches an
@@ -163,7 +165,7 @@ def main(argv=None):
                             max_new_tokens=args.max_new_tokens,
                             num_inference_steps=args.num_inference_steps,
                             seed=args.seed,
-                            image_guidance_scale=args.image_cfg)
+                            image_guidance_scale=args.image_cfg).warmup()
         submit = {"comprehend": eng.submit_comprehend,
                   "edit": eng.submit_edit}
         for r in reqs:
@@ -183,7 +185,7 @@ def main(argv=None):
         eng = ContinuousEngine(rt, slots=args.slots,
                                max_new_tokens=args.max_new_tokens,
                                paged=args.paged,
-                               pool_tokens=args.pool_tokens)
+                               pool_tokens=args.pool_tokens).warmup()
         order = [eng.submit(_request(rt, r),
                             max_new_tokens=r.get("max_new_tokens"))
                  for r in reqs]

@@ -8,7 +8,12 @@ seedx_tpu/inference/runtime.py).
 made on the device from a seed, quantizing the int4 agent one layer at a
 time so no full-precision 13B tree ever exists, and an adapter when given
 its config.  Both build on the card (``cuda``) unless the caller passes
-``device="cpu"``.  Loading released checkpoints (``from_checkpoints`` /
+``device="cpu"``.  Decode and the denoise loop's UNet evals run as
+captured CUDA graphs on the card (``utils/graphs.py``); ``graphs`` is the
+runtime's one switch, put on its agent and on any adapter it is given,
+and ``graphs.enabled = False`` turns the runtime to the eager path.  The
+CPU is always eager.
+Loading released checkpoints (``from_checkpoints`` /
 ``from_pretrained``) is not ported yet.
 """
 
@@ -36,6 +41,7 @@ from seedx_tpu_torch.models.sdxl.vae import VAEConfig, vae_debug
 from seedx_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
                                         vit_tiny_debug)
 from seedx_tpu_torch.text.tokenizer import load_tokenizer
+from seedx_tpu_torch.utils.graphs import Graphs
 from seedx_tpu_torch.utils.quantize import random_quantized_llama_
 
 DEFAULT_RESOLUTION_GRIDS = ("1x1", "1x2", "1x3", "2x1", "3x1", "1x4", "4x1",
@@ -56,6 +62,19 @@ class SeedXRuntime:
     # runs (fewer distinct shapes); callers see exact shapes either way.
     tile_buckets: Optional[Sequence[int]] = None
     adapter: Optional[SDXLAdapter] = None    # image out (SDXL)
+
+    def __post_init__(self):
+        self.graphs = Graphs()
+        self.agent.graphs = self.graphs
+        if self.adapter is not None:
+            self.adapter.graphs = self.graphs
+
+    def __setattr__(self, name, value):
+        # an agent or adapter given later takes the runtime's switch
+        super().__setattr__(name, value)
+        if (name in ("agent", "adapter") and value is not None
+                and "graphs" in vars(self)):
+            value.graphs = self.graphs
 
     # ---- constructors ------------------------------------------------------
 

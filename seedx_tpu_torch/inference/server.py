@@ -332,7 +332,14 @@ class SeedXServer:
 
         return Handler
 
+    def warmup(self) -> "SeedXServer":
+        """The engine's decode programs built before the first request
+        (``ServingEngine.warmup``).  Returns ``self``."""
+        self.engine.warmup()
+        return self
+
     def serve_forever(self, host: str = "127.0.0.1", port: int = 8000):
+        self.warmup()
         httpd = ThreadingHTTPServer((host, port), self.make_handler())
         print(f"seedx_tpu_torch server on http://{host}:{port}", flush=True)
         try:

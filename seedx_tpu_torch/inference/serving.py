@@ -26,6 +26,7 @@ from seedx_tpu_torch.inference.apps import (_prepare_image_prompt,
                                             condition_input)
 from seedx_tpu_torch.inference.runtime import SeedXRuntime
 from seedx_tpu_torch.models.generation import (GenerationConfig,
+                                               decode_programs,
                                                generate_batch)
 from seedx_tpu_torch.text import prompts
 
@@ -93,13 +94,34 @@ class ServingEngine:
 
     # ---- execution ---------------------------------------------------------
 
-    def flush(self) -> List[Dict[str, Any]]:
-        """Run everything queued; returns results in submission order."""
-        gen_cfg = GenerationConfig(
+    def _gen_cfg(self) -> GenerationConfig:
+        return GenerationConfig(
             max_new_tokens=self.max_new_tokens,
             num_img_gen_tokens=self.rt.agent_cfg.num_img_out_tokens,
             eos_token_id=self.rt.tokenizer.eos_token_id,
             pad_token_id=self.rt.tokenizer.pad_token_id)
+
+    def warmup(self) -> "ServingEngine":
+        """Build the flush's decode programs ahead of serving: the agent's
+        decode KV storage sized for a full batch at the largest prompt
+        bucket, and the captured decode step of a single request at every
+        bucket (``generation.DecodePrograms``; nothing off the card or
+        with the runtime's graphs off).  Returns ``self``."""
+        gen_cfg = self._gen_cfg()
+        agent = self.rt.agent
+        if not agent.graphs.active(self.rt.device):
+            return self
+        store = decode_programs(agent)
+        store.reserve(agent, self.max_batch_size,
+                      max(gen_cfg.prompt_buckets) + gen_cfg.max_new_tokens,
+                      self.rt.device)
+        for bucket in gen_cfg.prompt_buckets:
+            store.warm(agent, 1, bucket, gen_cfg, self.rt.tokenizer.vocab)
+        return self
+
+    def flush(self) -> List[Dict[str, Any]]:
+        """Run everything queued; returns results in submission order."""
+        gen_cfg = self._gen_cfg()
 
         groups: Dict[int, List[_Pending]] = {}
         for p in self._pending:

@@ -12,6 +12,12 @@ It bundles the ``ResamplerXL`` detokenizer, the SDXL UNet and the VAE:
   * ``diffusion_loss`` is the training forward, MSE on the predicted noise
     (:39-52); its backward and the trainer are not ported.
 
+``evals`` keeps the denoise loop's CFG UNet evals
+(``models/sdxl/pipeline.CFGEval``, one per CFG batch, latent shape,
+dtype, guidance and UNet), captured while ``graphs`` is on (a runtime
+puts its own switch here), so ``text_to_image``, ``edit_image``,
+``reconstruct`` and ``reconstruct_with_condition`` share them.
+
 Multi-device placement (the JAX package's ``shard``) is not ported.
 """
 
@@ -26,7 +32,7 @@ import torch
 from seedx_tpu_torch.models.detokenizer import DetokenizerConfig, ResamplerXL
 from seedx_tpu_torch.models.generation import PhaseClock
 from seedx_tpu_torch.models.layers import init_normal_
-from seedx_tpu_torch.models.sdxl.pipeline import (SamplerConfig,
+from seedx_tpu_torch.models.sdxl.pipeline import (CFGEval, SamplerConfig,
                                                   decode_latents,
                                                   default_time_ids,
                                                   denoise_edit,
@@ -37,6 +43,7 @@ from seedx_tpu_torch.models.sdxl.unet import UNet2DCondition, UNetConfig
 from seedx_tpu_torch.models.sdxl.vae import (VAEConfig, VAEDecoder,
                                              VAEEncoder, sample_moments)
 from seedx_tpu_torch.models.vit import vit_downsample
+from seedx_tpu_torch.utils.graphs import Graphs
 from seedx_tpu_torch.utils.quantize import quantize_unet_params
 
 
@@ -62,6 +69,8 @@ class SDXLAdapter:
         self.unet, self.resampler = unet, resampler
         self.vae_decoder, self.vae_encoder = vae_decoder, vae_encoder
         self.visual_encoder = visual_encoder
+        self.graphs = Graphs()
+        self.evals: Dict[tuple, CFGEval] = {}
 
     @classmethod
     def random(cls, cfg: AdapterConfig, vae_cfg: Optional[VAEConfig] = None,
@@ -107,6 +116,8 @@ class SDXLAdapter:
             unet.load_state_dict(
                 quantize_unet_params(self.unet.state_dict()), strict=True)
         self.cfg = dataclasses.replace(self.cfg, unet=ucfg)
+        # the evals of the bf16 UNet hold it: let both go
+        self.evals.clear()
         self.unet = unet
         return self
 
@@ -212,12 +223,14 @@ class SDXLAdapter:
                 self.unet, schedule, latents, image_latents, prompt,
                 neg_prompt, pooled, neg_pooled, time_ids, guidance_scale=g,
                 image_guidance_scale=gi,
-                guidance_rescale=cfg.guidance_rescale)
+                guidance_rescale=cfg.guidance_rescale, evals=self.evals,
+                graphs=self.graphs)
         else:
             final = denoise_text2image(
                 self.unet, schedule, latents, prompt, neg_prompt, pooled,
                 neg_pooled, time_ids, guidance_scale=g,
-                guidance_rescale=cfg.guidance_rescale)
+                guidance_rescale=cfg.guidance_rescale, evals=self.evals,
+                graphs=self.graphs)
         clock.mark("denoise")
         images = decode_latents(self.vae_decoder, final,
                                 cfg.vae_scaling_factor)

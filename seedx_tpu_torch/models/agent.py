@@ -8,7 +8,9 @@ the causal LM loss plus the reconstruction MSE of the generated spans'
 output-resampler features against the (4x-pooled) ViT features, total =
 ``lm_loss_scale * lm + rec_loss_scale * rec``.  The splice helpers write
 into no tensor that autograd needs, so every trainable leaf gets its
-gradient through them.
+gradient through them.  ``graphs`` is the switch of the agent's captured
+decode programs (``utils/graphs.py``; a runtime puts its own here), which
+``generation.decode_programs`` keeps with their buffers.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from seedx_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                           causal_lm_loss)
 from seedx_tpu_torch.models.resampler import Resampler
 from seedx_tpu_torch.models.vit import vit_downsample
+from seedx_tpu_torch.utils.graphs import Graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +95,7 @@ class ContinuousLVLM(nn.Module):
         if cfg.add_patch_pos:
             self.register_buffer("patch_pos_embed", torch.zeros(
                 (4, hidden), dtype=cfg.dtype, device=device))
+        self.graphs = Graphs()
 
     def _embed_images(self, image_embeds: torch.Tensor,
                       patch_positions: Optional[torch.Tensor]) -> torch.Tensor:
@@ -124,16 +128,18 @@ class ContinuousLVLM(nn.Module):
 
     def llm_step(self, inputs_embeds, positions, kv_valid=None, cache=None,
                  cache_index=0, block_tables=None, write_widths=None,
-                 tok_row=None, tok_slot=None, packed_window=0):
+                 tok_row=None, tok_slot=None, packed_window=0,
+                 write_mask=None):
         """One LLM forward (prefill, decode or the fused step): (logits,
         hidden, cache).  ``cache_index`` may be a [B] tensor of per-row
-        positions, ``block_tables`` a paged pool's tables, and
+        positions, ``block_tables`` a paged pool's tables,
         ``write_widths`` / ``tok_row`` / ``tok_slot`` / ``packed_window``
-        select the continuous engine's fused step (see LlamaForCausalLM;
-        reference agent.py:160-170)."""
+        select the continuous engine's fused step and ``write_mask`` masks
+        a one-token step's cache writes (see LlamaForCausalLM; reference
+        agent.py:160-170)."""
         return self.llm(inputs_embeds, positions, kv_valid, cache,
                         cache_index, block_tables, write_widths, tok_row,
-                        tok_slot, packed_window)
+                        tok_slot, packed_window, write_mask)
 
     def decode_image_feats(self, hidden_states: torch.Tensor) -> torch.Tensor:
         """Output resampler over generated spans [num_imgs, n_out, hidden]

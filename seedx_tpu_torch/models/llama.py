@@ -27,6 +27,14 @@ through the ragged kernel's multi-query mode when the kv window goes to
 the kernel, else through the plain attention with a per-row causal
 ``q_offset`` (as the JAX package's XLA path does).
 
+A per-row step has static shapes only, so a captured program can replay
+it: a slot the fused step drops, or a token the packed step does not
+carry, writes back what a dump cell held, at a cell no real write of the
+step targets (the reserved page 0 of a paged pool; in a dense cache the
+first cell past its row's real writes), never onto a clamped cell a real
+token may own; a one-token step's ``write_mask`` [B] writes a masked
+row's cell back as it was (a predicated step that must change nothing).
+
 Training (``LlamaForCausalLM.forward_train``, ``causal_lm_loss``) runs the
 cache-less forward with per-layer recomputation (``remat``, the JAX
 package's ``nn.remat``) on a bf16 / fp32 base; its causal attention goes
@@ -251,25 +259,26 @@ class _Step:
     """Where one forward writes its new k/v rows and how its queries read
     the cache; built once per forward, used by every layer.
 
-    ``at`` indexes the new rows in a layer buffer ([B, S, F], or a pool
-    [P * page, F]); ``keep`` (a LongTensor) picks the rows of the
-    flattened new k/v that are written, so dropped slots never touch the
-    cache (torch has no drop-mode scatter); ``flat`` is False only for the
-    [B, s] block write at a scalar offset.  ``window`` (starts, ends) sends
-    attention to the ragged kernel; ``stair`` marks the fused step, whose
-    queries form a [B, w] window: the x rows themselves (windowed), or
-    the valid packed tokens ``q_keep`` scattered there at (``q_row``,
-    ``q_slot``) and every token gathered back from (``row_c``, ``slot``)
-    (packed)."""
+    ``at`` indexes one cell of a layer buffer ([B, S, F], or a pool
+    [P * page, F]) for every row of the flattened new k/v; a slot the step
+    drops indexes a dump cell (see the module docstring).  ``mask`` (one
+    entry a row of the flattened k/v) writes a cell back as it was where
+    it is False.  ``flat`` is False only for the [B, s] block write at a scalar
+    offset.  ``window`` (starts, ends) sends attention to the ragged
+    kernel; ``stair`` marks the fused step, whose queries form a [B, w]
+    window: the x rows themselves (windowed), or every packed token
+    scattered there at (``q_row``, ``q_slot``), a token the step does not
+    carry into a dump row B, and every token gathered back from
+    (``row_c``, ``slot``) (packed)."""
 
     at: tuple
-    keep: Optional[torch.Tensor] = None
+    mask: Optional[torch.Tensor] = None
     flat: bool = True
     window: Optional[tuple] = None
     stair: bool = False
     block_tables: Optional[torch.Tensor] = None
     page: int = 0
-    # (q_keep, q_row, q_slot, row_c, slot, B, w)
+    # (q_row, q_slot, row_c, slot, B, w)
     packed: Optional[tuple] = None
 
     def store(self, buf: torch.Tensor, val: torch.Tensor) -> None:
@@ -278,7 +287,9 @@ class _Step:
                                                      buf.shape[-1])
             return
         val = val.to(buf.dtype).reshape(-1, buf.shape[-1])
-        buf[self.at] = val if self.keep is None else val[self.keep]
+        if self.mask is not None:
+            val = torch.where(self.mask[:, None], val, buf[self.at])
+        buf[self.at] = val
 
     def to_window(self, q: torch.Tensor) -> torch.Tensor:
         """Packed [1, P, H, D] -> [B, w, H, D] (decode_stacked.py:402-407);
@@ -286,16 +297,16 @@ class _Step:
         gathered."""
         if self.packed is None:
             return q
-        q_keep, q_row, q_slot, _, _, b, w = self.packed
-        out = q.new_zeros((b, w) + q.shape[2:])
-        out[q_row, q_slot] = q[0, q_keep]
-        return out
+        q_row, q_slot, _, _, b, w = self.packed
+        out = q.new_zeros((b + 1, w) + q.shape[2:])
+        out[q_row, q_slot] = q[0]
+        return out[:b]
 
     def from_window(self, t: torch.Tensor) -> torch.Tensor:
         """[B, w, H, D] -> packed [1, P, H, D] (decode_stacked.py:409-411)."""
         if self.packed is None:
             return t
-        row_c, slot = self.packed[3:5]
+        row_c, slot = self.packed[2:4]
         return t[row_c, slot][None]
 
 
@@ -351,7 +362,8 @@ class LlamaForCausalLM(nn.Module):
                 write_widths: Optional[torch.Tensor] = None,
                 tok_row: Optional[torch.Tensor] = None,
                 tok_slot: Optional[torch.Tensor] = None,
-                packed_window: int = 0):
+                packed_window: int = 0,
+                write_mask: Optional[torch.Tensor] = None):
         """Returns (logits, last hidden state, cache); the cache tensors are
         updated in place.  ``cache_index`` is an int, or a [B] tensor of
         per-row write positions for a one-token or fused step;
@@ -360,7 +372,9 @@ class LlamaForCausalLM(nn.Module):
         the step the windowed fused step (x [B, w, hidden]); with
         ``tok_row`` / ``tok_slot`` [P] and ``packed_window`` w it is the
         packed fused step (x [P, hidden], positions [P], logits and hidden
-        [P, ...]); see the module docstring."""
+        [P, ...]); see the module docstring.  ``write_mask`` [B] bool (a
+        one-token step with per-row ``cache_index``) keeps the cache cells
+        of the rows where it is False as they were."""
         cfg = self.cfg
         packed = tok_row is not None
         fused = write_widths is not None
@@ -378,6 +392,9 @@ class LlamaForCausalLM(nn.Module):
         if fused and not per_row:
             raise ValueError("the fused step (write_widths) needs per-row "
                              "cache_index")
+        if write_mask is not None and (fused or not per_row):
+            raise ValueError("write_mask needs a one-token step with "
+                             "per-row cache_index")
         if not per_row:
             cache_index = int(cache_index)
         page = 0
@@ -393,7 +410,8 @@ class LlamaForCausalLM(nn.Module):
         if cache is not None:
             step = self._step(cache, kv_valid, cache_index, block_tables,
                               page, write_widths, tok_row, tok_slot,
-                              packed_window, b, s, inputs_embeds.is_cuda)
+                              packed_window, b, s, inputs_embeds.is_cuda,
+                              write_mask)
         x = inputs_embeds.to(cfg.dtype)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         for li in range(cfg.num_layers):
@@ -452,7 +470,7 @@ class LlamaForCausalLM(nn.Module):
 
     def _step(self, cache, kv_valid, cache_index, block_tables, page: int,
               write_widths, tok_row, tok_slot, window_w: int, b: int, s: int,
-              on_cuda: bool) -> _Step:
+              on_cuda: bool, write_mask=None) -> _Step:
         """The write and attention plan of one forward (see ``_Step``)."""
         cfg = self.cfg
         dev = cache[0].device
@@ -470,13 +488,14 @@ class LlamaForCausalLM(nn.Module):
         ci = cache_index.long()
         if tok_row is not None:
             # packed: one write per token at its row's position + its slot
-            row_c = torch.clamp(tok_row.long(), max=rows.shape[0] - 1)
+            n_rows = rows.shape[0]
+            row_c = torch.clamp(tok_row.long(), max=n_rows - 1)
             slot = tok_slot.long()
             w_row, w_pos = row_c, ci[row_c] + slot
-            ok = tok_row < rows.shape[0]
-            q_keep = ok.nonzero()[:, 0]
-            packed = (q_keep, tok_row.long()[q_keep], slot[q_keep], row_c,
-                      slot, rows.shape[0], window_w)
+            ok = tok_row < n_rows
+            packed = (torch.where(ok, tok_row.long(), n_rows),
+                      torch.where(ok, slot, 0), row_c, slot, n_rows,
+                      window_w)
         elif write_widths is not None:
             # windowed: row b's slots [0, write_widths[b]) at ci[b] + slot
             slots = torch.arange(s, device=dev)
@@ -489,22 +508,29 @@ class LlamaForCausalLM(nn.Module):
             # rows through the block tables (decode_stacked.py:185)
             at = ((block_tables.long()[rows, ci // page] * page + ci % page,)
                   if block_tables is not None else (rows, ci))
-            return _Step(at=at, window=kv_window(kv_valid) if kernel
-                         else None, block_tables=block_tables, page=page)
+            return _Step(at=at, mask=write_mask, window=kv_window(kv_valid)
+                         if kernel else None, block_tables=block_tables,
+                         page=page)
         # slots past a row's width and positions past the cache are
         # dropped, never clamped (decode_stacked.py:170-184): a clamped
-        # write would land on a cell another row's real token owns
+        # write would land on a cell another row's real token owns.  A
+        # dropped write puts back what its cell held, at a cell no real
+        # write of this step targets: on the reserved dump page 0 of a
+        # pool; in a dense cache, the first cell past its row's real
+        # writes (mod the cache length).  Shapes stay static.
         if block_tables is not None:
             n_tiles = block_tables.shape[1]
             col = w_pos // page
             ok = ok & (col < n_tiles)
             tiles = block_tables.long()[w_row, torch.clamp(col,
                                                            max=n_tiles - 1)]
-            at = (tiles * page + w_pos % page,)
+            at = (torch.where(ok, tiles * page + w_pos % page,
+                              w_pos % page),)
         else:
-            ok = ok & (w_pos < cache[0].shape[2])
-            at = (w_row, w_pos)
-        keep = ok.nonzero()[:, 0]
+            c = cache[0].shape[2]
+            ok = ok & (w_pos < c)
+            dump = (ci + write_widths.long()) % c
+            at = (w_row, torch.where(ok, w_pos, dump[w_row]))
         window = None
         if kernel:
             # the stair: kv_valid covers [start, pos + width), so slot 0's
@@ -513,9 +539,8 @@ class LlamaForCausalLM(nn.Module):
             ends = (ends - torch.clamp(write_widths - 1, min=0)).to(
                 torch.int32)
             window = (starts, ends)
-        return _Step(at=tuple(i[keep] for i in at), keep=keep, window=window,
-                     stair=True, block_tables=block_tables, page=page,
-                     packed=packed)
+        return _Step(at=at, mask=ok, window=window, stair=True,
+                     block_tables=block_tables, page=page, packed=packed)
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,10 @@
 adapter_modules.py:78-86, and ``StableDiffusionXLText2ImageAndEditPipeline``,
 pipeline_stable_diffusion_xl_t2i_edit.py:490-551, 905-941).
 
-The denoise loop is a Python loop over the steps (the JAX package's
-``lax.scan``).  Dtypes follow the JAX package step by step: the latents
+The denoise loop (the JAX package's ``lax.scan``) replays one CFG UNet
+eval a step (``CFGEval``: a captured CUDA graph over static buffers on
+the card, ``utils/graphs.py``); the solver update between evals stays
+eager.  Dtypes follow the JAX package step by step: the latents
 and the solver state in fp32, the UNet's eps and the CFG combination in
 the UNet's compute dtype, ``decode_latents`` in fp32.  CFG combines in eps
 space: the combination is affine with weights summing to 1, so it commutes
@@ -15,7 +17,7 @@ with the reference's eps -> x0 conversion (its "sigma-space hack").
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -23,6 +25,7 @@ from seedx_tpu_torch.models.sdxl.scheduler import (EulerSchedule,
                                                    dpmpp_2m_step,
                                                    dpmpp_3m_step, euler_step,
                                                    scale_model_input)
+from seedx_tpu_torch.utils.graphs import Graphs, Program
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,28 +102,122 @@ def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
 
 
+@torch.no_grad()
+def cfg_eps(unet, lat: torch.Tensor, sigma, t, context: torch.Tensor,
+            pooled: torch.Tensor, time_ids: torch.Tensor,
+            cond: Optional[torch.Tensor], guidance_scale: float,
+            image_guidance_scale: float, guidance_rescale: float
+            ) -> torch.Tensor:
+    """One CFG-combined UNet eval: the UNet over the n = len(context) /
+    len(lat) branches of ``lat`` at once, then their combination (and
+    ``rescale_noise_cfg``).  ``cond`` None: text to image, branches
+    [uncond, text]; else the edit's, branches [text, image, uncond] (or
+    [text, image] when n is 2, the gi = 1 collapse), ``cond`` [n * B, h,
+    w, c] channel-concat to each branch's input."""
+    n = context.shape[0] // lat.shape[0]
+    scaled = scale_model_input(torch.cat([lat] * n), sigma)
+    if cond is not None:
+        scaled = torch.cat([scaled, cond.to(scaled.dtype)], dim=-1)
+    eps = unet(scaled, t.expand(len(scaled)), context, pooled, time_ids)
+    if cond is None:
+        eps_uncond, eps_text = eps.chunk(2)
+        eps_cfg = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+    elif n == 2:
+        eps_text, eps_image = eps.chunk(2)
+        eps_cfg = eps_image + guidance_scale * (eps_text - eps_image)
+    else:
+        eps_text, eps_image, eps_uncond = eps.chunk(3)
+        eps_cfg = (eps_uncond
+                   + guidance_scale * (eps_text - eps_image)
+                   + image_guidance_scale * (eps_image - eps_uncond))
+    if guidance_rescale > 0.0:
+        eps_cfg = rescale_noise_cfg(eps_cfg, eps_text, guidance_rescale)
+    return eps_cfg
+
+
+class CFGEval:
+    """``cfg_eps`` over static buffers, as one program (the body of the
+    JAX package's ``_solver_scan``): the latents, sigma and timestep are
+    copied in at every step, the conditioning once per image
+    (``set_conditioning``); on the card the eval is a captured CUDA graph
+    replayed once a step while ``graphs`` is on (None: always eager), its
+    eps a static output the next step overwrites.  An owner keeps one per
+    ``key`` (UNet, CFG batch, latent shape, dtypes, guidance)."""
+
+    def __init__(self, unet, lat, context, pooled, time_ids, cond,
+                 guidance_scale: float, image_guidance_scale: float,
+                 guidance_rescale: float, graphs: Optional[Graphs]):
+        dev = context.device
+        self.unet = unet
+        self.lat = torch.zeros_like(lat)
+        self.sigma = torch.zeros((), dtype=torch.float32, device=dev)
+        self.t = torch.zeros((), dtype=torch.float32, device=dev)
+        self.context = torch.empty_like(context)
+        self.pooled = torch.empty_like(pooled)
+        self.time_ids = torch.empty_like(time_ids)
+        self.cond = None if cond is None else torch.empty_like(cond)
+        self.program = Program(
+            lambda: cfg_eps(self.unet, self.lat, self.sigma, self.t,
+                            self.context, self.pooled, self.time_ids,
+                            self.cond, guidance_scale, image_guidance_scale,
+                            guidance_rescale), dev, graphs)
+
+    @staticmethod
+    def key(unet, lat, context, pooled, time_ids, cond, guidance_scale,
+            image_guidance_scale, guidance_rescale) -> tuple:
+        shapes = tuple((tuple(x.shape), x.dtype) for x in
+                       (lat, context, pooled, time_ids) + (
+                           () if cond is None else (cond,)))
+        return ("cfg_eval", id(unet), shapes, float(guidance_scale),
+                float(image_guidance_scale), float(guidance_rescale))
+
+    def set_conditioning(self, context, pooled, time_ids, cond) -> None:
+        self.context.copy_(context)
+        self.pooled.copy_(pooled)
+        self.time_ids.copy_(time_ids)
+        if cond is not None:
+            self.cond.copy_(cond)
+
+    def __call__(self, lat, sigma, t) -> torch.Tensor:
+        self.lat.copy_(lat)
+        self.sigma.copy_(sigma)
+        self.t.copy_(t)
+        return self.program()
+
+
+def _denoise(unet, schedule: EulerSchedule, latents, context, pooled,
+             time_ids, cond, guidance_scale, image_guidance_scale,
+             guidance_rescale, evals: Optional[Dict[tuple, CFGEval]],
+             graphs: Optional[Graphs]):
+    args = (unet, latents, context, pooled, time_ids, cond, guidance_scale,
+            image_guidance_scale, guidance_rescale)
+    key = CFGEval.key(*args)
+    ev = None if evals is None else evals.get(key)
+    if ev is None:
+        ev = CFGEval(*args, graphs=graphs)
+        if evals is not None:
+            evals[key] = ev
+    ev.set_conditioning(context, pooled, time_ids, cond)
+    return _solver_loop(schedule, latents, ev)
+
+
 def denoise_text2image(unet, schedule: EulerSchedule, latents: torch.Tensor,
                        prompt_embeds: torch.Tensor,
                        negative_prompt_embeds: torch.Tensor,
                        pooled: torch.Tensor, negative_pooled: torch.Tensor,
                        time_ids: torch.Tensor, guidance_scale: float = 7.5,
-                       guidance_rescale: float = 0.0) -> torch.Tensor:
+                       guidance_rescale: float = 0.0,
+                       evals: Optional[Dict[tuple, CFGEval]] = None,
+                       graphs: Optional[Graphs] = None) -> torch.Tensor:
     """2-way CFG sampling, branches [uncond, text]; returns the final
-    latents (unscaled)."""
-    context = torch.cat([negative_prompt_embeds, prompt_embeds])
-    pooled_all = torch.cat([negative_pooled, pooled])
-    tids = torch.cat([time_ids, time_ids])
-
-    def eps_fn(lat, sigma, t):
-        scaled = scale_model_input(torch.cat([lat, lat]), sigma)
-        eps = unet(scaled, t.expand(len(scaled)), context, pooled_all, tids)
-        eps_uncond, eps_text = eps.chunk(2)
-        eps_cfg = eps_uncond + guidance_scale * (eps_text - eps_uncond)
-        if guidance_rescale > 0.0:
-            eps_cfg = rescale_noise_cfg(eps_cfg, eps_text, guidance_rescale)
-        return eps_cfg
-
-    return _solver_loop(schedule, latents, eps_fn)
+    latents (unscaled).  The eval is captured while ``graphs`` is on
+    (None: eager) and kept in ``evals`` between calls (an adapter's), else
+    built per call."""
+    return _denoise(unet, schedule, latents,
+                    torch.cat([negative_prompt_embeds, prompt_embeds]),
+                    torch.cat([negative_pooled, pooled]),
+                    torch.cat([time_ids, time_ids]), None, guidance_scale,
+                    0.0, guidance_rescale, evals, graphs)
 
 
 def denoise_edit(unet, schedule: EulerSchedule, latents: torch.Tensor,
@@ -129,7 +226,9 @@ def denoise_edit(unet, schedule: EulerSchedule, latents: torch.Tensor,
                  negative_pooled: torch.Tensor, time_ids: torch.Tensor,
                  guidance_scale: float = 7.5,
                  image_guidance_scale: float = 1.5,
-                 guidance_rescale: float = 0.0) -> torch.Tensor:
+                 guidance_rescale: float = 0.0,
+                 evals: Optional[Dict[tuple, CFGEval]] = None,
+                 graphs: Optional[Graphs] = None) -> torch.Tensor:
     """3-way InstructPix2Pix CFG (reference: pipeline...py:905-937), branch
     order [text, image, uncond]: the text branch alone gets the prompt,
     the image branch pairs the negative prompt with the condition image
@@ -139,32 +238,18 @@ def denoise_edit(unet, schedule: EulerSchedule, latents: torch.Tensor,
     At ``image_guidance_scale == 1.0`` the combination ``u + g (t - i) +
     (i - u) = i + g (t - i)`` does not depend on the uncond branch, which
     is dropped: each step runs a batch of 2 in place of 3, with the same
-    result up to rounding."""
+    result up to rounding.  ``evals`` and ``graphs`` as in
+    ``denoise_text2image``."""
     collapse = float(image_guidance_scale) == 1.0
     n = 2 if collapse else 3
-    context = torch.cat([prompt_embeds] + [negative_prompt_embeds] * (n - 1))
-    pooled_all = torch.cat([pooled] + [negative_pooled] * (n - 1))
-    tids = torch.cat([time_ids] * n)
-    cond = torch.cat([image_latents, image_latents]
-                     + ([] if collapse else [torch.zeros_like(image_latents)]))
-
-    def eps_fn(lat, sigma, t):
-        scaled = scale_model_input(torch.cat([lat] * n), sigma)
-        scaled = torch.cat([scaled, cond.to(scaled.dtype)], dim=-1)
-        eps = unet(scaled, t.expand(len(scaled)), context, pooled_all, tids)
-        if collapse:
-            eps_text, eps_image = eps.chunk(2)
-            eps_cfg = eps_image + guidance_scale * (eps_text - eps_image)
-        else:
-            eps_text, eps_image, eps_uncond = eps.chunk(3)
-            eps_cfg = (eps_uncond
-                       + guidance_scale * (eps_text - eps_image)
-                       + image_guidance_scale * (eps_image - eps_uncond))
-        if guidance_rescale > 0.0:
-            eps_cfg = rescale_noise_cfg(eps_cfg, eps_text, guidance_rescale)
-        return eps_cfg
-
-    return _solver_loop(schedule, latents, eps_fn)
+    return _denoise(
+        unet, schedule, latents,
+        torch.cat([prompt_embeds] + [negative_prompt_embeds] * (n - 1)),
+        torch.cat([pooled] + [negative_pooled] * (n - 1)),
+        torch.cat([time_ids] * n),
+        torch.cat([image_latents, image_latents]
+                  + ([] if collapse else [torch.zeros_like(image_latents)])),
+        guidance_scale, image_guidance_scale, guidance_rescale, evals, graphs)
 
 
 def prepare_latents(generator: torch.Generator, batch: int,

@@ -55,6 +55,7 @@ SPLIT_TILES = 10     # tiles a split walks at most, for fewer than
 SPLIT_ROWS = 8       # SPLIT_ROWS query vectors a block
 MAX_SPLITS = 32      # the kernel's merge holds m, l of each in shared memory
 _tickets = {}        # device -> int32 tickets, zero between launches
+_retired = []        # outgrown ticket buffers, kept for captured graphs
 
 
 def library() -> ctypes.CDLL:
@@ -105,8 +106,19 @@ def split_ranges(start: int, end: int, splits: int):
 
 
 def _tickets_for(device, n: int) -> torch.Tensor:
+    """The device's ticket buffer, at least ``n`` long.  An outgrown
+    buffer is kept, never freed: a captured graph's launches point at the
+    buffer they were captured with.  Growth under capture raises (the
+    zeros would not exist before the first replay); a warm eager launch
+    of the same shape before the capture sizes it."""
     buf = _tickets.get(device)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("ticket buffer would grow under stream "
+                               "capture: run the call eagerly first")
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _tickets[device] = buf
     return buf

@@ -35,6 +35,7 @@ SPLIT_FILL = 2       # blocks an SM the split count aims for
 SPLIT_GROUPS = 10    # groups a split walks at most on the 16- / 32-row tiles
 MAX_SPLITS = 64      # the kernel's limit
 _tickets = {}        # device -> int32 tickets, zero between launches
+_retired = []        # outgrown ticket buffers, kept for captured graphs
 
 
 def library() -> ctypes.CDLL:
@@ -138,8 +139,19 @@ def workspace_bytes(rows: int, n_in: int, n_out: int, group: int,
 
 
 def _tickets_for(device, n: int) -> torch.Tensor:
+    """The device's ticket buffer, at least ``n`` long.  An outgrown
+    buffer is kept, never freed: a captured graph's launches point at the
+    buffer they were captured with.  Growth under capture raises (the
+    zeros would not exist before the first replay); a warm eager launch
+    of the same shape before the capture sizes it."""
     buf = _tickets.get(device)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("ticket buffer would grow under stream "
+                               "capture: run the call eagerly first")
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _tickets[device] = buf
     return buf

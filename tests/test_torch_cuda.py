@@ -692,3 +692,281 @@ def test_quantize_unet_on_card_matches_cpu(cuda_device):
             eps.append(unet(*(t.to(dev) for t in args)).float().cpu())
     torch.testing.assert_close(eps[1], eps[0], rtol=0,
                                atol=UNET_REL * eps[0].abs().max().item())
+
+
+# ---- the agent's quantizers on the card ------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,n_out", [(5120, 5120), (5120, 13824),
+                                        (13824, 5120)])
+def test_agent_quantizers_on_card_match_cpu(cuda_device, n_in, n_out):
+    """``quantize_kernel_int4`` (group 128) and ``quantize_kernel`` at the
+    13B's projection shapes give the CPU's codes and scales, byte for
+    byte, on the card."""
+    g = torch.Generator().manual_seed(n_in + n_out)
+    w = torch.empty((n_in, n_out)).normal_(0.0, 0.02, generator=g)
+    for fn in (lambda x: tquant.quantize_kernel_int4(x, 128),
+               tquant.quantize_kernel):
+        want = fn(w)
+        got = fn(w.to(cuda_device))
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_embedding_quantizer_on_card_matches_cpu(cuda_device):
+    """``quantize_embedding`` over the 32330 x 5120 table, card = CPU."""
+    g = torch.Generator().manual_seed(1)
+    table = torch.empty((32330, 5120)).normal_(0.0, 0.02, generator=g)
+    want = tquant.quantize_embedding(table)
+    got = tquant.quantize_embedding(table.to(cuda_device))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+# ---- captured programs against the eager path -----------------------------
+
+def _debug_runtime(dev):
+    from seedx_tpu_torch.inference.runtime import SeedXRuntime
+
+    return SeedXRuntime.debug(device=dev, quantization="int4",
+                              kv_quantization="int8")
+
+
+def _graph_and_eager(rt, fn):
+    """``fn()`` with the runtime's programs on (captured, replayed), then
+    off (eager): each result with the kernels' launches of its run."""
+    from seedx_tpu_torch.utils import graphs
+
+    out = []
+    for enabled in (True, False):
+        rt.graphs.enabled = enabled
+        before = graphs.launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        after = graphs.launch_counts()
+        out.append((res, {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}))
+    rt.graphs.enabled = True
+    return out
+
+
+@pytest.mark.cuda
+def test_decode_graph_matches_eager_bit_for_bit(cuda_device):
+    """The 2-layer int4 / int8-KV agent's decode through its captured step
+    (K2 and K3 inside the graph) against the same step run eagerly: the
+    same tokens, hidden states and finished flags, bit for bit, greedy with
+    a forced ``<img>`` chunk and sampled from a seeded generator (which
+    ends in the same state); the launch counters count the replays (the
+    same launches as eager)."""
+    from seedx_tpu_torch.models import generation as tgen
+
+    rt = _debug_runtime(cuda_device)
+    agent, tok = rt.agent, rt.tokenizer
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    b, p = 3, 24
+    embeds = torch.randn((b, p, 128), generator=g, device=cuda_device) * 0.5
+    mask = torch.ones((b, p), dtype=torch.bool, device=cuda_device)
+    mask[1, :5] = mask[2, :11] = False
+    last = torch.tensor([tok.vocab.boi] * b, device=cuda_device)
+    n_img = rt.agent_cfg.num_img_out_tokens
+    for kw, lead in ((dict(), last),
+                     (dict(do_sample=True, temperature=1.0, top_p=0.95),
+                      last * 0 + 7)):
+        cfg = tgen.GenerationConfig(max_new_tokens=n_img + 20,
+                                    num_img_gen_tokens=n_img, **kw)
+
+        def run():
+            gen = torch.Generator(device=cuda_device).manual_seed(9)
+            timings = {}
+            with torch.no_grad():
+                out = tgen.generate_tokens(agent, embeds, mask, lead, cfg,
+                                           tok.vocab, generator=gen,
+                                           timings=timings)
+            return out, timings["decode_forwards"], gen.get_state()
+
+        (graph, n_graph), (eager, n_eager) = _graph_and_eager(rt, run)
+        assert graph[1] == eager[1]
+        assert torch.equal(graph[2], eager[2])
+        for key in ("tokens", "hidden", "finished"):
+            assert torch.equal(graph[0][key], eager[0][key]), (kw, key)
+        assert n_graph == n_eager
+        name = (tdecode.ragged_decode_attention, "launches", None)
+        assert n_graph[name] > 0
+    progs = tgen.decode_programs(agent).programs()
+    assert len(progs) == 2 and all(p.graph is not None for p in progs)
+    assert sum(p.replays for p in progs) > 0
+
+
+@pytest.mark.cuda
+def test_sampling_noise_gives_multinomial_tokens(cuda_device):
+    """On the card, ``_sample`` with a ``SampleNoise`` slot drawn from a
+    generator gives ``torch.multinomial``'s tokens from the same generator
+    state, and leaves the generator where multinomial does; a slot given
+    back returns it to its state before that draw."""
+    from seedx_tpu_torch.models import generation as tgen
+
+    cfg = tgen.GenerationConfig(do_sample=True, temperature=0.7, top_p=0.9)
+    logits = torch.randn((8, 32330), device=cuda_device) * 4
+    noise = tgen.SampleNoise(8, 32330, 4, cuda_device)
+    g_ref = torch.Generator(device=cuda_device).manual_seed(11)
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    noise.draw(g, 4)
+    for j in range(4):
+        want = tgen._sample(logits, cfg, g_ref)
+        got = tgen._sample(logits, cfg,
+                           noise=noise.at(torch.tensor(j, device=cuda_device)))
+        assert torch.equal(got, want), j
+    assert torch.equal(g.get_state(), g_ref.get_state())
+    noise.give_back(1)
+    g_one = torch.Generator(device=cuda_device).manual_seed(11)
+    tgen._sample(logits, cfg, g_one)
+    assert torch.equal(g.get_state(), g_one.get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(paged=True),
+                                dict(fused_prefill=True, prefill_width=4),
+                                dict(fused_prefill=True, prefill_width=4,
+                                     paged=True, packed=False)])
+def test_engine_graph_matches_eager(cuda_device, kw):
+    """The continuous engine's captured decode / mixed steps against the
+    same steps run eagerly: the same results, step counts and launches."""
+    from seedx_tpu_torch.inference.continuous import ContinuousEngine
+
+    rt = _debug_runtime(cuda_device)
+    tok = rt.tokenizer
+    texts = ["hello world", "the cat sat on the mat today", "abc",
+             "one two three four five six", "a b c d e f g h"]
+    reqs = [{"input_ids": [tok.bos_token_id] + tok.encode(t)}
+            for t in texts]
+
+    def run():
+        eng = ContinuousEngine(rt, slots=2, max_new_tokens=16,
+                               chunk_steps=4, prompt_buckets=(32, 64),
+                               page_size=16, **kw).warmup()
+        ids = [eng.submit(r, max_new_tokens=4 + 2 * i)
+               for i, r in enumerate(reqs)]
+        res = eng.run()
+        st = eng.stats()
+        return ([list(res[i]["tokens"]) for i in ids],
+                (st["decode_steps"], st["mixed_steps"]))
+
+    (graph, n_graph), (eager, n_eager) = _graph_and_eager(rt, run)
+    assert graph == eager
+    assert n_graph == n_eager
+
+
+@pytest.mark.cuda
+def test_unet_eval_graph_matches_eager(cuda_device):
+    """The denoise loop's captured CFG eval (K1 inside the graph) against
+    the eager eval: the same final latents bit for bit at CFG 3 and at the
+    2-branch collapse, the same K1 launches."""
+    from seedx_tpu_torch.models.sdxl import pipeline as tpipe
+    from seedx_tpu_torch.models.sdxl import scheduler as tsched
+    from seedx_tpu_torch.utils import graphs
+
+    cfg = tunet.sdxl_debug_unet(in_channels=8)
+    unet = _unet(cfg, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    # 32 x 32 latents: no level's token count equals the 64 context
+    # tokens (there the cross-attention, q_len == kv_len, takes K1 too)
+    lat, img_lat = randn(1, 32, 32, 4), randn(1, 32, 32, 4)
+    cond = (randn(1, 64, cfg.cross_attention_dim),
+            randn(1, 64, cfg.cross_attention_dim), randn(1, 64),
+            randn(1, 64))
+    pooled = (cfg.projection_class_embeddings_input_dim
+              - 6 * cfg.addition_time_embed_dim)
+    cond = cond[:2] + (randn(1, pooled), randn(1, pooled))
+    tids = torch.tensor([[256.0, 256.0, 0.0, 0.0, 256.0, 256.0]],
+                        device=cuda_device)
+    for gi in (1.5, 1.0):
+        outs = []
+        for enabled in (True, False):
+            switch = graphs.Graphs(enabled=enabled)
+            n1 = tflash.flash_fwd.launches
+            with torch.no_grad():
+                out = tpipe.denoise_edit(
+                    unet, tsched.make_schedule(4), lat, img_lat, *cond,
+                    tids, guidance_scale=5.0, image_guidance_scale=gi,
+                    evals={}, graphs=switch)
+            torch.cuda.synchronize()
+            outs.append((out, tflash.flash_fwd.launches - n1))
+        assert torch.equal(outs[0][0], outs[1][0]), gi
+        assert outs[0][1] == outs[1][1] == 4 * tunet.flash_launches_per_eval(
+            cfg)
+
+
+@pytest.mark.cuda
+def test_ticket_buffer_survives_growth_after_capture(cuda_device):
+    """K2 captured with a split-K launch (tickets), then an eager launch
+    that needs more tickets than the buffer holds: the buffer grows, the
+    captured one stays, and a replay still gives the eager bytes."""
+    from seedx_tpu_torch.utils import graphs
+
+    tint4._tickets.pop(cuda_device, None)
+    x, packed, scale = _int4_inputs(cuda_device, 1, 5120, 5120)
+    assert tint4.plan(1, 5120, 5120, 128, tint4.sm_count(0))[1] > 1
+    out = torch.empty((1, 5120), dtype=torch.bfloat16, device=cuda_device)
+    prog = graphs.Graphs().program(
+        lambda: out.copy_(tint4.int4_matmul(x, packed, scale)), cuda_device)
+    prog()                                   # warm run + capture
+    want = out.clone()
+    held = tint4._tickets[cuda_device]
+    xb, pb, sb = _int4_inputs(cuda_device, 2016, 5120, 13824, seed=1)
+    tiles = -(-2016 // 32) * -(-13824 // tint4.BN)
+    assert tiles > held.numel()
+    big = tint4.int4_matmul(xb, pb, sb)
+    assert tint4._tickets[cuda_device] is not held
+    assert any(t is held for t in tint4._retired)
+    out.zero_()
+    prog()                                   # a replay
+    torch.cuda.synchronize()
+    assert prog.replays == 1 and torch.equal(out, want)
+    assert torch.equal(big, tint4.int4_matmul(xb, pb, sb))
+    assert not held.any()                    # tickets left at zero
+
+
+@pytest.mark.cuda
+def test_graphs_share_one_pool_and_renew_it(cuda_device):
+    """Programs captured under one switch share its pool while any of
+    their graphs lives; once all are gone, the next capture takes a new
+    pool (a released pool's handle cannot be used again) and replays."""
+    import gc
+
+    from seedx_tpu_torch.utils import graphs
+
+    switch = graphs.Graphs()
+    x = torch.ones(1024, device=cuda_device)
+    out = torch.zeros(1024, device=cuda_device)
+    a = switch.program(lambda: out.copy_(x * 2), cuda_device)
+    b = switch.program(lambda: out.copy_(x * 3), cuda_device)
+    a(), b()
+    handle = switch.pool(cuda_device)
+    assert a.graph is not None and b.graph is not None
+    del a, b
+    gc.collect()
+    c = switch.program(lambda: out.copy_(x * 4), cuda_device)
+    c()
+    assert switch.pool(cuda_device) != handle
+    out.zero_()
+    c()
+    torch.cuda.synchronize()
+    assert c.replays == 1 and torch.equal(out, x * 4)
+
+
+@pytest.mark.cuda
+def test_a_capture_that_fails_raises(cuda_device):
+    """A step that reads the device from the host cannot be captured: the
+    capture raises, and no eager path takes over."""
+    from seedx_tpu_torch.utils import graphs
+
+    x = torch.ones(4, device=cuda_device)
+    prog = graphs.Graphs().program(lambda: float(x.sum()), cuda_device)
+    with pytest.raises(RuntimeError):
+        prog()
+    assert prog.graph is None
