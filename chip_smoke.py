@@ -1,8 +1,9 @@
 """Drive the PyTorch port on one NVIDIA GPU at the full SEED-X-I width:
 the image-in comprehension turn, batched / continuous (fused prefill too)
-/ HTTP serving, multi-turn chat with a KV prefix cache, image out (the
-SDXL adapter: text to image, reconstruction, editing) and the SEED-X SFT
-train step, and check its five CUDA kernels.
+/ HTTP serving, multi-turn chat with a KV prefix cache, speculative
+decoding and beam search, image out (the SDXL adapter: text to image,
+reconstruction, editing) and the SEED-X SFT train step, and check its
+five CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -60,11 +61,22 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    ending at n == t), each with its decode captured and then eager:
    tokens, hidden states, finished flags, the chat cache's bytes and the
    kernels' launches must be equal; decode ms a step and tok/s of both;
-8. parity: the agent cut to ``PARITY_LAYERS`` layers at the same width and
+8. generation: speculative decoding at ``spec_k`` 4 under two 128-token
+   scripts (an echo of the prompt's document and one with no n-gram
+   repeats), plain and spec, captured and eager: each stream is its
+   script, captured = eager bit for bit, the counters those of the
+   port's 2-layer agent on the CPU; then plain / spec / spec / plain in
+   turns (tok/s, ms a verify round and a plain step, accepted a round,
+   gate flips) and a profiled window of each program; beam search at K
+   3 / 4, B 1 / 2, captured and eager bit for bit (ms a step, the cache
+   gather's share, peak memory), K 1 against the greedy stream; three
+   ``/v1/chat`` turns with ``spec_k`` 4;
+9. parity: the agent cut to ``PARITY_LAYERS`` layers at the same width and
    seed runs phase 5's 16 requests non-fused and fused, and phase 6's chat
    turns; the streams must be equal or part only at a tie (``TIE_ULPS``
-   bf16 steps of the forced logits);
-9. image out on the phase-4 runtime with a full-width adapter (random
+   bf16 steps of the forced logits), and the greedy spec stream at k 1 /
+   4 / 8 against the plain one by the same rule;
+10. image out on the phase-4 runtime with a full-width adapter (random
    weights from seed 0: ResamplerXL, the SDXL base UNet in bf16, the SDXL
    VAE in fp32): one UNet eval with K1 against the plain attention
    (``UNET_K1_REL``), the UNet's device ms a step at CFG 2 and 3 with a
@@ -80,7 +92,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    one ``/v1/generate`` POST.  Every UNet eval must launch K1 70 times,
    every eps, latent and image (before the clip) be finite, every image
    [B, 1024, 1024, 3];
-10. train: the SEED-X SFT step at full width (ViT-bigG frozen, LLaMA2-13B
+11. train: the SEED-X SFT step at full width (ViT-bigG frozen, LLaMA2-13B
    bf16 frozen, LoRA r32 on the seven projections, both resamplers, the
    embedding and LM head trainable in fp32) on SFT batches built by the
    port's encoders and ``collate_anyres`` (2 conversations at 880 tokens
@@ -92,19 +104,20 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    on each repeated batch, the frozen weights stay bit-equal, the final
    checkpoint read back bit-equal) and one step with gradient
    accumulation 2;
-11. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
+12. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
    line ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-10 runs with the launch counters set to 0 just
+Every path of phases 4-11 runs with the launch counters set to 0 just
 before it and read just after, and fails unless each kernel it runs was
 launched (the fused engines: K3 in its multi-query mode); a captured
 program adds its launches at every replay, so the counters count what
 ran.  In the kernels line ``launches`` is the sum over the main path's
-runs of phases 4-6, 9 and 10 (the turn, the serving engines and HTTP,
-the chat sessions, the image-out runs, the train steps), with K3's by
+runs of phases 4-6, 8, 10 and 11 (the turn, the serving engines and
+HTTP, the chat sessions, the warm captured scripted runs, the beams and
+the spec chat, the image-out runs, the train steps), with K3's by
 mode and K2's by row tile (``launches_by_tile``; its calls by row band
-are logged); the eager twins of phases 5, 7 and 9, the forced runs,
-phase 8 and the gradient check, and the UNet's K1-against-plain eval
+are logged); the eager twins of phases 5, 7, 8 and 10, the forced runs,
+phase 9 and the gradient check, and the UNet's K1-against-plain eval
 print theirs on a line of their own.  ``max_abs_err`` is the
 largest over the kernel's shapes, and ``ms``, ``plain_ms`` and
 ``bound_ms`` sums of one call at each shape; ``library_ms`` sums the
@@ -115,6 +128,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import statistics
@@ -437,7 +451,7 @@ def check_flash_bwd(dev, g, shapes=FLASH_BWD_SHAPES):
 # mixed step (24), the <img> chunk (65), a prefill bucket (512) and the
 # most rows it takes (2048), on the 13B's three projection shapes and the
 # debug agent's (hidden 128, intermediate 256)
-INT4_ROWS = (1, 8, 24, 65, 512, 2048)
+INT4_ROWS = (1, 4, 5, 8, 24, 65, 512, 2048)
 INT4_SHAPES = ((5120, 5120), (5120, 13824), (13824, 5120), (128, 256))
 
 
@@ -740,6 +754,7 @@ def check_kernels(dev):
     rows += check_int4(dev, g, flush)
     rows += check_decode(dev, g, flush)
     rows += check_stair(dev, g, flush)
+    rows += check_stair_verify(dev, g, flush)
     del flush
     return rows
 
@@ -985,9 +1000,9 @@ def stash_decode():
     base = generation._decode_loop
 
     def keep(*a, **kw):
-        out, forwards, n = base(*a, **kw)
+        out, info = base(*a, **kw)
         outs.append({k: v.clone() for k, v in out.items()})
-        return out, forwards, n
+        return out, info
 
     generation._decode_loop = keep
     try:
@@ -1959,6 +1974,7 @@ def run_parity(dev, requests, budgets) -> None:
         f"streams {parting_summary(parts)}; every parting a tie")
     add_counts(CHECKS, chat_turns(rt, f"chat {PARITY_LAYERS} layers",
                                   enforce=True))
+    spec_unforced(rt, f"parity {PARITY_LAYERS} layers")
 
 
 # ---- image out (phase 8) ------------------------------------------------
@@ -3074,6 +3090,453 @@ def run_train(dev):
     return totals
 
 
+# ---- the rest of generation (phase 8) ------------------------------------
+
+GEN_T = 128                 # each script's length
+GEN_K = 4                   # the draft length of the scripted runs
+GEN_BUCKET = 512
+BEAM_T = 16                 # beam steps at full width
+BEAM_SHAPES = ((1, 3), (1, 4), (2, 3), (2, 4))      # (B, K)
+GEN_DOC = ("Quarterly report. Subscription renewals in the enterprise "
+           "segment grew by eleven percent, driven by the new annual plans "
+           "and a lower churn rate among mid-sized customers. Hardware "
+           "revenue fell for the third quarter in a row, while services "
+           "margins held steady at forty-two percent.")
+
+
+def gen_prompt(tok):
+    """A document-QA prompt (the doc quoted in it) and the doc's ids."""
+    doc = tok.encode(GEN_DOC)
+    ids = ([tok.bos_token_id] + tok.encode("[INST] Read the report.\n") + doc
+           + tok.encode("\nWhat happened to renewals? [/INST]\n"))
+    return ids, doc
+
+
+def gen_scripts(tok, prompt, doc):
+    """Two scripted replies of ``GEN_T`` tokens: "echo" quotes long runs
+    of the prompt's document, as doc-QA and grounding replies do;
+    "adversarial" repeats no n-gram (distinct ids the prompt lacks)."""
+    first = len(tok.encode(GEN_DOC[:GEN_DOC.index("Subscription")]))
+    second = len(tok.encode(GEN_DOC[:GEN_DOC.index("Hardware")]))
+    echo = (doc[first:first + 70] + tok.encode(" and that ")
+            + doc[second:])[:GEN_T]
+    rng = np.random.default_rng(0)
+    pool = np.setdiff1d(np.arange(3, 30000), np.asarray(prompt))
+    adversarial = [int(x) for x in rng.choice(pool, GEN_T, replace=False)]
+    if len(echo) != GEN_T:
+        raise AssertionError(f"echo script of {len(echo)} tokens")
+    return {"echo": [int(x) for x in echo], "adversarial": adversarial}
+
+
+def script_cfg(rt, spec_k: int, bucket: int = GEN_BUCKET):
+    from seedx_tpu_torch.models import generation
+
+    tok = rt.tokenizer
+    return generation.GenerationConfig(
+        max_new_tokens=GEN_T, num_img_gen_tokens=rt.agent_cfg.
+        num_img_out_tokens, eos_token_id=tok.eos_token_id,
+        pad_token_id=tok.pad_token_id, prompt_buckets=(bucket,),
+        spec_k=spec_k)
+
+
+def padded_prompt(ids, dev, bucket: int = GEN_BUCKET):
+    import torch
+
+    padded = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+    padded[0, bucket - len(ids):] = torch.tensor(ids, device=dev)
+    return padded, padded != 0
+
+
+def script_run(rt, prompt, script, gen_cfg, bucket: int = GEN_BUCKET):
+    """``generate_tokens`` at B 1 with the prompt's ids and a script:
+    (out, timings)."""
+    import torch
+
+    from seedx_tpu_torch.models import generation
+
+    padded, mask = padded_prompt(prompt, rt.device, bucket)
+    t = {}
+    with torch.no_grad():
+        out = generation.generate_tokens(
+            rt.agent, rt.agent.embed_ids(padded), mask,
+            torch.tensor([prompt[-1]], device=rt.device), gen_cfg,
+            rt.tokenizer.vocab, timings=t, prompt_ids=padded,
+            script_ids=torch.tensor(script))
+    if rt.device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, t
+
+
+def cpu_counters(prompt, scripts):
+    """(spec_rounds, spec_accepted) of each script on the port's 2-layer
+    debug agent on the CPU (the plain versions): under forcing they are a
+    function of the token stream alone."""
+    from seedx_tpu_torch.inference.runtime import SeedXRuntime
+
+    cpu = SeedXRuntime.debug(device="cpu", quantization="int4",
+                             kv_quantization="int8")
+    out = {}
+    for name, script in scripts.items():
+        res, _ = script_run(cpu, prompt, script, script_cfg(cpu, GEN_K))
+        out[name] = (int(res["spec_rounds"]), int(res["spec_accepted"]))
+    return out
+
+
+def run_generation(rt, dev, smi: str):
+    """Phase 8 on the full-width runtime: speculative decoding under
+    script forcing (an echo and an adversarial script, plain and k 4,
+    each captured twice (the first call captures) and eager), beam
+    search at K 3 / 4 and B 1 / 2 (captured and eager; K 1 against the
+    greedy stream), and three ``/v1/chat`` turns with ``spec_k`` 4.
+    Returns the main path's launches (the warm captured runs, the beams
+    and the chat); the other runs' go to ``CHECKS``."""
+    import torch
+
+    tok = rt.tokenizer
+    prompt, doc = gen_prompt(tok)
+    scripts = gen_scripts(tok, prompt, doc)
+    t0 = time.perf_counter()
+    want = cpu_counters(prompt, scripts)
+    log(f"generation: the scripts' counters on the 2-layer CPU agent "
+        f"{json.dumps(want)} ({time.perf_counter() - t0:.1f} s)")
+    launches = {}
+    for name, script in scripts.items():
+        res = {}
+        for k in (0, GEN_K):
+            for mode in ("graphs, first call", "graphs", "eager"):
+                rt.graphs.enabled = mode != "eager"
+                reset_counts()
+                out, t = script_run(rt, prompt, script, script_cfg(rt, k))
+                label = f"generation {name} k {k} ({mode})"
+                counts = path_counts(label)
+                add_counts(launches if mode == "graphs" else CHECKS, counts)
+                if out["tokens"][0].tolist() != script:
+                    raise AssertionError(f"{label}: the stream is not the "
+                                         f"script")
+                if k and mode != "eager" and not (
+                        counts["decode_attn multi_query"] > 0
+                        and counts["int4_w4a8 rows 2-16"] > 0):
+                    raise AssertionError(f"{label}: no verify round ran "
+                                         f"K3's stair and K2 at k + 1 rows")
+                res[(k, mode)] = (out, t)
+                rounds, acc = int(out["spec_rounds"]), int(
+                    out["spec_accepted"])
+                verify = (f"verify "
+                          f"{t['verify_s'] / t['verify_replays'] * 1e3:.2f}"
+                          f" ms a round over {t['verify_replays']} replays "
+                          if t["verify_replays"] else "")
+                plain = (f"plain "
+                         f"{t['plain_s'] / t['plain_replays'] * 1e3:.2f}"
+                         f" ms a step over {t['plain_replays']} replays, "
+                         if t["plain_replays"] else "")
+                log(f"{label}: {t['decode_tokens']} tokens in "
+                    f"{t['decode'] * 1e3:.1f} ms "
+                    f"({t['decode_tokens'] / t['decode']:.2f} tok/s), "
+                    f"{t['decode_forwards']} forwards; {verify}{plain}"
+                    f"rounds {rounds}, accepted {acc} "
+                    f"({acc / max(rounds, 1):.2f} a round), gate flips "
+                    f"{t['gate_flips']} ({smi})")
+            e = res[(k, "eager")][0]
+            for mode in ("graphs, first call", "graphs"):
+                g = res[(k, mode)][0]
+                if not all(torch_equal(g[key], e[key]) for key in g):
+                    raise AssertionError(f"generation {name} k {k}: {mode} "
+                                         f"and eager outputs differ")
+        got = (int(res[(GEN_K, "graphs")][0]["spec_rounds"]),
+               int(res[(GEN_K, "graphs")][0]["spec_accepted"]))
+        if got != want[name]:
+            raise AssertionError(f"generation {name}: counters {got} at "
+                                 f"full width, {want[name]} on the CPU")
+        log(f"generation {name}: the stream is the script in all six "
+            f"runs, captured = eager bit for bit, counters {got} = the CPU "
+            f"run's")
+        # the times kept: captured, plain and spec in turns (plain, spec,
+        # spec, plain) on the same card
+        rt.graphs.enabled = True
+        turns = {0: [], GEN_K: []}
+        for k in (0, GEN_K, GEN_K, 0):
+            reset_counts()
+            turns[k].append(script_run(rt, prompt, script,
+                                       script_cfg(rt, k))[1])
+            add_counts(CHECKS, read_counts())
+
+        def rate(ts, what):
+            n = sum(t[f"{what}_replays"] for t in ts)
+            return sum(t[f"{what}_s"] for t in ts) / n * 1e3 if n else 0.0
+
+        tok_s = {k: [t["decode_tokens"] / t["decode"] for t in ts]
+                 for k, ts in turns.items()}
+        sp_t = turns[GEN_K]
+        log(f"generation {name}, in turns: plain {tok_s[0][0]:.2f} / "
+            f"{tok_s[0][1]:.2f} tok/s ({rate(turns[0], 'plain'):.2f} ms a "
+            f"step), spec k {GEN_K} {tok_s[GEN_K][0]:.2f} / "
+            f"{tok_s[GEN_K][1]:.2f} tok/s "
+            f"({statistics.mean(tok_s[GEN_K]) / statistics.mean(tok_s[0]):.3f}"
+            f"x plain): verify {rate(sp_t, 'verify'):.2f} ms a round "
+            f"({sp_t[0]['verify_replays']} a run), its plain steps "
+            f"{rate(sp_t, 'plain'):.2f} ms ({sp_t[0]['plain_replays']} a "
+            f"run), {got[1] / max(got[0], 1):.2f} accepted a round, "
+            f"{sp_t[0]['gate_flips']} gate flips ({smi})")
+    rt.graphs.enabled = True
+    # device time of each program a replay (a replay after decode stopped
+    # runs the same forward, its writes masked)
+    from seedx_tpu_torch.models import generation
+
+    store = generation.decode_programs(rt.agent)
+    st = {k: store.states[(1, GEN_BUCKET + GEN_T + k, script_cfg(rt, k),
+                           tok.vocab, k, True)] for k in (0, GEN_K)}
+    reset_counts()
+    for label, prog in (("plain step, plain state", st[0].program),
+                        ("plain step, spec state", st[GEN_K].program),
+                        ("verify round", st[GEN_K].spec_program)):
+        profile_window(f"generation {label}",
+                       lambda prog=prog: [prog() for _ in range(8)] and 8)
+    add_counts(CHECKS, read_counts())
+    add_counts(launches, run_beams(rt, prompt, smi))
+    add_counts(launches, spec_chat(rt))
+    return launches
+
+
+def run_beams(rt, prompt, smi: str):
+    """Beam search at full width: each (B, K) of ``BEAM_SHAPES`` captured
+    (the first call captures, the second replays) and eager, bit for bit;
+    ms a step, the cache gather's device ms a step and peak memory; K 1
+    against the greedy stream."""
+    import torch
+
+    from seedx_tpu_torch.models import generation
+
+    tok, dev = rt.tokenizer, rt.device
+    second = [tok.bos_token_id] + tok.encode(
+        "[INST] Name three colors of the sea. [/INST]\n")
+    rows = [padded_prompt(prompt, dev), padded_prompt(second, dev)]
+    launches = {}
+
+    def beam(b, k, timings=None):
+        cfg = dataclasses.replace(script_cfg(rt, 0), max_new_tokens=BEAM_T,
+                                  num_beams=k)
+        padded = torch.cat([r[0] for r in rows[:b]])
+        mask = torch.cat([r[1] for r in rows[:b]])
+        with torch.no_grad():
+            out = generation.generate_tokens_beam(
+                rt.agent, rt.agent.embed_ids(padded), mask, padded[:, -1],
+                cfg, tok.vocab, timings=timings)
+        torch.cuda.synchronize()
+        return out, cfg
+
+    for b, k in BEAM_SHAPES:
+        res = {}
+        torch.cuda.reset_peak_memory_stats()
+        for mode in ("graphs, first call", "graphs", "eager"):
+            rt.graphs.enabled = mode != "eager"
+            reset_counts()
+            t = {}
+            out, cfg = beam(b, k, t)
+            counts = path_counts(f"beam B{b} K{k} ({mode})")
+            add_counts(launches if mode == "graphs" else CHECKS, counts)
+            res[mode] = (out, t)
+            if mode == "graphs" and not (
+                    counts["decode_attn one_query"] > 0
+                    and counts["int4_w4a8 rows 2-16"] > 0):
+                raise AssertionError(f"beam B{b} K{k}: K3 one-query or K2 "
+                                     f"at B * K rows not launched")
+        rt.graphs.enabled = True
+        for mode in ("graphs, first call", "graphs"):
+            if not all(torch_equal(res[mode][0][key], res["eager"][0][key])
+                       for key in res["eager"][0]):
+                raise AssertionError(f"beam B{b} K{k}: {mode} and eager "
+                                     f"differ")
+        out = res["graphs"][0]
+        if not bool(torch.isfinite(out["scores"]).all()):
+            raise AssertionError(f"beam B{b} K{k}: scores not finite")
+        # the step's cache gather alone, at this shape
+        (st,) = [s for key, s in generation.decode_programs(
+            rt.agent).states.items() if key[:4] == ("beam", b, GEN_BUCKET,
+                                                     cfg)]
+        sel = torch.arange(b * k, device=dev).flip(0)
+        gather_ms = cuda_ms(lambda: [generation._gather_rows(c, sel)
+                                     for c in st.cache])
+        bytewise_ms = cuda_ms(lambda: [c.copy_(c.index_select(1, sel))
+                                       for c in st.cache])
+        step = {m: res[m][1]["decode"] / BEAM_T * 1e3 for m in res}
+        n_bytes = sum(c.numel() * c.element_size() for c in st.cache)
+        log(f"beam B{b} K{k}: {BEAM_T} steps, {step['graphs']:.2f} ms a "
+            f"step captured ({step['graphs, first call']:.2f} first call, "
+            f"eager {step['eager']:.2f}); the cache gather "
+            f"{gather_ms:.3f} ms a step ({gather_ms / step['graphs']:.1%} "
+            f"of it, {n_bytes / 2**20:.1f} MiB gathered; element by "
+            f"element {bytewise_ms:.3f} ms); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"captured = eager bit for bit ({smi})")
+    # one beam is the greedy stream
+    out, cfg = beam(1, 1)
+    seq, _, _ = generation._backtrack_beam(out, cfg, 0)
+    padded, mask = rows[0]
+    with torch.no_grad():
+        greedy = generation.generate_tokens(
+            rt.agent, rt.agent.embed_ids(padded), mask, padded[:, -1],
+            dataclasses.replace(cfg, num_beams=1), tok.vocab)
+    if list(seq) != greedy["tokens"][0].tolist():
+        raise AssertionError(f"beam K1 {list(seq)} vs greedy "
+                             f"{greedy['tokens'][0].tolist()}")
+    log(f"beam K1: the greedy stream ({BEAM_T} tokens)")
+    return launches
+
+
+def spec_chat(rt):
+    """Three ``/v1/chat`` turns on one session with ``spec_k`` 4 through
+    ``SeedXServer``: its decode state speculates, the prefix is reused."""
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from seedx_tpu_torch.inference.server import SeedXServer
+
+    reset_counts()
+    server = SeedXServer(rt, max_new_tokens=32)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler())
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    replies, reused = [], []
+    t0 = time.perf_counter()
+    try:
+        for msg in ("Summarize: " + GEN_DOC, "Repeat the first sentence.",
+                    "And the second one?"):
+            body = {"session": "spec", "message": msg, "max_new_tokens": 32,
+                    "spec_k": GEN_K}
+            req = urllib.request.Request(
+                url + "/v1/chat", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                replies.append((r.status, json.loads(r.read())))
+            reused.append(server._sessions["spec"].last_reused)
+        wall = time.perf_counter() - t0
+        st = server._sessions["spec"]._decode
+        rounds = [int(x) for x in st.sp[:2]]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+        thread.join(60)
+    counts = path_counts("generation chat http spec_k 4")
+    if (any(s_ != 200 or not isinstance(r.get("text"), str)
+            for s_, r in replies) or st.spec_k != GEN_K
+            or not all(reused[1:])
+            or counts["decode_attn multi_query"] <= 0):
+        raise AssertionError(f"/v1/chat spec_k: {replies} reused {reused}")
+    log(f"generation chat http: 3 turns with spec_k {GEN_K} answered 200 in "
+        f"{wall:.2f} s, reused {reused} cached tokens; the last turn "
+        f"{rounds[0]} rounds, {rounds[1]} drafts accepted")
+    return counts
+
+
+def through_eos(tokens, tok):
+    """A decoded row as a list, cut after its first EOS."""
+    row = [int(x) for x in tokens]
+    return (row[:row.index(tok.eos_token_id) + 1]
+            if tok.eos_token_id in row else row)
+
+
+def spec_unforced(rt, tag: str):
+    """On the depth-cut agent: the greedy spec stream (k 1 / 4 / 8,
+    captured) against the greedy plain stream, by the tie rule (the plain
+    loop's own logits, recorded eagerly, give the gap where they part)."""
+    import torch
+
+    from seedx_tpu_torch.models import generation
+
+    tok = rt.tokenizer
+    prompt, _ = gen_prompt(tok)
+    padded, mask = padded_prompt(prompt, rt.device)
+    embeds = rt.agent.embed_ids(padded)
+    last = torch.tensor([prompt[-1]], device=rt.device)
+
+    def run(k):
+        with torch.no_grad():
+            return generation.generate_tokens(
+                rt.agent, embeds, mask, last,
+                dataclasses.replace(script_cfg(rt, k), max_new_tokens=64),
+                tok.vocab, prompt_ids=padded)
+
+    holder = {}
+    base = generation.decode_step
+
+    def step(model, st, *a, **kw):
+        holder["st"] = st
+        return base(model, st, *a, **kw)
+
+    generation.decode_step = step
+    try:
+        with Teacher(rt, generation,
+                     lambda call: ([0], holder["st"].n.view(1).clone())
+                     ) as rec:
+            plain = through_eos(run(0)["tokens"][0], tok)
+    finally:
+        generation.decode_step = base
+    logits = rec.along(0, len(plain))
+    reset_counts()
+    for k in (1, 4, 8):
+        out = run(k)
+        gap = tie_check(f"{tag} spec k {k}",
+                        through_eos(out["tokens"][0], tok), plain, logits,
+                        enforce=True)
+        log(f"{tag} spec k {k}: {int(out['spec_rounds'])} rounds, "
+            f"{int(out['spec_accepted'])} accepted; "
+            + ("the plain greedy stream" if gap is None
+               else f"parts from it at a tie ({gap:g} bf16 steps)"))
+    add_counts(CHECKS, path_counts(f"{tag} spec"))
+
+
+def check_stair_verify(dev, g, flush, widths=(GEN_K + 1,)):
+    """K3's stair at the verify round's shape: B 1, w = k + 1, the int8
+    dense cache of a B 1 spec request (bucket + T + k positions), its
+    window from the prompt's first position to the middle of decode."""
+    import torch
+
+    from seedx_tpu_torch.models.llama import quantize_kv
+    from seedx_tpu_torch.ops import decode_attention as da
+    from seedx_tpu_torch.text.tokenizer import load_tokenizer
+
+    prompt, _ = gen_prompt(load_tokenizer())
+    h, d = 40, 128
+    rows = []
+    for w in widths:
+        s = GEN_BUCKET + GEN_T + w - 1
+        q = torch.randn((1, w, h, d), generator=g,
+                        device=dev).to(torch.bfloat16)
+        (k, ks), (v, vs) = (quantize_kv(torch.randn(
+            (1, s, h, d), generator=g, device=dev).to(torch.bfloat16))
+            for _ in range(2))
+        k, v = k.reshape(1, s, -1), v.reshape(1, s, -1)
+        kw = dict(k_scale=ks[..., 0].contiguous(),
+                  v_scale=vs[..., 0].contiguous())
+        start, end = GEN_BUCKET - len(prompt), GEN_BUCKET + GEN_T // 2
+        st = torch.tensor([start], dtype=torch.int32, device=dev)
+        en = torch.tensor([end], dtype=torch.int32, device=dev)
+        out = da.ragged_decode_attention(q, k, v, st, en, **kw)
+        ref = da.ragged_decode_attention_plain(q, k, v, st, en, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        mag = ref.float().abs().max().item()
+        tol = 2e-2      # bf16 output of O(1), as for the other stair rows
+        # the longest slot's window read once (codes + scales), q and out
+        # once; the work is each slot's own window
+        pos = end + w - 1 - start
+        pairs = sum(end + i - start for i in range(w))
+        n_bytes = 2 * q.numel() * 2 + 2 * pos * h * d + 2 * pos * h * 2 + 8
+        r = row("decode_attn", f"stair_verify_int8_b1 B1 w{w} S{s} Hq{h} "
+                f"Hkv{h} D{d} int8 window [{start}, {end}) positions "
+                f"{pairs}", err <= tol, err,
+                cuda_ms(lambda: da.ragged_decode_attention(
+                    q, k, v, st, en, **kw), flush),
+                cuda_ms(lambda: da.ragged_decode_attention_plain(
+                    q, k, v, st, en, **kw), flush),
+                bound(n_bytes, 4 * d * h * pairs, "int8"))
+        log(fmt_row(r, f" max_rel_err {err / mag:.3e} tol {tol:g}"))
+        rows.append(r)
+    return rows
+
+
 def ptxas_entries(report: str):
     """(mangled kernel name, registers line, spill line) of each entry
     function in a ``ptxas -v`` report."""
@@ -3162,6 +3625,9 @@ def main() -> int:
     add_counts(launches, run_chat(rt, limit))
     run_graph_twins(rt, requests, smi)
     run_graph_memory(rt, smi)
+    t_gen = time.perf_counter()
+    add_counts(launches, run_generation(rt, dev, smi))
+    log(f"generation phase: {time.perf_counter() - t_gen:.1f} s")
     run_parity(dev, requests, budgets)
     add_counts(launches, run_image_out(rt, dev, smi))
     # the HTTP handler classes hold the servers, and so the runtime, in
@@ -3170,8 +3636,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     add_counts(launches, run_train(dev))
-    log(f"main path (turn, serving, chat, image out, train; decode, the "
-        f"engines' steps and the UNet evals captured): launches "
+    log(f"main path (turn, serving, chat, generation, image out, train; "
+        f"decode, the verify round, the beam step, the engines' steps and "
+        f"the UNet evals captured): launches "
         f"{json.dumps(launches)}")
     log("main path: K2 calls by row band: " + ", ".join(
         f"rows {b} {launches[f'int4_w4a8 rows {b}']}"

@@ -48,8 +48,11 @@ def _prepare_image_prompt(rt: SeedXRuntime, image, instruction: str,
 
 def comprehend(rt: SeedXRuntime, image, question: str,
                prompt_style: str = "instruct", max_new_tokens: int = 512,
+               spec_k: int = 0,
                timings: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
     """Image + question -> answer text (and any generated image features).
+    ``spec_k`` > 0 decodes with exact n-gram speculative decoding (greedy;
+    ``models/generation.py``): the same tokens, fewer weight passes.
     ``timings``, when given, receives host seconds (each closed by a device
     synchronize) for "vit", "prefill" and "decode"."""
     clock = PhaseClock(rt.device, timings)
@@ -60,7 +63,8 @@ def comprehend(rt: SeedXRuntime, image, question: str,
         timings["n_tiles"] = int(embeds.shape[0])
     out = rt.generate(input_ids, image_embeds=embeds, embeds_cmp_mask=ecm,
                       ids_cmp_mask=cmp_mask, patch_positions=ppos,
-                      max_new_tokens=max_new_tokens, timings=timings)
+                      max_new_tokens=max_new_tokens, spec_k=spec_k,
+                      timings=timings)
     out["clean_text"] = prompts.strip_markup(out["text"])
     return out
 
@@ -78,12 +82,14 @@ def draw_boxes(image, boxes_pixels, width: int = 2):
 
 
 def ground(rt: SeedXRuntime, image, question: str,
-           max_new_tokens: int = 512,
+           max_new_tokens: int = 512, spec_k: int = 0,
            timings: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
     """Comprehension + bounding-box extraction + box rendering
-    (reference: eval_img2text_seed_x_i.py:182-231)."""
+    (reference: eval_img2text_seed_x_i.py:182-231).  Grounding replies
+    are self-similar (``<box_start>..<box_end>`` markup): territory for
+    ``spec_k``."""
     out = comprehend(rt, image, question, max_new_tokens=max_new_tokens,
-                     timings=timings)
+                     spec_k=spec_k, timings=timings)
     boxes = prompts.extract_boxes(out["text"])
     out["boxes"] = boxes
     out["boxes_image"] = None
@@ -104,7 +110,7 @@ def condition_input(rt: SeedXRuntime, image) -> torch.Tensor:
 
 def text_to_image(rt: SeedXRuntime, caption: str, seed: int = 42,
                   num_inference_steps: int = 50, max_new_tokens: int = 120,
-                  solver: str = "euler",
+                  solver: str = "euler", spec_k: int = 0,
                   timings: Optional[Dict[str, float]] = None
                   ) -> Dict[str, Any]:
     """Caption -> generated image (reference: eval_text2img_seed_x_i.py:85-94):
@@ -115,7 +121,7 @@ def text_to_image(rt: SeedXRuntime, caption: str, seed: int = 42,
     text = prompts.generation_prompt(caption)
     input_ids = [rt.tokenizer.bos_token_id] + rt.tokenizer.encode(text)
     out = rt.generate(input_ids, max_new_tokens=max_new_tokens,
-                      timings=timings)
+                      spec_k=spec_k, timings=timings)
     out["images"] = None
     if out["has_img_output"] and rt.adapter is not None:
         out["images"] = rt.adapter.generate(
@@ -127,7 +133,7 @@ def text_to_image(rt: SeedXRuntime, caption: str, seed: int = 42,
 
 def edit_image(rt: SeedXRuntime, image, instruction: str, seed: int = 42,
                num_inference_steps: int = 50, max_new_tokens: int = 120,
-               solver: str = "euler",
+               solver: str = "euler", spec_k: int = 0,
                image_guidance_scale: Optional[float] = None,
                timings: Optional[Dict[str, float]] = None
                ) -> Dict[str, Any]:
@@ -139,7 +145,8 @@ def edit_image(rt: SeedXRuntime, image, instruction: str, seed: int = 42,
         rt, image, instruction)
     out = rt.generate(input_ids, image_embeds=embeds, embeds_cmp_mask=ecm,
                       ids_cmp_mask=cmp_mask, patch_positions=ppos,
-                      max_new_tokens=max_new_tokens, timings=timings)
+                      max_new_tokens=max_new_tokens, spec_k=spec_k,
+                      timings=timings)
     out["images"] = None
     if out["has_img_output"] and rt.adapter is not None:
         out["images"] = rt.adapter.generate(

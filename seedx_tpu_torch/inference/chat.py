@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from seedx_tpu_torch.models.generation import (DecodeState,
                                                GenerationConfig,
                                                _trim_and_spans, build_result,
-                                               generate_tokens_cached)
+                                               generate_tokens_cached,
+                                               spec_width)
 from seedx_tpu_torch.models.llama import init_kv_cache
 from seedx_tpu_torch.text import prompts
 
@@ -125,7 +126,7 @@ class ChatSession:
     # ------------------------------------------------------------------
 
     def _generate_cached(self, input_ids, cmp_mask, image_embeds, ppos,
-                         max_new_tokens: int,
+                         max_new_tokens: int, spec_k: int = 0,
                          timings: Optional[Dict[str, float]] = None):
         """Delta-prefill generation against the session KV cache."""
         rt = self.rt
@@ -134,7 +135,7 @@ class ChatSession:
             max_new_tokens=max_new_tokens,
             num_img_gen_tokens=rt.agent_cfg.num_img_out_tokens,
             eos_token_id=rt.tokenizer.eos_token_id,
-            pad_token_id=rt.tokenizer.pad_token_id)
+            pad_token_id=rt.tokenizer.pad_token_id, spec_k=spec_k)
         full_mask = (np.asarray(cmp_mask, bool) if cmp_mask is not None
                      else np.zeros((len(input_ids),), bool))
         n_in = rt.agent_cfg.num_img_in_tokens
@@ -154,12 +155,13 @@ class ChatSession:
             lcp = 0                          # never split an image span
 
         # the cache must hold the decode AND the bucket-padded prefill
-        # written at offset lcp (a write past its end would fail)
-        need = max(len(input_ids) + max_new_tokens,
+        # written at offset lcp (a write past its end would fail); a
+        # verify forward writes spec_k rows past the last token
+        need = max(len(input_ids) + max_new_tokens + spec_k,
                    lcp + seg_bucket(len(input_ids) - lcp))
         if self._cache is None or self._cache[0].shape[2] < need:
             lcp = 0                          # a fresh cache: full prefill
-            need = max(len(input_ids) + max_new_tokens,
+            need = max(len(input_ids) + max_new_tokens + spec_k,
                        seg_bucket(len(input_ids)))
             cap = (max(self.cache_capacity, need) + 127) // 128 * 128
             self._cache = init_kv_cache(rt.agent_cfg.llm, 1, cap,
@@ -188,14 +190,26 @@ class ChatSession:
                 torch.as_tensor(ids_padded, device=rt.device), img_delta,
                 torch.as_tensor(dm, device=rt.device)
                 if img_delta is not None else None, ecm, ppos_delta)
+        hist_ids = None
+        cap = self._cache[0].shape[2]
+        if spec_k:
+            # the ids at absolute cache positions: multi-turn history is
+            # the prime n-gram workload
+            hist_ids = torch.full((cap,), -1, dtype=torch.int64,
+                                  device=rt.device)
+            hist_ids[:len(input_ids)] = torch.as_tensor(input_ids)
+        # a session keeps one decode state, made anew (and captured anew)
+        # for another generation config
         if (self._decode is None or self._decode.cache is not self._cache
                 or self._decode.gen_cfg != gen_cfg):
             self._decode = DecodeState(rt.agent, self._cache, 1, gen_cfg,
-                                       vocab, rt.agent.graphs)
+                                       vocab, rt.agent.graphs,
+                                       spec_k=spec_width(gen_cfg, 1, True),
+                                       hist_len=cap)
         out, self._cache, _ = generate_tokens_cached(
             rt.agent, self._cache, seg_embeds, lcp, len(delta),
             int(input_ids[-1]), gen_cfg, vocab, timings=timings,
-            decode=self._decode)
+            decode=self._decode, hist_ids=hist_ids)
         self.last_prefill_tokens = len(delta)
 
         tokens = out["tokens"][0].cpu().numpy()
@@ -223,12 +237,11 @@ class ChatSession:
         num_gen_imgs, tokens}; ``images`` [n, H, W, 3] in [0, 1] when the
         reply holds image spans and the runtime has an adapter
         (``num_inference_steps`` and ``seed`` go to its ``generate``).
-        ``timings`` receives the prefill / decode host seconds of the turn
-        (see ``generate_tokens``) and the adapter's phases."""
-        if spec_k > 0:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP Queue 1 "
-                "item 4)")
+        ``spec_k`` > 0 decodes the reply with exact n-gram speculative
+        decoding (greedy; ``models/generation.py``): multi-turn history is
+        the prime prompt-lookup workload.  ``timings`` receives the
+        prefill / decode host seconds of the turn (see
+        ``generate_tokens``) and the adapter's phases."""
         n_patches = self._add_image(image) if image is not None else 0
         self.turns.append(Turn("user", text, n_patches))
 
@@ -248,14 +261,15 @@ class ChatSession:
 
         if self.prefix_cache:
             out = self._generate_cached(input_ids, cmp_mask, image_embeds,
-                                        ppos, max_new_tokens, timings)
+                                        ppos, max_new_tokens, spec_k=spec_k,
+                                        timings=timings)
         else:
             out = self.rt.generate(input_ids, image_embeds=image_embeds,
                                    embeds_cmp_mask=embeds_cmp,
                                    ids_cmp_mask=cmp_mask,
                                    patch_positions=ppos,
                                    max_new_tokens=max_new_tokens,
-                                   timings=timings)
+                                   spec_k=spec_k, timings=timings)
             self.last_prefill_tokens = len(input_ids)
 
         images = None

@@ -31,6 +31,8 @@ the saved PNGs of its generated images (null without any).
 ``chat`` reads one user turn per stdin line (``img:PATH text`` attaches an
 image; ``exit`` or ``quit`` ends) and prints each reply (and the paths of
 its images), over one ``ChatSession`` with its KV prefix cache.
+``--spec_k`` decodes img2text, ground, text2img, edit and chat replies
+with exact n-gram speculative decoding (greedy, one request at a time).
 
 ``--debug`` (or SEEDX_DEBUG=1) runs the tiny random stack with the debug
 SDXL adapter; the released weights cannot be loaded yet.  Everything runs
@@ -131,6 +133,10 @@ def main(argv=None):
     p.add_argument("--solver", default="euler",
                    choices=["euler", "dpmpp_2m", "dpmpp_3m"],
                    help="diffusion sampler (euler: the reference's)")
+    p.add_argument("--spec_k", type=int, default=0,
+                   help="n-gram speculative decoding draft length (greedy "
+                        "B=1 only; 0 disables): the same tokens, fewer "
+                        "weight passes on self-similar replies")
     p.add_argument("--image_cfg", type=float, default=None,
                    help="edit: image_guidance_scale (default: the adapter "
                         "config's 1.5; exactly 1.0 drops the uncond CFG "
@@ -230,12 +236,14 @@ def _app(rt, args) -> int:
     if args.command == "img2text":
         out = apps.comprehend(rt, image, args.question,
                               prompt_style=args.prompt_style,
-                              max_new_tokens=args.max_new_tokens)
+                              max_new_tokens=args.max_new_tokens,
+                              spec_k=args.spec_k)
         print(out["clean_text"])
         return 0
     if args.command == "ground":
         out = apps.ground(rt, image, args.question,
-                          max_new_tokens=args.max_new_tokens)
+                          max_new_tokens=args.max_new_tokens,
+                          spec_k=args.spec_k)
         print(out["clean_text"])
         print("boxes:", out.get("boxes_pixels"))
         if out["boxes_image"] is not None:
@@ -246,12 +254,14 @@ def _app(rt, args) -> int:
         return 0
     if args.command == "text2img":
         out = apps.text_to_image(rt, args.caption,
-                                 max_new_tokens=args.max_new_tokens, **gen)
+                                 max_new_tokens=args.max_new_tokens,
+                                 spec_k=args.spec_k, **gen)
         print(out["text"])
         images, stem = out["images"], "t2i"
     elif args.command == "edit":
         out = apps.edit_image(rt, image, args.instruction,
                               max_new_tokens=args.max_new_tokens,
+                              spec_k=args.spec_k,
                               image_guidance_scale=args.image_cfg, **gen)
         print(out["text"])
         images = out["images"]
@@ -292,7 +302,7 @@ def _chat(rt, args) -> int:
         out = session.send(line, image=image,
                            max_new_tokens=args.max_new_tokens,
                            num_inference_steps=args.num_inference_steps,
-                           seed=args.seed)
+                           seed=args.seed, spec_k=args.spec_k)
         print(out["text"], flush=True)
         if out["images"] is not None:
             n_img += len(out["images"])

@@ -126,7 +126,30 @@ def test_prefix_cache_capacity_regrow(runtimes):  # noqa: F811
     assert a.last_reused == 0               # the regrown cache was fresh
 
 
-def test_speculative_decoding_is_not_ported(runtimes):  # noqa: F811
-    _, rt_t = runtimes
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ChatSession(rt_t).send("hi", spec_k=2)
+def test_speculative_chat_matches_jax(runtimes):  # noqa: F811
+    """Three prefix-cached turns with ``spec_k=4`` (an image in the first)
+    against the JAX session's: the same replies, prefix reuse and cache
+    capacity (the headroom rule: the prompt, the reply budget and the
+    draft length), and the port's greedy replies; the session's decode
+    state speculates over a history the cache's length."""
+    rt_j, rt_t = runtimes
+    img = _image(64, 48, seed=5)
+    jax_s = JaxChatSession(rt_j, prefix_cache=True, cache_capacity=64)
+    spec = ChatSession(rt_t, prefix_cache=True, cache_capacity=64)
+    plain = ChatSession(rt_t, prefix_cache=True, cache_capacity=64)
+    for i, (text, with_img) in enumerate(SENDS):
+        im = img if with_img else None
+        want = jax_s.send(text, image=im, max_new_tokens=6, spec_k=4)
+        got = spec.send(text, image=im, max_new_tokens=6, spec_k=4)
+        ref = plain.send(text, image=im, max_new_tokens=6)
+        assert got["text"] == want["text"] == ref["text"], i
+        assert spec.last_reused == jax_s.last_reused, i
+        cap = spec._cache[0].shape[2]
+        assert cap == jax_s._cache[0].shape[2], i
+        prompt = len(spec._cached_ids) - len(got["tokens"])
+        assert cap >= prompt + 6 + 4 and cap % 128 == 0
+        assert spec._decode.spec_k == 4
+        assert spec._decode.hist.shape == (cap,)
+        assert plain._decode.spec_k == 0 and plain._decode.hist is None
+    assert spec._cached_ids == jax_s._cached_ids
+    assert int(spec._decode.sp[0]) > 0          # the last turn's rounds

@@ -970,3 +970,192 @@ def test_a_capture_that_fails_raises(cuda_device):
     with pytest.raises(RuntimeError):
         prog()
     assert prog.graph is None
+
+
+# ---- the rest of generation: speculation, scripts, beams -------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [2, 3, 4, 5, 6, 7, 8, 9])
+@pytest.mark.parametrize("n_in,n_out", [(5120, 5120), (5120, 13824),
+                                        (13824, 5120)])
+def test_int4_kernel_verify_and_beam_rows(cuda_device, rows, n_in, n_out):
+    """K2 at the row counts a verify forward (k + 1, k 1-8) and a beam
+    step (B * K) run it at."""
+    x, packed, scale = _int4_inputs(cuda_device, rows, n_in, n_out, seed=3)
+    out = tint4.int4_matmul(x, packed, scale)
+    ref = tint4.int4_matmul_plain(x, packed, scale)
+    torch.cuda.synchronize()
+    assert out.shape == (rows, n_out)
+    _int4_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 3, 4, 5, 6, 7, 8, 9])
+def test_stair_kernel_verify_shape(cuda_device, w):
+    """K3's stair at B 1, w = k + 1 over an int8 dense cache, as a verify
+    round reads it: a left-padded window whose slot 0 ends at the
+    round's first position, slots stepping one further each."""
+    g = torch.Generator(device=cuda_device).manual_seed(w)
+    q, k, v, kw = _stair_inputs(cuda_device, g, 1, w, 388, 40, 40, 128,
+                                True, 0)
+    starts = torch.tensor([57], dtype=torch.int32, device=cuda_device)
+    ends = torch.tensor([300], dtype=torch.int32, device=cuda_device)
+    out = tdecode.ragged_decode_attention(q, k, v, starts, ends, **kw)
+    ref = tdecode.ragged_decode_attention_plain(q, k, v, starts, ends, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (1, w, 40, 128)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+
+
+def _padded_prompt(tok, ids, dev, p=128):
+    padded = torch.zeros((1, p), dtype=torch.int64, device=dev)
+    padded[0, p - len(ids):] = torch.tensor(ids, device=dev)
+    mask = torch.zeros((1, p), dtype=torch.bool, device=dev)
+    mask[0, p - len(ids):] = True
+    return padded, mask
+
+
+def _spec_run(rt, ids, cfg, script=None):
+    """``generate_tokens`` at B 1 with prompt ids (and a script): (out,
+    decode info)."""
+    from seedx_tpu_torch.models import generation as tgen
+
+    dev = rt.device
+    padded, mask = _padded_prompt(rt.tokenizer, ids, dev)
+    info = {}
+    with torch.no_grad():
+        out = tgen.generate_tokens(
+            rt.agent, rt.agent.embed_ids(padded), mask,
+            torch.tensor([ids[-1]], device=dev), cfg, rt.tokenizer.vocab,
+            timings=info, prompt_ids=padded,
+            script_ids=None if script is None else torch.tensor(script))
+    info = {k: v for k, v in info.items() if not k.endswith("_s")
+            and k not in ("prefill", "decode")}
+    return out, info
+
+
+def _same_runs(graph, eager):
+    (g_out, g_info), g_counts = graph
+    (e_out, e_info), e_counts = eager
+    for key in ("tokens", "hidden", "finished", "spec_rounds",
+                "spec_accepted"):
+        assert torch.equal(g_out[key], e_out[key]), key
+    assert g_info == e_info and g_counts == e_counts
+    return g_out, g_info, g_counts
+
+
+SPEC_PROMPT = ("the cat sat on the mat. the cat sat on the mat. the dog sat "
+               "on the log. the cat")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_spec_graph_matches_eager(cuda_device, k):
+    """The 2-layer int4 / int8-KV agent's speculative decode (its verify
+    round a captured program: K3's stair at w = k + 1, K2 at k + 1 rows)
+    against the same rounds run eagerly: tokens, hidden states, finished
+    flags and counters bit for bit, the same windows and launches."""
+    from seedx_tpu_torch.models import generation as tgen
+
+    rt = _debug_runtime(cuda_device)
+    tok = rt.tokenizer
+    ids = [tok.bos_token_id] + tok.encode(SPEC_PROMPT)
+    cfg = tgen.GenerationConfig(max_new_tokens=40, num_img_gen_tokens=64,
+                                prompt_buckets=(128,), spec_k=k)
+    out, info, counts = _same_runs(*_graph_and_eager(
+        rt, lambda: _spec_run(rt, ids, cfg)))
+    assert int(out["spec_rounds"]) > 0
+    modes = (tdecode.ragged_decode_attention, "mode_launches", "multi_query")
+    assert counts[modes] > 0
+    (st,) = [s for s in tgen.decode_programs(rt.agent).states.values()
+             if s.spec_k == k]
+    assert st.spec_program.graph is not None and st.spec_program.replays > 0
+
+
+def _flip_script(tok):
+    """A prompt and a script whose gate fails in the middle of a window
+    (a probe passes on the echo, a later round misses the bar), then
+    re-probes after its cooldown."""
+    prompt = [tok.bos_token_id] + tok.encode(
+        "report: alpha beta gamma delta epsilon zeta eta theta iota kappa "
+        "lambda")
+    echo = tok.encode("alpha beta gamma delta epsilon zeta eta theta iota "
+                      "kappa")
+    g = torch.Generator().manual_seed(0)
+    return prompt, echo + (torch.randperm(20000, generator=g)[:40]
+                           + 5000).tolist()
+
+
+@pytest.mark.cuda
+def test_spec_gate_flip_inside_a_window(cuda_device):
+    """A script whose gate turns off inside a window of verify replays
+    (the rest of the window no-ops) and on again after the cooldown:
+    captured and eager emit the script with the same counters, windows
+    and launches."""
+    from seedx_tpu_torch.models import generation as tgen
+
+    rt = _debug_runtime(cuda_device)
+    prompt, script = _flip_script(rt.tokenizer)
+    cfg = tgen.GenerationConfig(
+        max_new_tokens=len(script), num_img_gen_tokens=64,
+        prompt_buckets=(128,), spec_k=4, spec_probe_rounds=2,
+        spec_min_accept=3.0, spec_window=64, spec_reprobe=8)
+    out, info, _ = _same_runs(*_graph_and_eager(
+        rt, lambda: _spec_run(rt, prompt, cfg, script)))
+    assert out["tokens"][0].tolist() == script
+    assert info["verify_replays"] > int(out["spec_rounds"])
+    assert info["gate_flips"] >= 2
+
+
+@pytest.mark.cuda
+def test_seeded_script_graph_matches_eager(cuda_device):
+    """A script drawn from a seeded generator, plain and with k 4: each
+    emits its script, captured and eager bit for bit."""
+    from seedx_tpu_torch.models import generation as tgen
+
+    rt = _debug_runtime(cuda_device)
+    tok = rt.tokenizer
+    g = torch.Generator().manual_seed(7)
+    script = torch.randint(3, 30000, (48,), generator=g).tolist()
+    script[20:36] = script[4:20]                   # an echo to accept
+    ids = [tok.bos_token_id] + tok.encode("describe the scene")
+    for k in (0, 4):
+        cfg = tgen.GenerationConfig(
+            max_new_tokens=len(script), num_img_gen_tokens=64,
+            prompt_buckets=(128,), spec_k=k, spec_adaptive=False)
+        out, _, _ = _same_runs(*_graph_and_eager(
+            rt, lambda: _spec_run(rt, ids, cfg, script)))
+        assert out["tokens"][0].tolist() == script
+        assert (int(out["spec_accepted"]) > 0) == (k > 0)
+
+
+@pytest.mark.cuda
+def test_beam_graph_matches_eager(cuda_device):
+    """Beam search, K 4 at B 2 (K3's one-query mode and K2 at 8 rows, the
+    cache re-gathered by parent in place, one captured step replayed):
+    tokens, parents, scores and hidden states bit for bit, the same
+    launches."""
+    from seedx_tpu_torch.models import generation as tgen
+
+    rt = _debug_runtime(cuda_device)
+    tok, dev = rt.tokenizer, cuda_device
+    rows = [_padded_prompt(tok, [tok.bos_token_id] + tok.encode(t), dev)
+            for t in ("hello world", "abc abc abc")]
+    padded = torch.cat([r[0] for r in rows])
+    mask = torch.cat([r[1] for r in rows])
+    cfg = tgen.GenerationConfig(max_new_tokens=12, num_img_gen_tokens=64,
+                                prompt_buckets=(128,), num_beams=4)
+
+    def run():
+        with torch.no_grad():
+            return tgen.generate_tokens_beam(
+                rt.agent, rt.agent.embed_ids(padded), mask, padded[:, -1],
+                cfg, tok.vocab)
+
+    (graph, n_graph), (eager, n_eager) = _graph_and_eager(rt, run)
+    for key in ("tokens", "parents", "scores", "hidden", "finished"):
+        assert torch.equal(graph[key], eager[key]), key
+    assert n_graph == n_eager
+    (st,) = [s for s in tgen.decode_programs(rt.agent).states.values()
+             if isinstance(s, tgen.BeamState)]
+    assert st.program.graph is not None and st.program.replays >= 11

@@ -694,7 +694,7 @@ def test_decode_programs_share_one_kv_storage(agents, monkeypatch):
         kept = next(iter(store.states.values()))
         _, longer = _gen_cfgs(t=20)
         run(2, seed=22, gen_cfg=longer)
-        assert list(store.states) == [(2, P + 20, longer, VOCAB)]
+        assert list(store.states) == [(2, P + 20, longer, VOCAB, 0, False)]
         assert kept.cache[0].data_ptr() != store._storage[0].data_ptr()
         store.reserve(agent_t, 2, P + 20, "cpu")       # fits: kept
         assert len(store.states) == 1

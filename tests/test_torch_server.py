@@ -196,6 +196,24 @@ def test_chat_session_persists(served):
     assert _get(url, "/v1/stats")["chat_sessions"] == before + 1
 
 
+def test_chat_spec_k(served):
+    """``/v1/chat`` with ``spec_k``: the session decodes with speculation
+    (its decode state drafts 4 ids a round) and replies as a session run
+    directly with the same ``spec_k`` does, turn for turn."""
+    from seedx_tpu_torch.inference.chat import ChatSession
+
+    server, url = served
+    direct = ChatSession(server.rt, prefix_cache=True)
+    for text in ("hi hi hi hi", "and hi again"):
+        got = _post(url, "/v1/chat", {"session": "spec", "message": text,
+                                      "max_new_tokens": 4, "spec_k": 4})
+        want = direct.send(text, max_new_tokens=4, spec_k=4)
+        assert got["text"] == want["text"]
+    sess = server._sessions["spec"]
+    assert sess._decode.spec_k == 4 and int(sess._decode.sp[0]) > 0
+    assert sess.last_reused > 0
+
+
 def test_chat_sessions_evict_least_recently_used(served):
     rt = served[0].rt
     server = SeedXServer(rt, max_new_tokens=2, max_sessions=2)
