@@ -2,8 +2,8 @@
 the image-in comprehension turn, batched / continuous (fused prefill too)
 / HTTP serving, multi-turn chat with a KV prefix cache, speculative
 decoding and beam search, image out (the SDXL adapter: text to image,
-reconstruction, editing) and the SEED-X SFT train step, and check its
-five CUDA kernels.
+reconstruction, editing), the SEED-X SFT train step and a runtime loaded
+from release checkpoint files, and check its five CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -104,24 +104,48 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    on each repeated batch, the frozen weights stay bit-equal, the final
    checkpoint read back bit-equal) and one step with gradient
    accumulation 2;
-12. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
+12. load: a synthetic release tree in a temporary directory (the port's
+   manifests' keys and shapes, random values drawn on the card from a
+   seed, bf16 and the VAE fp32, in the ``from_pretrained`` layout and
+   through all four reader routes: the LLM dir as an HF shard dir, the
+   UNet and VAE as diffusers safetensors files, written by the smoke's
+   own writer, the ViT as a ``.pt`` pickle, the agent and the
+   detokenizer, with its UNet to_k / to_v deltas, as
+   ``pytorch_model.bin``; ViT-bigG at 48 layers, the SDXL base UNet and
+   VAE whole, the 13B's LLM dir and agent at full width cut to
+   ``LOAD_LAYERS`` layers; fails if the directory has no room for it),
+   then the runtime built from the files through the port's factories
+   with the manifest checks on (an int4 agent with an int8 KV cache,
+   quantized as it loads) and one broken artifact that must raise with
+   its diff; every loaded tensor bit-equal to the converters on the
+   tensors in memory and the K2 codes to ``quantize_kernel_int4`` of the
+   written weights; on the loaded runtime phase 4's turn,
+   ``text_to_image`` at 1024^2 for ``LOAD_T2I_STEPS`` Euler steps, the
+   int8 ViT's features against the bf16 ViT's (``VIT_INT8_REL``,
+   ``VIT_INT8_RMS``) and one step of the int8 UNet; last the int4 LLM's
+   ``export_serving`` artifact read back into a fresh agent bit for bit,
+   with the same greedy tokens; write / read / build seconds, GB/s, host
+   and device peak memory, cold start from release files and from the
+   export;
+13. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
    line ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-11 runs with the launch counters set to 0 just
+Every path of phases 4-12 runs with the launch counters set to 0 just
 before it and read just after, and fails unless each kernel it runs was
 launched (the fused engines: K3 in its multi-query mode); a captured
 program adds its launches at every replay, so the counters count what
 ran.  In the kernels line ``launches`` is the sum over the main path's
-runs of phases 4-6, 8, 10 and 11 (the turn, the serving engines and
+runs of phases 4-6, 8, 10, 11 and 12 (the turn, the serving engines and
 HTTP, the chat sessions, the warm captured scripted runs, the beams and
-the spec chat, the image-out runs, the train steps), with K3's by
+the spec chat, the image-out runs, the train steps, the loaded stack's
+turn, text to image, int8 ViT and int8 UNet step), with K3's by
 mode and K2's by row tile (``launches_by_tile``; its calls by row band
 are logged); the eager twins of phases 5, 7, 8 and 10, the forced runs,
-phase 9 and the gradient check, and the UNet's K1-against-plain eval
-print theirs on a line of their own.  ``max_abs_err`` is the
-largest over the kernel's shapes, and ``ms``, ``plain_ms`` and
-``bound_ms`` sums of one call at each shape; ``library_ms`` sums the
-shapes named in ``library_shapes``.
+phase 9 and the gradient check, the UNet's K1-against-plain eval and
+the restored agent's comparison print theirs on a line of their own.
+``max_abs_err`` is the largest over the kernel's shapes, and ``ms``,
+``plain_ms`` and ``bound_ms`` sums of one call at each shape;
+``library_ms`` sums the shapes named in ``library_shapes``.
 """
 
 from __future__ import annotations
@@ -1209,8 +1233,9 @@ def check_tokens(tokens, vocab_size: int, budget: int) -> None:
         raise AssertionError(f"bad token stream {toks[:8]}")
 
 
-def run_turn(rt):
-    """Phase 4: the full-width turn through the public entry points."""
+def run_turn(rt, label: str = "turn"):
+    """Phase 4: the full-width turn through the public entry points
+    (phase 12 runs it on the loaded runtime)."""
     import torch
     from PIL import Image
 
@@ -1239,11 +1264,11 @@ def run_turn(rt):
     t = {}
     gen = rt.generate(img_ids, max_new_tokens=72, timings=t)
     torch.cuda.synchronize()
-    counts = path_counts("turn")
+    counts = path_counts(label)
     log(f"request 3 generate <img>: prefill {t['prefill'] * 1e3:.1f} ms, "
         f"decode {t['decode'] * 1e3:.1f} ms for {t['decode_tokens']} tokens "
         f"in {t['decode_forwards']} forwards")
-    log(f"turn: max_memory_allocated "
+    log(f"{label}: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     vocab = tok.vocab
@@ -1253,11 +1278,11 @@ def run_turn(rt):
     if list(gen["tokens"][:65]) != forced + [vocab.eoi]:
         raise AssertionError("the <img> request did not emit the forced span")
     feat = gen["img_gen_feat"]
-    if feat is None or tuple(feat.shape) != (1, 64, 4096) or \
-            not torch.isfinite(feat.float()).all():
+    if feat is None or tuple(feat.shape) != (1, 64, rt.agent_cfg.vit_dim) \
+            or not torch.isfinite(feat.float()).all():
         raise AssertionError(f"bad img_gen_feat: "
                              f"{None if feat is None else feat.shape}")
-    log(f"turn: outputs ok (token ids in range, forced span, img_gen_feat "
+    log(f"{label}: outputs ok (token ids in range, forced span, img_gen_feat "
         f"{tuple(feat.shape)} finite)")
     return counts
 
@@ -3537,6 +3562,529 @@ def check_stair_verify(dev, g, flush, widths=(GEN_K + 1,)):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: load the release checkpoints
+# ---------------------------------------------------------------------------
+
+# the LLM dir and the agent checkpoint at full width, cut to this depth
+# (each 40-layer artifact is ~26 GB, which the smoke's time cannot write)
+LOAD_LAYERS = 4
+LOAD_T2I_STEPS = 4
+# the int8 ViT-bigG's features against the bf16 one's: max |int8 - bf16| /
+# max |bf16|, and the RMS of the difference over the RMS of the features
+# (the JAX package's tests/test_quantize.py holds the second to 5e-2)
+VIT_INT8_REL = 0.1
+VIT_INT8_RMS = 5e-2
+ST_DTYPES = {"torch.bfloat16": "BF16", "torch.float32": "F32",
+             "torch.float16": "F16", "torch.int8": "I8", "torch.uint8": "U8",
+             "torch.int32": "I32", "torch.int64": "I64"}
+
+
+def write_safetensors(path: str, sd) -> None:
+    """The smoke's own ``.safetensors`` writer (the card's machine has no
+    ``safetensors`` package): an 8-byte little-endian header length, the
+    JSON header padded with spaces to 8 bytes, then each tensor's bytes
+    in header order."""
+    import struct
+
+    import torch
+
+    header, offset = {}, 0
+    for k, t in sd.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": ST_DTYPES[str(t.dtype)],
+                     "shape": list(t.shape), "data_offsets": [offset,
+                                                              offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in sd.values():
+            if t.numel():
+                f.write(t.contiguous().reshape(-1).view(torch.uint8)
+                        .numpy().data)
+
+
+def release_state(name: str, gen, dev, num_layers=None, deltas=False):
+    """{release key: host tensor} for the port's manifest ``name`` (its
+    keys of layers below ``num_layers``; ``deltas``: the detokenizer's
+    optional UNet to_k / to_v too, shaped from the UNet manifest), values
+    drawn on the card from ``gen``, bf16 (the VAE fp32): norm scales
+    1 + N(0, 0.1), biases N(0, 0.02), the rest N(0, s) with s = min(0.02,
+    fan_in ** -0.5).  In PEFT's key order: a wrapped module's
+    ``original_module`` copy before its ``modules_to_save`` one."""
+    import math
+
+    import torch
+
+    from seedx_tpu_torch.utils.manifest import deeper_layer, load_manifest
+
+    m = load_manifest(name)
+    shapes = {k: s for k, s in m["keys"].items()
+              if not deeper_layer(k, num_layers)}
+    if deltas:
+        unet = load_manifest("sdxl_unet")["keys"]
+        shapes.update({k: unet[k[len("unet."):]] for k in m["optional"]
+                       if k.startswith("unet.")})
+    dtype = torch.float32 if name == "sdxl_vae" else torch.bfloat16
+    out = {}
+    for key in sorted(shapes, key=lambda k: "modules_to_save" in k):
+        shape = shapes[key]
+        t = torch.randn(shape, generator=gen, device=dev)
+        if len(shape) == 1 and key.endswith("weight"):
+            t = 1.0 + 0.1 * t
+        elif key.endswith("bias"):
+            t = 0.02 * t
+        else:
+            t = t * min(0.02, 1.0 / math.sqrt(max(1, math.prod(shape[1:]))))
+        out[key] = t.to(dtype).cpu()
+    return out
+
+
+def state_bytes(sd) -> int:
+    return sum(t.numel() * t.element_size() for t in sd.values())
+
+
+class RssPeak:
+    """While active: the process's peak resident memory from
+    ``/proc/self/status`` (VmRSS, and RssAnon / RssFile where the kernel
+    reports them), sampled every 20 ms on a thread, and ``getrusage``'s
+    peak RSS, each as growth over its value at the start."""
+
+    FIELDS = ("VmRSS", "RssAnon", "RssFile")
+
+    def __enter__(self):
+        import resource
+
+        self.ru0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        self.base = self.read()
+        self.peak = dict(self.base)
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.sample, daemon=True)
+        self.thread.start()
+        return self
+
+    @classmethod
+    def read(cls):
+        out = {}
+        with open("/proc/self/status") as f:
+            for line in f:
+                k, _, v = line.partition(":")
+                if k in cls.FIELDS:
+                    out[k] = int(v.split()[0]) * 1024
+        return out
+
+    def sample(self):
+        while not self.stop.wait(0.02):
+            for k, v in self.read().items():
+                self.peak[k] = max(self.peak.get(k, v), v)
+
+    def __exit__(self, *exc):
+        import resource
+
+        self.stop.set()
+        self.thread.join(timeout=5)
+        self.ru_growth = (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                          - self.ru0) * 1024
+
+    def line(self) -> str:
+        names = {"VmRSS": "resident", "RssAnon": "anonymous",
+                 "RssFile": "file-backed (mapped checkpoint pages)"}
+        return (f"host peak RSS growth (getrusage) "
+                f"{self.ru_growth / 2**30:.2f} GiB; sampled peaks: " + ", ".join(
+                    f"{names[k]} +{(self.peak[k] - self.base[k]) / 2**30:.2f}"
+                    f" GiB" for k in self.FIELDS if k in self.base))
+
+
+def same_as_memory(module, converted, prefix: str = "") -> int:
+    """Fail unless every leaf the converter gives (a ``LayerStack`` layer
+    by layer) is bit-equal to ``module``'s loaded buffer, cast to its
+    dtype on its device; a converted leaf the module holds quantized
+    (absent from its state) is left to the quantizer checks.  Returns the
+    leaves compared."""
+    import torch
+
+    from seedx_tpu_torch.utils.weights import LayerStack
+
+    state = module.state_dict()
+    n = 0
+    for key, src in converted.items():
+        dst = state.get(prefix + key)
+        if dst is None:
+            continue
+        parts = ([(i, src.get(i)) for i in range(src.n)]
+                 if isinstance(src, LayerStack) else [(None, src)])
+        for i, part in parts:
+            d = dst if i is None else dst[i]
+            if not torch.equal(d, part.to(d.device).to(d.dtype)):
+                raise AssertionError(
+                    f"load: {prefix + key}{'' if i is None else [i]} "
+                    f"differs from the in-memory conversion")
+        n += 1
+    return n
+
+
+def check_k2_codes(agent, agent_sd, dev) -> int:
+    """Fail unless the loaded int4 agent's K2 codes and group scales of
+    every projection of every layer, and its int8 embedding and LM head,
+    are byte-equal to the quantizers applied to the written bf16 weights
+    (the agent checkpoint's, which the factory loads over the LLM dir's)."""
+    import torch
+
+    from seedx_tpu_torch.utils.quantize import (quantize_embedding,
+                                                quantize_kernel,
+                                                quantize_kernel_int4)
+
+    state = agent.state_dict()
+    base = "llm.base_model.model."
+    n = 0
+    for i in range(agent.cfg.llm.num_layers):
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                     "up_proj", "down_proj"):
+            sub = "mlp" if proj in ("gate_proj", "up_proj",
+                                    "down_proj") else "self_attn"
+            w = agent_sd[f"{base}model.layers.{i}.{sub}.{proj}.weight"]
+            q, s = quantize_kernel_int4(w.to(dev).float().T)
+            if not (torch.equal(state[f"llm.layers.{proj}.kernel_q4"][i], q)
+                    and torch.equal(
+                        state[f"llm.layers.{proj}.kernel_scale"][i], s)):
+                raise AssertionError(f"load: K2 codes of layer {i} {proj} "
+                                     f"differ from quantize_kernel_int4")
+            n += 1
+    q, s = quantize_embedding(
+        agent_sd[f"{base}model.embed_tokens.weight"].to(dev))
+    qh, sh = quantize_kernel(agent_sd[f"{base}lm_head.weight"].to(dev).T)
+    if not (torch.equal(state["llm.embed_tokens.embedding_q"], q)
+            and torch.equal(state["llm.embed_tokens.embedding_scale"], s)
+            and torch.equal(state["llm.lm_head.kernel_q"], qh)
+            and torch.equal(state["llm.lm_head.kernel_scale"], sh)):
+        raise AssertionError("load: the int8 embedding / LM head differ "
+                             "from their quantizers")
+    return n
+
+
+def write_release(root: str, mem) -> dict:
+    """The ``from_pretrained`` layout under ``root``, through all four
+    reader routes: the LLM dir as an HF shard dir (an index and 2
+    safetensors shards), the UNet and VAE as diffusers single files, the
+    ViT as a ``.pt`` pickle, the agent and the detokenizer as
+    ``pytorch_model.bin``; each file synced to the disk.  Returns
+    {artifact: (path, bytes, write s)}."""
+    import os
+
+    import torch
+
+    sdxl = os.path.join(root, "stable-diffusion-xl-base-1.0")
+    layout = {
+        "qwen_vit": os.path.join(root, "QwenViT", "qwen_vit_G.pt"),
+        "llm": os.path.join(root, "seed_x_i", "llm"),
+        "agent": os.path.join(root, "seed_x_i", "agent",
+                              "pytorch_model.bin"),
+        "detokenizer": os.path.join(root, "seed_detokenizer", "first_stage",
+                                    "pytorch_model.bin"),
+        "sdxl_unet": os.path.join(sdxl, "unet"),
+        "sdxl_vae": os.path.join(sdxl, "vae"),
+    }
+    out = {}
+    for name, path in layout.items():
+        sd = mem[name]
+        t0 = time.perf_counter()
+        if name == "llm":
+            os.makedirs(path)
+            keys, weight_map = list(sd), {}
+            for j in range(2):
+                shard = f"model-{j + 1:05d}-of-00002.safetensors"
+                write_safetensors(os.path.join(path, shard),
+                                  {k: sd[k] for k in keys[j::2]})
+                weight_map.update({k: shard for k in keys[j::2]})
+            with open(os.path.join(path, "model.safetensors.index.json"),
+                      "w") as f:
+                json.dump({"metadata": {"total_size": state_bytes(sd)},
+                           "weight_map": weight_map}, f)
+            files = [os.path.join(path, f) for f in os.listdir(path)]
+        elif name.startswith("sdxl_"):
+            os.makedirs(path)
+            files = [os.path.join(path,
+                                  "diffusion_pytorch_model.safetensors")]
+            write_safetensors(files[0], sd)
+        else:
+            os.makedirs(os.path.dirname(path))
+            torch.save(sd, path)
+            files = [path]
+        for f in files:
+            with open(f, "rb+") as fh:
+                os.fsync(fh.fileno())
+        out[name] = (path, state_bytes(sd), time.perf_counter() - t0)
+    return out
+
+
+def run_load(dev, smi: str):
+    """Phase 12: a synthetic release tree written to a temporary
+    directory (the manifests' keys and shapes, random values drawn on the
+    card; ViT-bigG at 48 layers, the SDXL base UNet and VAE whole, the
+    13B's LLM dir and agent checkpoint at full width cut to LOAD_LAYERS
+    layers), the runtime built from it through the port's factories with
+    the manifest checks on (a broken artifact must raise with the diff),
+    every loaded tensor held bit-equal to the in-memory conversion and the
+    K2 codes to the quantizer, then the turn, text to image, the int8 ViT
+    and UNet, and the int4 LLM's serving export read back."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from seedx_tpu_torch.inference import apps
+    from seedx_tpu_torch.inference.runtime import SeedXRuntime
+    from seedx_tpu_torch.models.agent import ContinuousLVLM
+    from seedx_tpu_torch.models.factory import (build_agent,
+                                                build_llm_config,
+                                                build_sdxl_adapter,
+                                                build_visual_encoder)
+    from seedx_tpu_torch.text.tokenizer import load_tokenizer
+    from seedx_tpu_torch.train.checkpoints import restore_pytree
+    from seedx_tpu_torch.utils import sdxl_weights as sw
+    from seedx_tpu_torch.utils import weights as w
+    from seedx_tpu_torch.utils.export import export_serving
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t0 = time.perf_counter()
+    mem = {"qwen_vit": release_state("qwen_vit", gen, dev),
+           "llm": release_state("llm", gen, dev, num_layers=LOAD_LAYERS),
+           "agent": release_state("agent", gen, dev, num_layers=LOAD_LAYERS),
+           "detokenizer": release_state("detokenizer", gen, dev,
+                                        deltas=True),
+           "sdxl_unet": release_state("sdxl_unet", gen, dev),
+           "sdxl_vae": release_state("sdxl_vae", gen, dev)}
+    broken = dict(mem["sdxl_vae"])
+    renamed = sorted(broken)[0]
+    reshaped = sorted(broken)[1]
+    broken[renamed + ".renamed"] = broken.pop(renamed)
+    broken[reshaped] = broken[reshaped][:-1].clone()
+    total = sum(state_bytes(sd) for sd in mem.values()) + state_bytes(broken)
+    log(f"load: drew {total / 1e9:.2f} GB of release tensors on the card "
+        f"in {time.perf_counter() - t0:.1f} s (" + ", ".join(
+            f"{k} {state_bytes(v) / 1e9:.2f} GB" for k, v in mem.items())
+        + f"; LLM dir and agent at {LOAD_LAYERS} of 40 layers)")
+
+    tmp = tempfile.mkdtemp(prefix="seedx_release_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"load: {tmp}: {free / 1e9:.1f} GB free, {total / 1e9:.2f} GB "
+            f"to write")
+        if free < total + 2**30:
+            raise AssertionError(f"load: not enough room in {tmp} for the "
+                                 f"release tree ({free / 1e9:.1f} GB free, "
+                                 f"{total / 1e9:.2f} GB needed)")
+        root = os.path.join(tmp, "pretrained")
+        written = write_release(root, mem)
+        bad_dir = os.path.join(tmp, "broken_vae")
+        os.makedirs(bad_dir)
+        write_safetensors(os.path.join(
+            bad_dir, "diffusion_pytorch_model.safetensors"), broken)
+        for name, (path, n, secs) in written.items():
+            t0 = time.perf_counter()
+            sd = w.load_checkpoint_auto(path)
+            read = time.perf_counter() - t0
+            if sorted(sd) != sorted(mem[name]):
+                raise AssertionError(f"load: {name} read back other keys")
+            log(f"load: {name}: {n / 1e9:.3f} GB written in {secs:.2f} s "
+                f"({n / 1e9 / secs:.2f} GB/s), read (mapped) in "
+                f"{read:.3f} s, {len(sd)} tensors")
+            del sd
+        written_bytes = sum(n for _, n, _ in written.values())
+        log(f"load: {written_bytes / 1e9:.2f} GB written in "
+            f"{sum(s for _, _, s in written.values()):.1f} s ({smi})")
+
+        try:
+            build_sdxl_adapter(sdxl_vae_path=bad_dir, validate=True,
+                               device=dev)
+        except ValueError as e:
+            msg = str(e)
+            if not ("MANIFEST MISMATCH" in msg and renamed in msg
+                    and reshaped in msg):
+                raise AssertionError(f"load: the broken VAE raised without "
+                                     f"its diff: {msg[:300]}") from e
+            log("load: the broken VAE (one key renamed, one shape changed) "
+                "raised: " + " | ".join(msg.splitlines()[:4]))
+        else:
+            raise AssertionError("load: the broken VAE artifact loaded")
+
+        # the runtime from the files, as from_checkpoints assembles it
+        vit_path = written["qwen_vit"][0]
+        times = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            vit = build_visual_encoder(vit_path, validate=True, device=dev)
+            torch.cuda.synchronize()
+            times["qwen_vit"] = time.perf_counter() - t0
+            llm_cfg = build_llm_config(lora_rank=32, quantization="int4",
+                                       kv_quantization="int8",
+                                       num_layers=LOAD_LAYERS)
+            t0 = time.perf_counter()
+            agent = build_agent(llm_cfg, written["llm"][0],
+                                written["agent"][0], validate=True,
+                                device=dev)
+            torch.cuda.synchronize()
+            times["llm + agent"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            adapter = build_sdxl_adapter(
+                detokenizer_path=written["detokenizer"][0],
+                sdxl_unet_path=written["sdxl_unet"][0],
+                sdxl_vae_path=written["sdxl_vae"][0], visual_encoder=vit,
+                validate=True, device=dev)
+            torch.cuda.synchronize()
+            times["detokenizer + unet + vae"] = time.perf_counter() - t0
+        build = sum(times.values())
+        size = {"qwen_vit": written["qwen_vit"][1],
+                "llm + agent": written["llm"][1] + written["agent"][1],
+                "detokenizer + unet + vae": sum(
+                    written[k][1] for k in ("detokenizer", "sdxl_unet",
+                                            "sdxl_vae"))}
+        log("load: built from the files (read + convert + quantize + copy "
+            "to the card): " + ", ".join(
+                f"{k} {times[k]:.2f} s ({size[k] / 1e9 / times[k]:.2f} GB/s)"
+                for k in times) + f"; all {build:.2f} s, "
+            f"{written_bytes / 1e9 / build:.2f} GB/s")
+        log(f"load: {rss.line()}; device max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"(+{(torch.cuda.memory_allocated() - mem0) / 2**30:.2f} GiB "
+            f"held) ({smi})")
+
+        # every loaded tensor against the converters on the tensors in
+        # memory, no files involved; the K2 codes against the quantizer
+        t0 = time.perf_counter()
+        n = same_as_memory(vit, w.convert_qwen_vit(
+            mem["qwen_vit"], num_layers=vit.cfg.layers,
+            num_heads=vit.cfg.heads))
+        parts = w.convert_agent_checkpoint(mem["agent"])
+        llm_sd = parts.pop("llm_state_dict")
+        n += same_as_memory(agent, parts)
+        n += same_as_memory(agent, w.convert_llama_hf(
+            llm_sd, num_layers=LOAD_LAYERS), prefix="llm.")
+        n_k2 = check_k2_codes(agent, mem["agent"], dev)
+        unet = sw.convert_sdxl_unet(mem["sdxl_unet"])
+        deltas = sw.convert_sdxl_unet_deltas(
+            {k[len("unet."):]: v for k, v in mem["detokenizer"].items()
+             if k.startswith("unet.")})
+        if deltas["skipped"] or not deltas["deltas"]:
+            raise AssertionError("load: the detokenizer's UNet deltas")
+        unet.update(deltas["deltas"])
+        n += same_as_memory(adapter.unet, unet)
+        n += same_as_memory(adapter.resampler,
+                            w.convert_detokenizer_resampler(
+                                mem["detokenizer"],
+                                depth=adapter.cfg.resampler.depth))
+        vae = sw.convert_sdxl_vae(mem["sdxl_vae"])
+        n += same_as_memory(adapter.vae_encoder, vae["encoder"])
+        n += same_as_memory(adapter.vae_decoder, vae["decoder"])
+        log(f"load: {n} loaded leaves bit-equal to the in-memory "
+            f"conversion (the UNet with the detokenizer's "
+            f"{len(deltas['deltas'])} to_k / to_v deltas); the K2 codes and "
+            f"scales of {n_k2} projections ({LOAD_LAYERS} layers x 7) and "
+            f"the int8 embedding / LM head byte-equal to the quantizers, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del mem, parts, llm_sd, unet, vae
+        gc.collect()
+
+        rt = SeedXRuntime(tokenizer=load_tokenizer(), vit_cfg=vit.cfg,
+                          vit=vit, agent_cfg=agent.cfg, agent=agent,
+                          adapter=adapter)
+        launches = run_turn(rt, "load turn")
+        agent_k = ("flash_fwd", "int4_w4a8", "decode_attn")
+        watch = UNetWatch(adapter)
+        with forced_image_prompts():
+            out, counts = timed_run("load text_to_image", lambda: (
+                apps.text_to_image(rt, "a red bicycle by a lake", seed=0,
+                                   num_inference_steps=LOAD_T2I_STEPS,
+                                   max_new_tokens=72)), agent_k)
+        add_counts(launches, counts)
+        watch.check("load text_to_image", LOAD_T2I_STEPS, out["images"])
+        if out["images"].shape != (1, 1024, 1024, 3):
+            raise AssertionError(f"load text_to_image: images "
+                                 f"{out['images'].shape}")
+        feat = out["img_gen_feat"]
+
+        # the int8 ViT (quantize_vit) against the bf16 one
+        rng = np.random.default_rng(12)
+        img = Image.fromarray((rng.random((448, 672, 3)) * 255
+                               ).astype(np.uint8))
+        ref, _ = rt.encode_image_anyres(img)
+        rt.quantize_vit()
+        if adapter.visual_encoder is not rt.vit:
+            raise AssertionError("load: quantize_vit left the adapter on "
+                                 "the bf16 ViT")
+        (q8, _), counts = timed_run("load int8 ViT",
+                                    lambda: rt.encode_image_anyres(img))
+        add_counts(launches, counts)
+        ref, q8 = ref.float(), q8.float()
+        rel = ((q8 - ref).abs().max() / ref.abs().max()).item()
+        rms = ((q8 - ref).square().mean().sqrt()
+               / ref.square().mean().sqrt()).item()
+        log(f"load: int8 ViT-bigG features {tuple(q8.shape)} against bf16: "
+            f"max rel err {rel:.3e} (bound {VIT_INT8_REL}), RMS rel "
+            f"{rms:.3e} (bound {VIT_INT8_RMS})")
+        if not (torch.isfinite(q8).all() and rel <= VIT_INT8_REL
+                and rms <= VIT_INT8_RMS):
+            raise AssertionError("load: the int8 ViT is off its bound")
+
+        # one step of the int8 UNet
+        adapter.quantize_unet()
+        watch = UNetWatch(adapter)
+        images, counts = timed_run("load int8 UNet", lambda: (
+            adapter.generate(feat, seed=0, num_inference_steps=1)))
+        add_counts(launches, counts)
+        watch.check("load int8 UNet", 1, images)
+
+        # the int4 LLM's serving artifact, read into a fresh int4 agent
+        path = os.path.join(tmp, "llm_int4.pt")
+        t0 = time.perf_counter()
+        export_serving(agent.llm.state_dict(), path, "llama", mode="int4")
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh = ContinuousLVLM(agent.cfg, dev).eval()
+        restore_pytree(path, fresh.llm)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        fresh.load_state_dict({k: v for k, v in agent.state_dict().items()
+                               if not k.startswith("llm.")}, strict=False)
+        mine, theirs = fresh.state_dict(), agent.state_dict()
+        if not all(torch.equal(v, theirs[k]) for k, v in mine.items()):
+            raise AssertionError("load: the restored int4 agent differs")
+        rt2 = SeedXRuntime(tokenizer=rt.tokenizer, vit_cfg=rt.vit_cfg,
+                           vit=rt.vit, agent_cfg=fresh.cfg, agent=fresh)
+        reset_counts()
+        a = apps.comprehend(rt, img, "Describe the image.",
+                            max_new_tokens=16)["tokens"]
+        b = apps.comprehend(rt2, img, "Describe the image.",
+                            max_new_tokens=16)["tokens"]
+        add_counts(CHECKS, read_counts())
+        if list(a) != list(b):
+            raise AssertionError("load: the restored agent's tokens differ")
+        log(f"load: export_serving int4 LLM {os.path.getsize(path) / 1e9:.3f}"
+            f" GB in {t_export:.2f} s; cold start of the agent from the "
+            f"release files {times['llm + agent']:.2f} s against "
+            f"{t_restore:.2f} s from the export (restore_pytree into a "
+            f"fresh int4 agent); codes bit-equal, the same {len(a)} greedy "
+            f"tokens on a comprehend request ({smi})")
+        del rt, rt2, fresh, agent, adapter, vit
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"load phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def ptxas_entries(report: str):
     """(mangled kernel name, registers line, spill line) of each entry
     function in a ``ptxas -v`` report."""
@@ -3636,7 +4184,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     add_counts(launches, run_train(dev))
-    log(f"main path (turn, serving, chat, generation, image out, train; "
+    add_counts(launches, run_load(dev, smi))
+    log(f"main path (turn, serving, chat, generation, image out, train, "
+        f"the loaded stack; "
         f"decode, the verify round, the beam step, the engines' steps and "
         f"the UNet evals captured): launches "
         f"{json.dumps(launches)}")

@@ -34,9 +34,13 @@ its images), over one ``ChatSession`` with its KV prefix cache.
 ``--spec_k`` decodes img2text, ground, text2img, edit and chat replies
 with exact n-gram speculative decoding (greedy, one request at a time).
 
-``--debug`` (or SEEDX_DEBUG=1) runs the tiny random stack with the debug
-SDXL adapter; the released weights cannot be loaded yet.  Everything runs
-on the card unless ``--device cpu``.
+``--ckpt_root DIR`` builds the runtime from the release checkpoints
+under DIR (the reference README's ./pretrained layout) through
+``SeedXRuntime.from_pretrained`` with manifest validation (``--model``
+picks the released model, ``--quantization`` the LLM's weights: int4 is
+the serving config); ``--debug`` (or SEEDX_DEBUG=1) runs the tiny random
+stack with the debug SDXL adapter.  Everything runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -67,10 +71,16 @@ def _load_runtime(args):
 
     if args.debug or os.environ.get("SEEDX_DEBUG") in ("1", "True"):
         return SeedXRuntime.debug(device=args.device, with_adapter=True)
+    if args.ckpt_root:
+        return SeedXRuntime.from_pretrained(
+            root=args.ckpt_root, model=args.model,
+            quantization=args.quantization, device=args.device)
     raise SystemExit(
-        "non-debug runtime requires released checkpoints, which the port "
-        "cannot load yet: pass --debug or SEEDX_DEBUG=1 for the tiny random "
-        "stack")
+        "non-debug runtime requires the release checkpoints: pass "
+        "--ckpt_root pretrained (reference README.md:74-87 layout) for "
+        "real weights, or --debug / SEEDX_DEBUG=1 for the tiny random "
+        "stack; power users can also assemble SeedXRuntime directly from "
+        "seedx_tpu_torch.models.factory builders")
 
 
 def _raw_request(rt, r):
@@ -143,6 +153,18 @@ def main(argv=None):
                         "branch)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--out_dir", default="vis")
+    p.add_argument("--ckpt_root", metavar="DIR",
+                   help="release checkpoint root (the reference README's "
+                        "./pretrained layout) — builds the REAL-weight "
+                        "runtime via SeedXRuntime.from_pretrained with "
+                        "manifest validation; see --model")
+    p.add_argument("--model", default="seed_x_i",
+                   choices=["seed_x", "seed_x_i", "seed_x_edit"],
+                   help="which released model under --ckpt_root")
+    p.add_argument("--quantization", default="none",
+                   choices=["none", "int8", "int4"],
+                   help="--ckpt_root: LLM weight quantization (int4 = the "
+                        "single-card serving config)")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device of the runtime (default: the card)")

@@ -13,13 +13,18 @@ captured CUDA graphs on the card (``utils/graphs.py``); ``graphs`` is the
 runtime's one switch, put on its agent and on any adapter it is given,
 and ``graphs.enabled = False`` turns the runtime to the eager path.  The
 CPU is always eager.
-Loading released checkpoints (``from_checkpoints`` /
-``from_pretrained``) is not ported yet.
+
+``SeedXRuntime.from_pretrained(root, model)`` builds the runtime from the
+release checkpoint tree (``from_checkpoints`` from any set of the
+artifacts) through the factories of ``models/factory.py``; with
+``quantization="int4"`` the LLM's converted weights are quantized on the
+device as they are copied in.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -103,6 +108,130 @@ class SeedXRuntime:
                    agent_cfg=agent_cfg, agent=agent, adapter=adapter, **kw)
 
     @classmethod
+    def from_checkpoints(
+        cls,
+        vit_path: Optional[str] = None,        # pretrained/QwenViT/qwen_vit_G.pt
+        llm_path: Optional[str] = None,        # pretrained/seed_x*/llm/...
+        agent_path: Optional[str] = None,      # pretrained/seed_x*/agent/...
+        tokenizer_path: Optional[str] = None,
+        detokenizer_path: Optional[str] = None,  # seed_detokenizer stage ckpt
+        sdxl_unet_path: Optional[str] = None,    # SDXL base unet dir / file
+        sdxl_vae_path: Optional[str] = None,
+        lora_rank: int = 32,
+        with_latent_image: bool = False,         # Edit variant
+        quantization: str = "none",
+        vit_quantization: str = "none",          # "int8": half the bytes
+        unet_quantization: str = "none",         # "int8": half the bytes
+        validate: bool = False,                  # manifest-check first
+        device="cuda",
+    ) -> "SeedXRuntime":
+        """The runtime from release artifacts (reference README.md:74-158
+        and the eval scripts' setup, eval_img2text_seed_x_i.py:66-117),
+        built on ``device`` (the card unless the caller asks for
+        ``"cpu"``).  ``validate=True`` checks every state dict against the
+        release manifests (utils/manifest.py) and fails with the key /
+        shape diff before anything is converted.  An int4 / int8
+        ``quantization`` quantizes the loaded LLM weights as they are
+        copied to the device."""
+        from seedx_tpu_torch.models.factory import (build_agent,
+                                                    build_llm_config,
+                                                    build_sdxl_adapter,
+                                                    build_visual_encoder)
+
+        vit = build_visual_encoder(pretrained_model_path=vit_path,
+                                   validate=validate, device=device)
+        llm_cfg = build_llm_config(lora_rank=lora_rank,
+                                   quantization=quantization)
+        agent = build_agent(llm_cfg, pretrained_llm_path=llm_path,
+                            pretrained_agent_path=agent_path,
+                            validate=validate, device=device)
+        adapter = None
+        if sdxl_unet_path or detokenizer_path:
+            adapter = build_sdxl_adapter(
+                detokenizer_path=detokenizer_path,
+                sdxl_unet_path=sdxl_unet_path, sdxl_vae_path=sdxl_vae_path,
+                with_latent_image=with_latent_image, visual_encoder=vit,
+                validate=validate, device=device)
+        rt = cls(tokenizer=load_tokenizer(tokenizer_path), vit_cfg=vit.cfg,
+                 vit=vit, agent_cfg=agent.cfg, agent=agent, adapter=adapter)
+        if vit_quantization == "int8":
+            rt.quantize_vit()
+        if unet_quantization == "int8" and adapter is not None:
+            adapter.quantize_unet()
+        return rt
+
+    # The released artifact layout under ``pretrained/`` (reference
+    # README.md:74-87 + configs/clm_models/*_seed_x*.yaml paths).
+    RELEASE_MODELS = ("seed_x", "seed_x_i", "seed_x_edit")
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        root: str = "pretrained",
+        model: str = "seed_x_i",
+        with_adapter: bool = True,
+        validate: bool = True,
+        **kw,
+    ) -> "SeedXRuntime":
+        """One call over the release checkpoint layout the reference
+        README tells users to create (README.md:74-87; config paths
+        agent_seed_x_i.yaml:23, llm_seed_x_i.yaml:2, qwen_vitg_448.yaml:11,
+        sdxl_qwen_vit_resampler_l4_q64*.yaml):
+
+            <root>/QwenViT/qwen_vit_G.pt
+            <root>/<model>/llm/                  (HF shards dir)
+            <root>/<model>/agent/pytorch_model.bin
+            <root>/seed_detokenizer/first_stage/pytorch_model.bin
+                                   (second_stage for the edit variant)
+            <root>/stable-diffusion-xl-base-1.0/{unet,vae}/
+
+        ``model`` is ``seed_x`` (foundation), ``seed_x_i`` (instruct) or
+        ``seed_x_edit`` (editing: the latent-image UNet and the
+        second-stage detokenizer).  With ``with_adapter=False`` the
+        detokenizer and SDXL are not needed; a missing required piece
+        raises FileNotFoundError listing what the README says to
+        download.  ``validate=True`` (the default here, unlike
+        ``from_checkpoints``) manifest-checks every artifact first;
+        ``kw`` goes to ``from_checkpoints`` (``quantization``,
+        ``device``, ...)."""
+        if model not in cls.RELEASE_MODELS:
+            raise ValueError(f"model must be one of {cls.RELEASE_MODELS}, "
+                             f"got {model!r}")
+        edit = model == "seed_x_edit"
+        vit_path = os.path.join(root, "QwenViT", "qwen_vit_G.pt")
+        llm_path = os.path.join(root, model, "llm")
+        agent_path = os.path.join(root, model, "agent", "pytorch_model.bin")
+        stage = "second_stage" if edit else "first_stage"
+        detok_path = os.path.join(root, "seed_detokenizer", stage,
+                                  "pytorch_model.bin")
+        sdxl = os.path.join(root, "stable-diffusion-xl-base-1.0")
+        unet_path, vae_path = (os.path.join(sdxl, "unet"),
+                               os.path.join(sdxl, "vae"))
+
+        required = {"QwenViT visual encoder (run the reference's "
+                    "src/tools/reload_qwen_vit.py)": vit_path,
+                    f"{model} LLM shards": llm_path,
+                    f"{model} agent checkpoint": agent_path}
+        if with_adapter:
+            required.update({
+                f"seed_detokenizer {stage}": detok_path,
+                "SDXL base UNet": unet_path, "SDXL base VAE": vae_path})
+        missing = {what: p for what, p in required.items()
+                   if not os.path.exists(p)}
+        if missing:
+            raise FileNotFoundError(
+                "missing release artifacts under "
+                f"{root!r} (download per reference README.md:74-87):\n"
+                + "\n".join(f"  {p}  <- {what}"
+                            for what, p in missing.items()))
+        return cls.from_checkpoints(
+            vit_path=vit_path, llm_path=llm_path, agent_path=agent_path,
+            detokenizer_path=detok_path if with_adapter else None,
+            sdxl_unet_path=unet_path if with_adapter else None,
+            sdxl_vae_path=vae_path if with_adapter else None,
+            with_latent_image=edit, validate=validate, **kw)
+
+    @classmethod
     def debug(cls, seed: int = 0, image_size: int = 56,
               dtype: torch.dtype = torch.bfloat16, device="cuda",
               quantization: str = "none", kv_quantization: str = "none",
@@ -145,6 +274,26 @@ class SeedXRuntime:
     @property
     def device(self) -> torch.device:
         return self.vit.proj.device
+
+    def quantize_vit(self) -> "SeedXRuntime":
+        """Switch the visual encoder to int8 trunk weights (in place; the
+        JAX package's ``quantize_vit``, the same bytes): ViT-bigG's 3.8 GB
+        of bf16 become 1.9 GB.  An adapter sharing the ViT for its CFG
+        negatives gets the new one."""
+        from seedx_tpu_torch.utils.quantize import quantize_vit_params
+
+        if self.vit_cfg.quantization == "int8":
+            return self
+        cfg = dataclasses.replace(self.vit_cfg, quantization="int8")
+        vit = VisionTransformer(cfg, self.device).eval()
+        with torch.no_grad():
+            vit.load_state_dict(quantize_vit_params(self.vit.state_dict()),
+                                strict=True)
+        if self.adapter is not None and \
+                self.adapter.visual_encoder is self.vit:
+            self.adapter.visual_encoder = vit
+        self.vit_cfg, self.vit = cfg, vit
+        return self
 
     # ---- vision ------------------------------------------------------------
 

@@ -24,6 +24,7 @@ Multi-device placement (the JAX package's ``shard``) is not ported.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, Optional
 
 import numpy as np
@@ -100,7 +101,10 @@ class SDXLAdapter:
 
     @property
     def device(self) -> torch.device:
-        return self.unet.conv_in.weight.device
+        module = next(m for m in (self.unet, self.resampler,
+                                  self.vae_decoder) if m is not None)
+        return next(itertools.chain(module.buffers(),
+                                    module.parameters())).device
 
     # ---- serving quantization ----------------------------------------------
 

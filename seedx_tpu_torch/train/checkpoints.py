@@ -1,11 +1,13 @@
-"""Step-indexed checkpoints (reference: seedx_tpu/train/checkpoints.py,
-which writes orbax trees).
+"""Step-indexed checkpoints and one-shot state files (reference:
+seedx_tpu/train/checkpoints.py, which writes orbax trees).
 
 ``{directory}/checkpoint-{step}/state.pt`` holds ``torch.save`` of what
 ``TrainState.state_dict`` gives: the step, the trainable leaves and the
 optimizer state.  The frozen weights are never written.  A save goes to a
 temporary directory first and is renamed into place, so a crash leaves
-either the old checkpoint or the new one.
+either the old checkpoint or the new one.  ``save_pytree`` /
+``restore_pytree`` write and read one state dict (an exported serving
+artifact, ``utils/export.py``) the same way.
 """
 
 from __future__ import annotations
@@ -60,3 +62,31 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         return torch.load(os.path.join(self.path(step), "state.pt"),
                           map_location=map_location, weights_only=True)
+
+
+def save_pytree(path: str, tree: Mapping[str, Any]) -> None:
+    """One-shot save of a state dict (nested mappings of tensors), its
+    tensors copied to the host first so the file loads on any device;
+    written to ``path + ".tmp"`` and renamed into place."""
+    def host(node):
+        if isinstance(node, Mapping):
+            return {k: host(v) for k, v in node.items()}
+        return node.detach().cpu() if isinstance(node, torch.Tensor) \
+            else node
+
+    tmp = path + ".tmp"
+    torch.save(host(tree), tmp)
+    os.replace(tmp, path)
+
+
+def restore_pytree(path: str, template: Any = None) -> Any:
+    """Read what ``save_pytree`` wrote (tensors over a map of the file).
+    With a module as ``template`` the state is copied into it (strict:
+    every buffer present, every leaf used) and the module comes back."""
+    state = torch.load(path, map_location="cpu", weights_only=True,
+                       mmap=True)
+    if template is None:
+        return state
+    with torch.no_grad():
+        template.load_state_dict(state, strict=True)
+    return template

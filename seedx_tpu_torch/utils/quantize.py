@@ -3,7 +3,10 @@ whose numpy packers cannot be imported here: that module imports jax).
 
 The packers give the same bytes as the JAX package's, so one quantized
 tree feeds both packages: int8 per-output-channel kernels, int8 per-row
-embedding tables, and int4 row-pair nibbles with per-(group, out) scales.
+embedding tables, and int4 row-pair nibbles with per-(group, out) scales;
+``quantize_llama_params`` / ``quantize_vit_params`` /
+``quantize_unet_params`` lay a whole model's state out for its quantized
+config.
 They run on whatever device the weight lives on, one matrix at a time,
 and give the same bytes on the card as on the CPU: each scale divides by
 a tensor (ATen divides a CUDA tensor by a Python number as a multiply by
@@ -94,6 +97,30 @@ def quantize_llama_params(state: Dict[str, torch.Tensor],
         elif full and parts[-1] == "embedding":
             out[base + ".embedding_q"], out[base + ".embedding_scale"] = \
                 quantize_embedding(v)
+        else:
+            out[key] = v
+    return out
+
+
+VIT_QUANT_TARGETS = ("in_proj", "out_proj", "c_fc", "c_proj")
+
+
+def quantize_vit_params(state: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """Full-precision ViT state (the port's flat names) -> the layout
+    ``ViTConfig(quantization="int8")`` expects: every trunk projection
+    ``blocks.*.kernel`` (stacked [L, in, out]) becomes ``kernel_q`` int8 +
+    ``kernel_scale`` fp32 [L, out]; biases, norms, position tables, the
+    patchify conv and the attention pool stay as they are (the JAX
+    package's ``quantize_vit_params``, the same bytes)."""
+    out = {}
+    for key, v in state.items():
+        parts = key.split(".")
+        base = ".".join(parts[:-1])
+        if (parts[0] == "blocks" and parts[-1] == "kernel"
+                and parts[-2] in VIT_QUANT_TARGETS):
+            out[base + ".kernel_q"], out[base + ".kernel_scale"] = \
+                quantize_kernel(v)
         else:
             out[key] = v
     return out

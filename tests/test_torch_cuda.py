@@ -1159,3 +1159,30 @@ def test_beam_graph_matches_eager(cuda_device):
     (st,) = [s for s in tgen.decode_programs(rt.agent).states.values()
              if isinstance(s, tgen.BeamState)]
     assert st.program.graph is not None and st.program.replays >= 11
+
+
+@pytest.mark.cuda
+def test_checkpoint_read_to_the_card_equals_the_cpu_read(cuda_device,
+                                                        tmp_path):
+    """A release file read straight to the card (``device=``) holds the
+    CPU read's tensors, bit for bit: a torch pickle and a safetensors file
+    (written by the smoke's own writer: the card has no ``safetensors``)."""
+    from chip_smoke import write_safetensors
+    from seedx_tpu_torch.utils.weights import load_checkpoint_auto
+
+    g = torch.Generator().manual_seed(0)
+    sd = {"w": torch.randn(64, 48, generator=g).bfloat16(),
+          "b": torch.randn(48, generator=g),
+          "q": torch.randint(-127, 127, (7, 5), generator=g,
+                             dtype=torch.int8),
+          "s": torch.tensor(2.5)}
+    torch.save(sd, str(tmp_path / "pytorch_model.bin"))
+    (tmp_path / "st").mkdir()
+    write_safetensors(str(tmp_path / "st" / "model.safetensors"), sd)
+    for path in (str(tmp_path), str(tmp_path / "st")):
+        cpu = load_checkpoint_auto(path)
+        card = load_checkpoint_auto(path, device=cuda_device)
+        assert sorted(card) == sorted(cpu) == sorted(sd)
+        for k, v in cpu.items():
+            assert card[k].is_cuda and card[k].dtype == v.dtype
+            assert torch.equal(card[k].cpu(), v) and torch.equal(v, sd[k])
