@@ -2,8 +2,10 @@
 the image-in comprehension turn, batched / continuous (fused prefill too)
 / HTTP serving, multi-turn chat with a KV prefix cache, speculative
 decoding and beam search, image out (the SDXL adapter: text to image,
-reconstruction, editing), the SEED-X SFT train step and a runtime loaded
-from release checkpoint files, and check its five CUDA kernels.
+reconstruction, editing), SEED-X SFT through the ``train_sft`` entry
+point over the repo's YAMLs and files on disk, de-tokenizer (adapter)
+training at the SDXL width and a runtime loaded from release checkpoint
+files, and check its five CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -15,9 +17,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    each, started together, sm_90a);
 3. kernels: each against its plain PyTorch version at the shapes of the
    turn, of batched decode, of the fused step's stair (K3's multi-query
-   mode) and of the train step's attention backward (K4, K5; two runs
-   bit-equal) (max abs / rel error against a stated tolerance; median of 10
-   timed runs after warm-up, CUDA events), beside its bound (the larger
+   mode) and of the attention backward (K4, K5; two runs bit-equal) of
+   the SFT step and of adapter training (the UNet's self-attention)
+   (max abs / rel error against a stated tolerance; median of 10 timed
+   runs after warm-up, CUDA events), beside its bound (the larger
    of bytes / 3.35 TB/s and operations / the tensor cores' peak for the
    input type) and, where one exists, the time of the PyTorch call
    computing the same function (K2 at rows 1 / 8 / 24 / 65 / 512 / 2048
@@ -92,19 +95,40 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    one ``/v1/generate`` POST.  Every UNet eval must launch K1 70 times,
    every eps, latent and image (before the clip) be finite, every image
    [B, 1024, 1024, 3];
-11. train: the SEED-X SFT step at full width (ViT-bigG frozen, LLaMA2-13B
-   bf16 frozen, LoRA r32 on the seven projections, both resamplers, the
-   embedding and LM head trainable in fp32) on SFT batches built by the
-   port's encoders and ``collate_anyres`` (2 conversations at 880 tokens
-   with 8 anyres tiles; 8 captions at 260 tokens, generation slots):
-   first a gradient check of the agent cut to ``PARITY_LAYERS`` layers,
-   K1 / K4 / K5 against the plain attention under ordinary autograd, which
-   a zero-delta backward must fail; then ``train_loop`` for
-   ``TRAIN_STEPS`` steps alternating the two batches (the loss must fall
-   on each repeated batch, the frozen weights stay bit-equal, the final
-   checkpoint read back bit-equal) and one step with gradient
-   accumulation 2;
-12. load: a synthetic release tree in a temporary directory (the port's
+11. train: SEED-X SFT at full width through the entry point a user
+   runs, ``train_sft.main`` with the repo's transform, tokenizer,
+   visual-encoder and ``agent_seed_x.yaml`` configs (ViT-bigG frozen,
+   LLaMA2-13B bf16 frozen, LoRA r32 on the seven projections, both
+   resamplers, the embedding and LM head trainable in fp32; random
+   weights from the factories' seed) over synthetic files written from a
+   seed (webdataset caption shards, a LLaVA jsonl with its images, an
+   edit jsonl; the data YAML is configs/data/sft_comprehension_gen.yaml
+   with only its paths rewritten; the edit YAML's builders make one
+   batch; the caption builder's host ms a batch under each tar reader):
+   ``CLI_STEPS`` steps (each step's ms by phase, trained tok/s, the
+   host's wait for its batch, launches and peak memory; which tar reader
+   ran), the frozen weights bit-equal after and the trainable ones
+   changed, the final checkpoint read back bit-equal; on the
+   models it built a profiled step and one step with gradient
+   accumulation 2 (SFT batches from the port's encoders and
+   ``collate_anyres``: 2 conversations at 880 tokens with 8 anyres
+   tiles, 8 captions at 260), then a gradient check of the agent cut to
+   ``PARITY_LAYERS`` layers, K1 / K4 / K5 against the plain attention
+   under ordinary autograd, which a zero-delta backward must fail; last
+   ``main(--resume)`` to ``CLI_RESUME_STEPS``: the checkpoint restored,
+   the trained batches skipped, the factories' frozen weights the same,
+   the trainable ones moved on from the checkpoint;
+12. adapter training: ``make_adapter_train_step`` at the full SDXL base
+   width (ResamplerXL ``DetokenizerConfig()``, the base UNet bf16 with
+   its to_k / to_v and conv_in as fp32 masters, AdamW) on a batch of
+   ``ADAPTER_BATCH`` 1024^2 images (the fp32 VAE encoder's scaled latents,
+   ViT-bigG features pooled to 64 tokens): ``ADAPTER_STEPS`` steps on one
+   repeated draw of t and noise, each launching K1, K4 and K5 70 times
+   (the UNet's self-attentions, forward and backward), the loss finite
+   and lower after the first update, ms a step and peak memory, a
+   profiled step, the trainable leaves changed and the frozen ones
+   bit-equal after;
+13. load: a synthetic release tree in a temporary directory (the port's
    manifests' keys and shapes, random values drawn on the card from a
    seed, bf16 and the VAE fp32, in the ``from_pretrained`` layout and
    through all four reader routes: the LLM dir as an HF shard dir, the
@@ -127,22 +151,24 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    with the same greedy tokens; write / read / build seconds, GB/s, host
    and device peak memory, cold start from release files and from the
    export;
-13. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
+14. a JSON line of the kernels, the ``nvidia-smi`` line, and last a JSON
    line ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-12 runs with the launch counters set to 0 just
+Every path of phases 4-13 runs with the launch counters set to 0 just
 before it and read just after, and fails unless each kernel it runs was
 launched (the fused engines: K3 in its multi-query mode); a captured
 program adds its launches at every replay, so the counters count what
 ran.  In the kernels line ``launches`` is the sum over the main path's
-runs of phases 4-6, 8, 10, 11 and 12 (the turn, the serving engines and
-HTTP, the chat sessions, the warm captured scripted runs, the beams and
-the spec chat, the image-out runs, the train steps, the loaded stack's
-turn, text to image, int8 ViT and int8 UNet step), with K3's by
-mode and K2's by row tile (``launches_by_tile``; its calls by row band
-are logged); the eager twins of phases 5, 7, 8 and 10, the forced runs,
-phase 9 and the gradient check, the UNet's K1-against-plain eval and
-the restored agent's comparison print theirs on a line of their own.
+runs of phases 4-6, 8, 10, 11, 12 and 13 (the turn, the serving engines
+and HTTP, the chat sessions, the warm captured scripted runs, the beams
+and the spec chat, the image-out runs, the CLI's and the accumulation
+train steps, the adapter steps, the loaded stack's turn, text to image,
+int8 ViT and int8 UNet step), with K3's by mode and K2's by row tile
+(``launches_by_tile``; its calls by row band are logged); the eager
+twins of phases 5, 7, 8 and 10, the forced runs, phase 9, the gradient
+check and the profiled train and adapter steps, the UNet's
+K1-against-plain eval and the restored agent's comparison print theirs
+on a line of their own.
 ``max_abs_err`` is the largest over the kernel's shapes, and ``ms``,
 ``plain_ms`` and ``bound_ms`` sums of one call at each shape;
 ``library_ms`` sums the shapes named in ``library_shapes``.
@@ -386,13 +412,17 @@ def check_flash(dev, g, shapes=FLASH_SHAPES):
     return rows
 
 
-# the SFT train step's attention backward: (name, B, S, H, D, causal,
-# starts, ends); q and kv of one length (training), q_offset 0
+# the attention backward of the SFT train step and of adapter training
+# (the UNet's self-attention at 1024^2, levels 1 and 2, at the training
+# batch 2): (name, B, S, H, D, causal, starts, ends); q and kv of one
+# length, q_offset 0
 FLASH_BWD_SHAPES = (
     ("comprehension", 2, 880, 40, 128, True, (0, 0), (880, 611)),
     ("generation", 8, 260, 40, 128, True, (0,) * 8,
      (260, 211, 174, 260, 143, 238, 197, 160)),
-    ("d64_noncausal", 2, 512, 16, 64, False, (0, 7), (512, 400)))
+    ("d64_noncausal", 2, 512, 16, 64, False, (0, 7), (512, 400)),
+    ("unet_4096", 2, 4096, 10, 64, False, (0, 0), (4096, 4096)),
+    ("unet_1024", 2, 1024, 20, 64, False, (0, 0), (1024, 1024)))
 
 
 def check_flash_bwd(dev, g, shapes=FLASH_BWD_SHAPES):
@@ -2705,7 +2735,6 @@ def profile_mixed(rt, requests, slots: int = 8) -> None:
 # the gradient check (bf16 on both sides; a leaf is held to at least
 # GRAD_FLOOR of the model's largest gradient, the rounding noise's level:
 # a key bias's true gradient is zero)
-TRAIN_STEPS = 4
 GRAD_LOSS_REL, GRAD_REL, GRAD_FLOOR = 1e-2, 2e-2, 1e-2
 CONVERSATIONS = (
     ["Describe this picture in detail, please.",
@@ -2897,22 +2926,30 @@ def grad_check(dev, batch):
 
 class StepCounts:
     """Wraps the batches of a run without accumulation: each step's
-    launches and peak memory, read when the loop asks for the next
-    batch."""
+    launches, peak memory and the host ms the loop waited for its batch
+    (the data stream's decode, transforms and tokenization), read when
+    the loop asks for the next batch."""
 
     def __init__(self, batches):
         self.batches, self.steps, self._open = batches, [], False
+        self._fetch_ms = 0.0
 
     def __iter__(self):
         import torch
 
-        for b in self.batches:
+        it = iter(self.batches)
+        while True:
             self._close()
+            t = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            self._fetch_ms = (time.perf_counter() - t) * 1e3
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
             self._open = True
             yield b
-        self._close()
 
     def _close(self):
         import torch
@@ -2920,64 +2957,272 @@ class StepCounts:
         if self._open:
             torch.cuda.synchronize()
             self.steps.append((read_counts(),
-                               torch.cuda.max_memory_allocated()))
+                               torch.cuda.max_memory_allocated(),
+                               self._fetch_ms))
             self._open = False
 
 
+# the SFT entry point's run: steps, then a resume to a later step; the
+# synthetic data written for it (numbers of files and samples)
+CLI_STEPS, CLI_RESUME_STEPS = 4, 6
+# (LLM layers, ViT layers, hidden size, LoRA rank) the YAMLs give
+SFT_WIDTH = (40, 48, 5120, 32)
+SFT_CONFIGS = (("image_transform",
+                "configs/processer/qwen_448_transform.yaml"),
+               ("tokenizer",
+                "configs/tokenizer/clm_llama_tokenizer_224loc_anyres.yaml"),
+               ("visual_encoder", "configs/visual_encoder/qwen_vitg_448.yaml"),
+               ("agent_model", "configs/clm_models/agent_seed_x.yaml"))
+
+
+def _jpeg(rng, w: int, h: int) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8)).save(
+        buf, format="JPEG")
+    return buf.getvalue()
+
+
+def write_sft_data(root: str, seed: int = 0) -> dict:
+    """Synthetic SFT data under ``root``, from ``seed``, in the formats the
+    builders read: 2 webdataset shards of 8 captioned images each (jpg +
+    txt + json similarity), a LLaVA jsonl of 6 conversations over images
+    of 1-5 anyres tiles, and an edit jsonl of 4 source / target pairs.
+    Returns {"comprehension_gen": yaml, "edit": yaml}: the repo's data
+    YAMLs with only ``data_dir`` / ``image_dir`` rewritten."""
+    import io
+    import os
+    import tarfile
+
+    import yaml
+
+    rng = np.random.default_rng(seed)
+    shards = os.path.join(root, "webdataset")
+    os.makedirs(shards)
+    for s in range(2):
+        with tarfile.open(os.path.join(shards, f"{s:05d}.tar"), "w") as tf:
+            for i in range(8):
+                key = f"{s:02d}{i:04d}"
+                for ext, data in (
+                        ("jpg", _jpeg(rng, int(rng.integers(448, 700)),
+                                      int(rng.integers(448, 700)))),
+                        ("txt", CAPTIONS[(s * 8 + i) % len(CAPTIONS)]
+                         .encode()),
+                        ("json", json.dumps({"similarity": 0.3}).encode())):
+                    info = tarfile.TarInfo(f"{key}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    lines = []
+    for i, (w, h) in enumerate(((896, 896), (896, 448), (448, 448),
+                                (448, 1344), (600, 450), (1344, 448))):
+        with open(os.path.join(img_dir, f"conv_{i}.jpg"), "wb") as f:
+            f.write(_jpeg(rng, w, h))
+        lines.append({"image": f"conv_{i}.jpg",
+                      "data": CONVERSATIONS[i % len(CONVERSATIONS)]})
+    conv_dir = os.path.join(root, "llava")
+    os.makedirs(conv_dir)
+    with open(os.path.join(conv_dir, "conv.jsonl"), "w") as f:
+        f.writelines(json.dumps(x) + "\n" for x in lines)
+    edit_dir = os.path.join(root, "edit")
+    os.makedirs(edit_dir)
+    with open(os.path.join(edit_dir, "edit.jsonl"), "w") as f:
+        for i in range(4):
+            for side in ("src", "tgt"):
+                with open(os.path.join(img_dir, f"{side}_{i}.jpg"),
+                          "wb") as g:
+                    g.write(_jpeg(rng, 512, 512))
+            f.write(json.dumps({"source_image": f"src_{i}.jpg",
+                                "target_image": f"tgt_{i}.jpg",
+                                "instruction": "make the sky red"}) + "\n")
+    out = {}
+    with open("configs/data/sft_comprehension_gen.yaml") as f:
+        cfg = yaml.safe_load(f)
+    llava, caption = cfg["datapipes"]
+    llava.update(data_dir=conv_dir, image_dir=img_dir)
+    caption.update(data_dir=[shards])
+    out["comprehension_gen"] = os.path.join(root, "comprehension_gen.yaml")
+    with open("configs/data/sft_edit.yaml") as f:
+        edit = yaml.safe_load(f)
+    for dp in edit["datapipes"]:
+        dp.update(data_dir=[edit_dir], image_dir=img_dir)
+    out["edit"] = os.path.join(root, "edit.yaml")
+    for key, c in (("comprehension_gen", cfg), ("edit", edit)):
+        with open(out[key], "w") as f:
+            yaml.safe_dump(c, f)
+    return out
+
+
+def cli_argv(dataset: str, out_dir: str, dev, *extra) -> list:
+    argv = []
+    for flag, path in SFT_CONFIGS:
+        argv += [f"--{flag}", path]
+    return argv + ["--train_dataset", dataset, "--output_dir", out_dir,
+                   "--warmup_steps", "0", "--save_steps", "1000000",
+                   "--trackers", "jsonl",
+                   "--device", str(dev), *extra]
+
+
+class CliRun:
+    """Wraps ``train_sft.train_loop`` while ``main`` runs: logs every step,
+    keeps the agent and ViT the factories built, the frozen weights' bit
+    checksum before the first step, and each batch's launches and peak
+    memory
+    (``StepCounts``; on a resume the first entries are the skipped
+    batches, which launch nothing)."""
+
+    def __init__(self):
+        from seedx_tpu_torch.train import train_sft
+
+        self.mod, self.real = train_sft, train_sft.train_loop
+        self.agent = self.vit = self.steps = self.frozen_before = None
+        self.trainable_names = self.trainable_before = None
+
+    def __enter__(self):
+        self.mod.train_loop = self._loop
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.train_loop = self.real
+
+    def _loop(self, agent, vit, data_iter, train_cfg, run_cfg, device):
+        from seedx_tpu_torch.train.partition import path_labels
+
+        self.agent, self.vit = agent, vit
+        self.frozen_before = self.frozen_sum()
+        # the trainable leaves as the fp32 masters the loop will make
+        state = agent.state_dict()
+        self.trainable_names = sorted(
+            n for n, lab in path_labels(
+                state.keys(), train_cfg.trainable_patterns).items()
+            if lab == "trainable")
+        self.trainable_before = bit_checksum(
+            state[n].float() for n in self.trainable_names)
+        self.steps = StepCounts(data_iter)
+        # every step logged (the CLI's default logs every 10th)
+        return self.real(agent, vit, iter(self.steps), train_cfg,
+                         dataclasses.replace(run_cfg, log_steps=1),
+                         device=device)
+
+    def frozen_names(self):
+        from seedx_tpu_torch.train.partition import path_labels
+
+        return [n for n, lab in path_labels(
+            self.agent.state_dict().keys()).items() if lab == "frozen"]
+
+    def frozen_sum(self) -> int:
+        state = self.agent.state_dict()
+        return bit_checksum([state[n] for n in self.frozen_names()]
+                            + list(self.vit.state_dict().values()))
+
+    def trained_sum(self, state) -> int:
+        if sorted(state.params) != self.trainable_names:
+            raise AssertionError("train cli: the trainable set is not the "
+                                 "config's")
+        return bit_checksum(state.params[n] for n in self.trainable_names)
+
+
+def cli_steps(label: str, run: CliRun, metrics, n_layers: int,
+              vit_layers: int, totals) -> None:
+    """Log each logged step of a CLI run (losses, ms by phase, trained
+    tokens / s, the host's wait for the batch, peak memory, K1 / K4 / K5
+    launches) and hold its launches
+    to the SFT step's: K1 2 x the LLM's layers (forward and recompute) +
+    the ViT's, K4 and K5 the LLM's layers."""
+    counted = [s for s in run.steps.steps if s[0]["flash_fwd"]]
+    if len(counted) != len(metrics):
+        raise AssertionError(f"{label}: {len(counted)} steps launched "
+                             f"kernels, {len(metrics)} logged")
+    for m, (counts, peak, fetch_ms) in zip(metrics, counted):
+        add_counts(totals, counts)
+        ms = m["vit_ms"] + m["fwd_bwd_ms"] + m["opt_ms"]
+        log(f"{label} step {m['step']}: total_loss {m['total_loss']:.5f} "
+            f"lm_loss {m['lm_loss']:.5f} rec_loss {m['rec_loss']:.5f} "
+            f"grad_norm {m['grad_norm']:.4f} lr {m['lr']:.3e}; vit "
+            f"{m['vit_ms']:.1f} ms, fwd+bwd {m['fwd_bwd_ms']:.1f} ms, "
+            f"optimizer {m['opt_ms']:.1f} ms, {ms:.1f} ms a step, "
+            f"{m['tokens']} tokens, {m['tokens'] / ms * 1e3:.1f} trained "
+            f"tok/s; the batch's host wait {fetch_ms:.1f} ms; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+            f"flash_fwd {counts['flash_fwd']} flash_bwd_dq "
+            f"{counts['flash_bwd_dq']} flash_bwd_dkv "
+            f"{counts['flash_bwd_dkv']}")
+        want = (2 * n_layers + vit_layers, n_layers, n_layers)
+        got = (counts["flash_fwd"], counts["flash_bwd_dq"],
+               counts["flash_bwd_dkv"])
+        if got != want or not np.isfinite(m["total_loss"]):
+            raise AssertionError(f"{label} step {m['step']}: launches {got}"
+                                 f" (want {want}), loss {m['total_loss']}")
+
+
+READER_BATCHES = 6
+
+
+def reader_times(data_yaml: str, tokenizer, transform) -> dict:
+    """Host ms a batch of the CLI data YAML's caption builder (B8 at 260,
+    the builder that reads the tar shards) under each tar reader, and each
+    reader's samples / s over the shards alone (the tar parse and the
+    image decode, no transform), in turns native / python / python /
+    native.  The first batch fills the builder's 64-sample shuffle buffer,
+    so it is kept apart.  -> {reader: {"first": [ms], "rest": [ms],
+    "samples_per_s": [x]}}"""
+    import glob
+    import os
+
+    from seedx_tpu_torch import config as config_lib
+    from seedx_tpu_torch.data import native, pipeline
+
+    caption = config_lib.load_config(data_yaml)["datapipes"][1]
+    shards = sorted(glob.glob(os.path.join(caption["data_dir"][0],
+                                           "*.tar"))) * 4
+    base = native.available
+    out = {}
+    try:
+        for name in ("native", "python", "python", "native"):
+            native.available = base if name == "native" else (lambda: False)
+            rec = out.setdefault(name, {"first": [], "rest": [],
+                                        "samples_per_s": []})
+            it = config_lib.instantiate(caption, tokenizer=tokenizer,
+                                        image_transform=transform)
+            for i in range(READER_BATCHES):
+                t = time.perf_counter()
+                next(it)
+                rec["first" if i == 0 else "rest"].append(
+                    (time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            n = sum(1 for _ in pipeline.read_tar_shards_multi(
+                shards, native=name == "native"))
+            rec["samples_per_s"].append(n / (time.perf_counter() - t))
+    finally:
+        native.available = base
+    return out
+
+
 def run_train(dev):
-    """Phase 8: the SFT train step at full SEED-X width (see the module
-    docstring).  Returns the main path's launches (the train steps)."""
+    """Phase 11: SFT at full SEED-X width (see the module docstring): the
+    ``train_sft`` entry point over the repo's YAMLs and synthetic files on
+    disk, a resume, then a profiled step, accumulation 2 and the gradient
+    check on the models it built.  Returns the main path's launches (the
+    CLI's steps and the accumulation step)."""
     import os
     import shutil
     import tempfile
 
     import torch
 
-    from seedx_tpu_torch.models.agent import ContinuousLVLM
-    from seedx_tpu_torch.models.layers import init_normal_
-    from seedx_tpu_torch.models.vit import VisionTransformer, qwen_vitg_448
+    from seedx_tpu_torch import config as config_lib
+    from seedx_tpu_torch.data import native
     from seedx_tpu_torch.text.tokenizer import load_tokenizer
-    from seedx_tpu_torch.train import checkpoints
-    from seedx_tpu_torch.train.partition import path_labels
-    from seedx_tpu_torch.train.train_sft import (RunConfig, _to_device,
-                                                 train_loop)
+    from seedx_tpu_torch.train import checkpoints, train_sft
     from seedx_tpu_torch.train.trainer import TrainConfig, make_train_step
 
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(4)
-    vit_cfg = qwen_vitg_448()
-    vit = init_normal_(VisionTransformer(vit_cfg, dev).eval(), gen)
-    batch_a, batch_b, batch_b2 = sft_batches(load_tokenizer(),
-                                             vit_cfg.image_size, 64, 64)
-    for name, bt in (("a", batch_a), ("b", batch_b)):
-        log(f"train batch ({name}): input_ids {bt['input_ids'].shape}, "
-            f"tokens per row {bt['attention_mask'].sum(1).tolist()}, image "
-            f"slots {int(bt['embeds_cmp_mask'].sum())} comprehension + "
-            f"{int(bt['embeds_gen_mask'].sum())} generation")
-    dev_a = _to_device(batch_a, dev)
-    with torch.no_grad():
-        dev_a["image_embeds"] = vit(dev_a.pop("images"),
-                                    dev_a["patch_positions"])
-    grad_check(dev, dev_a)
-    del dev_a
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    cfg = train_agent_cfg()
-    agent = init_normal_(ContinuousLVLM(cfg, dev), gen)
-    torch.cuda.synchronize()
-    log(f"train: built ViT-bigG/14-448 bf16 (frozen) + the SEED-X agent "
-        f"(LLaMA2-13B bf16, LoRA r32) in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    labels = path_labels(agent.state_dict().keys())
-    frozen = [n for n, lab in labels.items() if lab == "frozen"]
-
-    def frozen_sum():
-        state = agent.state_dict()
-        return bit_checksum([state[n] for n in frozen]
-                            + list(vit.state_dict().values()))
-
-    before = frozen_sum()
+    root = tempfile.mkdtemp(prefix="chip_smoke_sft_")
+    totals = {}
     saves = []
     base_save = checkpoints.CheckpointManager.save
 
@@ -2988,53 +3233,70 @@ def run_train(dev):
         saves.append((path, time.perf_counter() - t1))
         return path
 
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sft_")
-    totals = {}
     try:
         checkpoints.CheckpointManager.save = timed_save
-        steps = StepCounts([batch_a, batch_b, batch_a, batch_b])
-        train_cfg = TrainConfig(warmup_steps=0, max_steps=TRAIN_STEPS)
-        state = train_loop(agent, vit, iter(steps), train_cfg,
-                           RunConfig(output_dir=out_dir, log_steps=1,
-                                     save_steps=10 ** 9, trackers=("jsonl",),
-                                     seed=0), device=dev)
+        yamls = write_sft_data(os.path.join(root, "data"))
+        reader = "native (g++)" if native.available() else "python tarfile"
+        log(f"train cli: synthetic data written in "
+            f"{time.perf_counter() - t0:.1f} s; tar reader: {reader}")
+        transform = config_lib.instantiate_from_file(SFT_CONFIGS[0][1])
+        # the caption builder's batches under each tar reader, host only
+        # (the Python reader alone where no g++ builds the native one)
+        times = (reader_times(yamls["comprehension_gen"], load_tokenizer(),
+                              transform) if native.available() else {})
+        for name, rec in times.items():
+            rest = sorted(rec["rest"])
+            log(f"train cli: caption batch (B8) under the {name} reader: "
+                f"first {', '.join(f'{x:.1f}' for x in rec['first'])} ms "
+                f"(the shuffle buffer's 64 samples), then median "
+                f"{rest[len(rest) // 2]:.1f} ms (min {rest[0]:.1f}, max "
+                f"{rest[-1]:.1f}) over {len(rest)}; the shards alone "
+                f"{', '.join(f'{x:.1f}' for x in rec['samples_per_s'])} "
+                f"samples/s")
+        # the edit YAML's builders on the same files: one batch, host only
+        edit = next(config_lib.instantiate(
+            config_lib.load_config(yamls["edit"]), tokenizer=load_tokenizer(),
+            image_transform=transform))
+        log(f"train cli: sft_edit.yaml batch input_ids "
+            f"{edit['input_ids'].shape}, images {edit['images'].shape}, "
+            f"generation slots {int(edit['embeds_gen_mask'].sum())}")
+        if edit["input_ids"].shape != (6, 320) or int(
+                edit["embeds_gen_mask"].sum()) != 6:
+            raise AssertionError("train cli: the edit batch is malformed")
+
+        out_dir = os.path.join(root, "run")
+        t1 = time.perf_counter()
+        with CliRun() as run:
+            state = train_sft.main(cli_argv(
+                yamls["comprehension_gen"], out_dir, dev, "--max_steps",
+                str(CLI_STEPS)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        agent, vit = run.agent, run.vit
+        n, vit_layers = agent.cfg.llm.num_layers, vit.cfg.layers
+        if (n, vit_layers, agent.cfg.llm.hidden_size,
+                agent.cfg.llm.lora_rank) != SFT_WIDTH:
+            raise AssertionError(f"train cli: not the full-width agent: "
+                                 f"{agent.cfg.llm}")
         with open(os.path.join(out_dir, "metrics.jsonl")) as f:
             metrics = [json.loads(x) for x in f]
-        if state.step != TRAIN_STEPS or len(metrics) != TRAIN_STEPS:
-            raise AssertionError(f"train: {state.step} steps, "
+        if state.step != CLI_STEPS or len(metrics) != CLI_STEPS:
+            raise AssertionError(f"train cli: {state.step} steps, "
                                  f"{len(metrics)} logged")
-        for m, (counts, peak) in zip(metrics, steps.steps):
-            add_counts(totals, counts)
-            ms = m["vit_ms"] + m["fwd_bwd_ms"] + m["opt_ms"]
-            log(f"train step {m['step']} ({'ab'[m['step'] % 2]}): total_loss "
-                f"{m['total_loss']:.5f} lm_loss {m['lm_loss']:.5f} rec_loss "
-                f"{m['rec_loss']:.5f} grad_norm {m['grad_norm']:.4f} lr "
-                f"{m['lr']:.3e}; vit {m['vit_ms']:.1f} ms, fwd+bwd "
-                f"{m['fwd_bwd_ms']:.1f} ms, optimizer {m['opt_ms']:.1f} ms, "
-                f"{m['tokens']} tokens, {m['tokens'] / ms * 1e3:.1f} tok/s; "
-                f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
-                f"flash_fwd {counts['flash_fwd']} flash_bwd_dq "
-                f"{counts['flash_bwd_dq']} flash_bwd_dkv "
-                f"{counts['flash_bwd_dkv']}")
-            n = cfg.llm.num_layers
-            want = (2 * n + vit_cfg.layers, n, n)
-            got = (counts["flash_fwd"], counts["flash_bwd_dq"],
-                   counts["flash_bwd_dkv"])
-            if got != want:
-                raise AssertionError(f"train step {m['step']}: launches "
-                                     f"{got}, want {want}")
-        for i in (0, 1):
-            first, second = (metrics[i]["total_loss"],
-                             metrics[i + 2]["total_loss"])
-            if not second < first:
-                raise AssertionError(f"train: batch ({'ab'[i]}) loss did not "
-                                     f"fall: {first} -> {second}")
-        log("train: the loss fell on each repeated batch (step 2 < step 0, "
-            "step 3 < step 1)")
-        if frozen_sum() != before:
-            raise AssertionError("train: a frozen weight changed")
-        log(f"train: frozen weights unchanged ({len(frozen)} agent leaves "
-            f"and the ViT, bit checksum)")
+        log(f"train cli: main() built ViT-bigG/14-448 + the SEED-X agent "
+            f"(LLaMA2-13B bf16, LoRA r32) from the repo's YAMLs and trained "
+            f"{CLI_STEPS} steps in {wall:.1f} s (the build and the data "
+            f"stream included)")
+        cli_steps("train cli", run, metrics, n, vit_layers, totals)
+        if run.frozen_sum() != run.frozen_before:
+            raise AssertionError("train cli: a frozen weight changed")
+        log(f"train cli: frozen weights unchanged ({len(run.frozen_names())}"
+            f" agent leaves and the ViT, bit checksum)")
+        trained_ref = run.trained_sum(state)
+        if trained_ref == run.trainable_before:
+            raise AssertionError("train cli: no trainable leaf changed")
+        log(f"train cli: the {len(run.trainable_names)} trainable leaves "
+            f"changed (bit checksum)")
         path, secs = saves[-1]
         nbytes = os.path.getsize(os.path.join(path, "state.pt"))
         t1 = time.perf_counter()
@@ -3044,29 +3306,33 @@ def run_train(dev):
         load_s = time.perf_counter() - t1
         live = state.state_dict()
         same = back["step"] == live["step"] and all(
-            torch.equal(back["trainable"][n], p)
-            for n, p in live["trainable"].items()) and all(
-            torch.equal(back["opt_state"][k][n], t)
-            for k in ("mu", "nu") for n, t in live["opt_state"][k].items())
-        log(f"train: checkpoint {os.path.basename(path)} {nbytes / 2**30:.2f}"
-            f" GiB written in {secs:.2f} s, read back in {load_s:.2f} s, "
-            f"bit-equal to the live state: {same}")
+            torch.equal(back["trainable"][k], p)
+            for k, p in live["trainable"].items()) and all(
+            torch.equal(back["opt_state"][m][k], t)
+            for m in ("mu", "nu") for k, t in live["opt_state"][m].items())
+        log(f"train cli: checkpoint {os.path.basename(path)} "
+            f"{nbytes / 2**30:.2f} GiB written in {secs:.2f} s, read back in "
+            f"{load_s:.2f} s, bit-equal to the live state: {same}")
         if not same:
-            raise AssertionError("train: the checkpoint differs from the "
-                                 "live state")
+            raise AssertionError("train cli: the checkpoint differs from "
+                                 "the live state")
+        frozen_ref = run.frozen_before
         del back, live
         gc.collect()
         torch.cuda.empty_cache()
 
-        # one more step of (a) under torch.profiler, the ViT encode
-        # included: the device's busy share and where its time goes (a
-        # check run, so not in the kernels line)
+        # on the models main() built: one more step of batch (a) under
+        # torch.profiler (a check run, so not in the kernels line)
+        batch_a, batch_b, batch_b2 = sft_batches(
+            load_tokenizer(), vit.cfg.image_size, 64, 64)
+        train_cfg = TrainConfig(warmup_steps=0, max_steps=CLI_STEPS)
         step_fn = make_train_step(agent, train_cfg)
-        dev_a = _to_device(batch_a, dev)
+        dev_a = train_sft._to_device(batch_a, dev)
+        images_a = dev_a.pop("images")
 
         def one_step():
             with torch.no_grad():
-                dev_a["image_embeds"] = vit(dev_a.pop("images"),
+                dev_a["image_embeds"] = vit(images_a,
                                             dev_a["patch_positions"])
             step_fn(state, dev_a, torch.Generator(device=dev).manual_seed(9))
             return 1
@@ -3074,24 +3340,25 @@ def run_train(dev):
         reset_counts()
         profile_window("train step (a)", one_step, top_n=8)
         add_counts(CHECKS, read_counts())
-        del state, dev_a
+        del state
         gc.collect()
         torch.cuda.empty_cache()
 
         # gradient accumulation: one step over two generation batches, the
         # ViT encoding their 16 tiles in one pass
-        shutil.rmtree(out_dir)
+        acc_dir = os.path.join(root, "accum")
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        state = train_loop(agent, vit, iter([batch_b, batch_b2]),
-                           TrainConfig(warmup_steps=0, max_steps=1,
-                                       gradient_accumulation_steps=2),
-                           RunConfig(output_dir=out_dir, log_steps=1,
-                                     trackers=("jsonl",), seed=1), device=dev)
+        state = train_sft.train_loop(
+            agent, vit, iter([batch_b, batch_b2]),
+            TrainConfig(warmup_steps=0, max_steps=1,
+                        gradient_accumulation_steps=2),
+            train_sft.RunConfig(output_dir=acc_dir, log_steps=1,
+                                trackers=("jsonl",), seed=1), device=dev)
         torch.cuda.synchronize()
         counts = read_counts()
         add_counts(totals, counts)
-        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        with open(os.path.join(acc_dir, "metrics.jsonl")) as f:
             m = json.loads(f.readline())
         log(f"train accum 2: total_loss {m['total_loss']:.5f} rec_loss "
             f"{m['rec_loss']:.5f} grad_norm {m['grad_norm']:.4f}; vit "
@@ -3100,18 +3367,194 @@ def run_train(dev):
             f"max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
             f"{json.dumps(counts)}")
-        want = (4 * cfg.llm.num_layers + vit_cfg.layers,
-                2 * cfg.llm.num_layers, 2 * cfg.llm.num_layers)
+        want = (4 * n + vit_layers, 2 * n, 2 * n)
         got = (counts["flash_fwd"], counts["flash_bwd_dq"],
                counts["flash_bwd_dkv"])
         if state.step != 1 or got != want or not np.isfinite(
                 m["total_loss"]):
             raise AssertionError(f"train accum 2: step {state.step}, "
                                  f"launches {got} (want {want}), {m}")
+        shutil.rmtree(acc_dir, ignore_errors=True)
+        del state, agent, step_fn, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the 2-layer gradient check on batch (a), the CLI's ViT features
+        grad_check(dev, dev_a)
+        del dev_a, images_a, vit
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # save -> resume: a new main() (the factories draw the same random
+        # weights) restores the last checkpoint, skips the batches already
+        # trained on, and trains on to CLI_RESUME_STEPS
+        t1 = time.perf_counter()
+        with CliRun() as run:
+            state = train_sft.main(cli_argv(
+                yamls["comprehension_gen"], out_dir, dev, "--max_steps",
+                str(CLI_RESUME_STEPS), "--resume"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(x) for x in f]
+        resumed = [m for m in metrics if m["step"] >= CLI_STEPS]
+        if state.step != CLI_RESUME_STEPS or [m["step"] for m in resumed] \
+                != list(range(CLI_STEPS, CLI_RESUME_STEPS)):
+            raise AssertionError(f"train cli resume: step {state.step}, "
+                                 f"logged {[m['step'] for m in metrics]}")
+        if run.frozen_before != frozen_ref:
+            raise AssertionError("train cli resume: the factories built "
+                                 "other frozen weights")
+        log(f"train cli resume: main(--resume) restored "
+            f"checkpoint-{CLI_STEPS}, skipped {CLI_STEPS} batches and "
+            f"trained to step {state.step} in {wall:.1f} s (the build "
+            f"included)")
+        cli_steps("train cli resume", run, resumed, n, vit_layers, totals)
+        if run.frozen_sum() != frozen_ref:
+            raise AssertionError("train cli resume: a frozen weight changed")
+        if run.trained_sum(state) == trained_ref:
+            raise AssertionError("train cli resume: no trainable leaf "
+                                 f"changed after checkpoint-{CLI_STEPS}")
+        del state, run
     finally:
         checkpoints.CheckpointManager.save = base_save
-        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
     log(f"train: phase done in {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
+# ---- de-tokenizer (adapter) training at full SDXL width (phase 12) --------
+
+ADAPTER_STEPS = 3
+ADAPTER_BATCH = 2
+
+
+def adapter_batch(adapter, vit, dev):
+    """(latents, image_embeds) of ADAPTER_BATCH seeded 1024^2 images: the
+    fp32 VAE encoder's scaled latents [B, 128, 128, 4] (the mode) and the
+    frozen ViT-bigG's features of the 448^2 images pooled by
+    ``vit_downsample`` [B, 64, 4096]."""
+    import torch
+    from PIL import Image
+
+    from seedx_tpu_torch.data.transforms import get_transform
+    from seedx_tpu_torch.models.sdxl.vae import sample_moments
+    from seedx_tpu_torch.models.vit import vit_downsample
+
+    rng = np.random.default_rng(21)
+    size = adapter.cfg.sampler.height            # 1024
+    images = [Image.fromarray((rng.random((size, size, 3)) * 255).astype(
+        np.uint8)) for _ in range(ADAPTER_BATCH)]
+    sd = get_transform("sd", keep_ratio=False, image_size=size)
+    clip = get_transform("clip", keep_ratio=False, image_size=448)
+    with torch.no_grad():
+        pix = torch.from_numpy(np.stack([sd(i) for i in images])).to(dev)
+        latents = sample_moments(adapter.vae_encoder(pix)) \
+            * adapter.cfg.sampler.vae_scaling_factor
+        tiles = torch.from_numpy(np.stack([clip(i) for i in images])).to(
+            dev, torch.bfloat16)
+        embeds = vit_downsample(vit(tiles))
+    return {"latents": latents.float().contiguous(),
+            "image_embeds": embeds.contiguous()}
+
+
+def run_adapter_train(dev, smi: str):
+    """Phase 12: de-tokenizer training (``make_adapter_train_step``) at the
+    full SDXL base width on 1024^2 latents: ResamplerXL + the base UNet's
+    to_k / to_v and conv_in trainable (fp32 masters, AdamW), the rest of
+    the UNet frozen bf16; ADAPTER_STEPS steps at batch ADAPTER_BATCH on
+    one repeated draw of t and noise, each launching K1, K4 and K5 at all
+    70 self-attentions, the loss finite and lower after the first update,
+    the trainable leaves changed and the frozen ones bit-equal after.
+    Returns the steps' launches."""
+    import torch
+
+    from seedx_tpu_torch.models.layers import init_normal_
+    from seedx_tpu_torch.models.sdxl.pipeline import default_time_ids
+    from seedx_tpu_torch.models.sdxl.unet import flash_launches_per_eval
+    from seedx_tpu_torch.models.vit import VisionTransformer, qwen_vitg_448
+    from seedx_tpu_torch.train.train_adapter import (AdapterTrainConfig,
+                                                     make_adapter_train_step)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    vit = init_normal_(VisionTransformer(qwen_vitg_448(), dev).eval(), gen)
+    adapter = build_adapter(dev, vit, edit=False)
+    batch = adapter_batch(adapter, vit, dev)
+    adapter.vae_decoder = adapter.vae_encoder = adapter.visual_encoder = None
+    del vit
+    gc.collect()
+    torch.cuda.empty_cache()
+    unet, res = adapter.unet, adapter.resampler
+    cfg = AdapterTrainConfig(warmup_steps=0, max_steps=ADAPTER_STEPS)
+    init_state, train_step = make_adapter_train_step(
+        unet, res, cfg, default_time_ids(adapter.cfg.sampler, 1, dev)[0])
+    state = init_state()
+    n_train = sum(p.numel() for p in state.params.values())
+    frozen = [b for m in (unet, res) for b in m.buffers()]
+    before = bit_checksum(frozen)
+    trained_before = bit_checksum(state.params.values())
+    log(f"adapter train: latents {tuple(batch['latents'].shape)} (VAE "
+        f"scaled, std {batch['latents'].std().item():.3f}), image_embeds "
+        f"{tuple(batch['image_embeds'].shape)}; {len(state.params)} "
+        f"trainable leaves, {n_train / 1e6:.1f} M values (fp32 masters + "
+        f"AdamW), {sum(b.numel() for b in frozen) / 1e6:.1f} M frozen; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; set up "
+        f"in {time.perf_counter() - t0:.1f} s")
+    per = flash_launches_per_eval(adapter.cfg.unet)
+    totals = {}
+    losses = []
+    for i in range(ADAPTER_STEPS):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        # every step draws the same t and noise: the loss is then taken on
+        # one repeated (batch, t, noise) and must fall after an update
+        m = train_step(state, batch,
+                       torch.Generator(device=dev).manual_seed(0))
+        losses.append(m["total_loss"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add_counts(totals, counts)
+        peak = torch.cuda.max_memory_allocated()
+        got = (counts["flash_fwd"], counts["flash_bwd_dq"],
+               counts["flash_bwd_dkv"])
+        log(f"adapter train step {i}: total_loss {m['total_loss']:.5f} "
+            f"grad_norm {m['grad_norm']:.4f} lr {m['lr']:.3e}; fwd+bwd "
+            f"{m['fwd_bwd_ms']:.1f} ms, optimizer {m['opt_ms']:.1f} ms, "
+            f"{m['fwd_bwd_ms'] + m['opt_ms']:.1f} ms a step; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+            f"flash_fwd {got[0]} flash_bwd_dq {got[1]} flash_bwd_dkv "
+            f"{got[2]} ({smi})")
+        if got != (per, per, per) or not (np.isfinite(m["total_loss"])
+                                          and np.isfinite(m["grad_norm"])):
+            raise AssertionError(f"adapter train step {i}: launches {got} "
+                                 f"(want {per} each), {m}")
+    if state.step != ADAPTER_STEPS:
+        raise AssertionError(f"adapter train: {state.step} steps")
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"adapter train: one update did not lower the "
+                             f"loss on the repeated draw: {losses}")
+    if bit_checksum(state.params.values()) == trained_before:
+        raise AssertionError("adapter train: no trainable leaf changed")
+    log(f"adapter train: the loss on the repeated draw {losses[0]:.5f} -> "
+        f"{losses[1]:.5f} after one update; the {len(state.params)} "
+        f"trainable leaves changed (bit checksum)")
+    # one more step under torch.profiler: the device's busy share and where
+    # its time goes (a check run, so not in the kernels line)
+    reset_counts()
+    profile_window("adapter train step", lambda: train_step(
+        state, batch, torch.Generator(device=dev).manual_seed(0)) and 1,
+        top_n=8)
+    add_counts(CHECKS, read_counts())
+    if bit_checksum(frozen) != before:
+        raise AssertionError("adapter train: a frozen leaf changed")
+    log(f"adapter train: frozen UNet / resampler leaves unchanged (bit "
+        f"checksum); phase done in {time.perf_counter() - t0:.1f} s")
+    del state, adapter, unet, res, batch
+    gc.collect()
+    torch.cuda.empty_cache()
     return totals
 
 
@@ -4184,9 +4627,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     add_counts(launches, run_train(dev))
+    add_counts(launches, run_adapter_train(dev, smi))
     add_counts(launches, run_load(dev, smi))
-    log(f"main path (turn, serving, chat, generation, image out, train, "
-        f"the loaded stack; "
+    log(f"main path (turn, serving, chat, generation, image out, train "
+        f"through the train_sft entry point, adapter training, the loaded "
+        f"stack; "
         f"decode, the verify round, the beam step, the engines' steps and "
         f"the UNet evals captured): launches "
         f"{json.dumps(launches)}")

@@ -1,7 +1,6 @@
 """Training-sample encoders: text + image-token streams -> fixed-shape
-arrays (a copy of the caption and conversation encoders of
-seedx_tpu/data/encoding.py, so the port imports nothing of the JAX
-package; keep the two identical).
+arrays (a copy of seedx_tpu/data/encoding.py, so the port imports nothing
+of the JAX package; keep the two identical).
 
 Pure-numpy mirrors of the reference's tokenization logic:
   * ``encode_caption_sample``      <- encode_caption_input_ids_v2
@@ -9,12 +8,14 @@ Pure-numpy mirrors of the reference's tokenization logic:
     (comprehension) vs image-last (generation) coin flip; anyres patch spans,
   * ``encode_conversation_sample`` <- decode_llava_data
     (reference: src/data/sft_clm.py:149-345) — [INST] turns, labels only on
-    assistant turns, image tokens spliced into the first user turn.
+    assistant turns, image tokens spliced into the first user turn,
+  * ``encode_edit_sample``         <- decode_single_turn_edit_data
+    (reference: src/data/sft_clm.py:451-651) — source image (comprehension)
+    + target image (generation) + polite response.
 
-Both return the SFT batch keys with fixed ``max_length`` padding:
+All return the SFT batch keys with fixed ``max_length`` padding:
 input_ids, attention_mask, labels, ids_gen_mask, ids_cmp_mask (np arrays)
-and per-image-slot embeds_gen_mask / embeds_cmp_mask.  The edit encoder
-is not ported yet.
+and per-image-slot embeds_gen_mask / embeds_cmp_mask.
 """
 
 from __future__ import annotations
@@ -307,4 +308,77 @@ def encode_conversation_sample(
                         list(ids_cmp), max_length)
     out["embeds_gen_mask"] = np.zeros((patch_length,), bool)
     out["embeds_cmp_mask"] = np.ones((patch_length,), bool)
+    return out
+
+
+def encode_edit_sample(
+    instruction: str,
+    tokenizer,
+    *,
+    max_length: int,
+    source_patch_length: int,
+    target_patch_length: int,
+    response: Optional[str] = None,
+    use_polite_response: bool = True,
+    prompt_drop_ratio: float = 0.0,
+    num_img_in_tokens: int = 64,
+    num_img_out_tokens: int = 64,
+    instruction_prompt: str = INSTRUCTION_PROMPT,
+    rng: Optional[np.random.Generator] = None,
+    vocab: MultimodalVocab = DEFAULT_VOCAB,
+) -> Dict[str, np.ndarray]:
+    """Single-turn edit sample (reference: sft_clm.py:451-651):
+    [INST] source-image-tokens + instruction [/INST] response + target span.
+
+    Image slots: ``source_patch_length`` comprehension tiles, then
+    ``target_patch_length`` tiles of which only the LAST (the global
+    thumbnail) is a generation target."""
+    rng = rng or np.random.default_rng()
+
+    if rng.uniform() < prompt_drop_ratio or instruction is None:
+        instruction = ""
+    if response is None:
+        response = (GEN_PROMPT_RESPONSES[int(rng.integers(
+            len(GEN_PROMPT_RESPONSES)))] if use_polite_response else "")
+
+    src_ids = _anyres_image_ids(vocab, source_patch_length, num_img_in_tokens)
+    gen_ids = _img_span(vocab, num_img_out_tokens, patch=False)
+
+    # image-first/image-last coin flip inside the instruction template
+    # (reference: sft_clm.py:560-566)
+    image_in_start = rng.uniform() < 0.5
+    prefix, _, suffix = instruction_prompt.partition("{instruction}")
+    if image_in_start:
+        user_ids = (tokenizer.encode(prefix) + src_ids
+                    + tokenizer.encode(instruction + suffix))
+    else:
+        user_ids = (tokenizer.encode(prefix + instruction) + src_ids
+                    + tokenizer.encode(suffix))
+
+    resp_ids = tokenizer.encode(response) if response else []
+    gen_labels = [gen_ids[0]] + [IGNORE] * (len(gen_ids) - 1)
+
+    input_ids = ([tokenizer.bos_token_id] + user_ids + resp_ids + gen_ids
+                 + [tokenizer.eos_token_id])
+    labels = ([IGNORE] + [IGNORE] * len(user_ids) + resp_ids + gen_labels
+              + [tokenizer.eos_token_id])
+
+    ids = np.asarray(input_ids)
+    ids_cmp = np.zeros(len(ids), bool)
+    ids_gen = np.zeros(len(ids), bool)
+    opens = np.where((ids == vocab.boi) | (ids == vocab.bop))[0]
+    closes = np.where((ids == vocab.eoi) | (ids == vocab.eop))[0]
+    # every span except the LAST <img> span is comprehension; the last is the
+    # generation target
+    for o, c in zip(opens[:-1], closes[:-1]):
+        ids_cmp[o + 1:c] = True
+    ids_gen[opens[-1] + 1:closes[-1]] = True
+
+    out = _pad_and_pack(tokenizer, input_ids, labels, list(ids_gen),
+                        list(ids_cmp), max_length)
+    out["embeds_cmp_mask"] = np.asarray(
+        [True] * source_patch_length + [False] * target_patch_length, bool)
+    out["embeds_gen_mask"] = np.asarray(
+        [False] * source_patch_length
+        + [False] * (target_patch_length - 1) + [True], bool)
     return out

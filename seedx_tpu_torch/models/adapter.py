@@ -10,13 +10,18 @@ It bundles the ``ResamplerXL`` detokenizer, the SDXL UNet and the VAE:
     variant adds the VAE-encoded condition image and 3-way CFG
     (:132-169, 249-287);
   * ``diffusion_loss`` is the training forward, MSE on the predicted noise
-    (:39-52); its backward and the trainer are not ported.
+    (:39-52), differentiable in the leaves ``layers.set_trainable_`` made
+    parameters; ``train/train_adapter.py`` trains the de-tokenizer;
+  * the trainable sets: the resampler + the UNet's to_k / to_v, or full
+    FT, plus ``conv_in`` (:21-33, 183-209), as ``ADAPTER_TRAINABLE_PATTERNS``
+    over the state names of ``{"unet": unet, "resampler": resampler}``.
 
 ``evals`` keeps the denoise loop's CFG UNet evals
 (``models/sdxl/pipeline.CFGEval``, one per CFG batch, latent shape,
 dtype, guidance and UNet), captured while ``graphs`` is on (a runtime
 puts its own switch here), so ``text_to_image``, ``edit_image``,
-``reconstruct`` and ``reconstruct_with_condition`` share them.
+``reconstruct`` and ``reconstruct_with_condition`` share them.  They are
+inference only: training never runs under them.
 
 Multi-device placement (the JAX package's ``shard``) is not ported.
 """
@@ -25,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +51,16 @@ from seedx_tpu_torch.models.sdxl.vae import (VAEConfig, VAEDecoder,
 from seedx_tpu_torch.models.vit import vit_downsample
 from seedx_tpu_torch.utils.graphs import Graphs
 from seedx_tpu_torch.utils.quantize import quantize_unet_params
+
+# reference: adapter_modules.py:21-33 (to_k / to_v) + :204 (conv_in, edit);
+# the JAX package's patterns (``unet/.*attn\d/to_k/.*``, ...) written on the
+# port's state names
+ADAPTER_TRAINABLE_PATTERNS: Tuple[str, ...] = (
+    r"resampler\..*",
+    r"unet\..*attn\d\.to_k\..*",
+    r"unet\..*attn\d\.to_v\..*",
+    r"unet\.conv_in\..*",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,8 +182,10 @@ class SDXLAdapter:
                        timesteps: torch.Tensor, image_embeds: torch.Tensor,
                        noise: torch.Tensor, time_ids: torch.Tensor
                        ) -> Dict[str, torch.Tensor]:
-        """MSE on the eps prediction (reference: adapter_modules.py:39-52);
-        the forward only."""
+        """MSE on the eps prediction (reference: adapter_modules.py:39-52),
+        differentiable in the trainable leaves; the training step's loss,
+        with the noise, timesteps and Euler input scaling, is
+        ``train/train_adapter.adapter_loss``."""
         prompt, pooled = self.resampler(image_embeds)
         eps = self.unet(noisy_latents, timesteps, prompt, pooled, time_ids)
         loss = torch.mean((eps.float() - noise.float()) ** 2)

@@ -131,7 +131,8 @@ class ResamplerXL(nn.Module):
         """x [B, T, embedding_dim] -> (prompt_embeds [B, nq, out1 + out2],
         pooled [B, out2])."""
         cfg = self.cfg
-        lat = self.latents.expand(x.shape[0], -1, -1)
+        # a trainable (fp32 master) latents leaf is cast at its use
+        lat = self.latents.to(cfg.dtype).expand(x.shape[0], -1, -1)
         if cfg.normalize:
             # the reference's F.normalize(x) with torch's default dim=1: the
             # l2 norm runs over the token axis, not the feature axis

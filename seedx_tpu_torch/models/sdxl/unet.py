@@ -14,7 +14,12 @@ torch's ``[out, in, kh, kw]`` order in channels-last memory
 (``utils/convert.py`` transposes the JAX ``[kh, kw, in, out]`` kernels).
 Dense and conv weights are stored in the compute dtype (the JAX package
 keeps fp32 parameters and casts them at every use: the same values); norm
-scales and biases stay fp32, as the JAX norms read them.  With
+scales and biases stay fp32, as the JAX norms read them.  For training,
+``layers.set_trainable_`` turns the leaves a trainer names into fp32
+``nn.Parameter`` masters (the JAX ``param_dtype=float32``), which
+``Dense`` and ``Conv`` cast to the compute dtype at each use; frozen
+leaves stay buffers and are read as they are, so the inference path's
+bits do not change.  With
 ``quantize="int8"`` every block Dense / conv holds an int8 weight and an
 fp32 per-output-channel scale applied to the output (``Dense8`` /
 ``Conv8``).  Self-attention goes through ``dot_product_attention(...,
@@ -100,6 +105,12 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     return emb
 
 
+def master(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A trainable leaf (an fp32 ``nn.Parameter``) cast to ``dtype`` at its
+    use; a frozen buffer as it is."""
+    return t.to(dtype) if isinstance(t, nn.Parameter) else t
+
+
 class GroupNorm(nn.Module):
     """GroupNorm over NHWC with fp32 statistics, input-dtype output."""
 
@@ -158,8 +169,8 @@ class Dense(nn.Module):
             y = (x @ self.kernel_q.to(self.dtype)) \
                 * self.kernel_scale.to(self.dtype)
         else:
-            y = x @ self.kernel
-        return y + self.bias if self.use_bias else y
+            y = x @ master(self.kernel, self.dtype)
+        return y + master(self.bias, self.dtype) if self.use_bias else y
 
 
 Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
@@ -207,7 +218,8 @@ class Conv(nn.Module):
             y = y * self.kernel_scale.to(self.dtype)[:, None, None] \
                 + self.bias[:, None, None]
         else:
-            y = F.conv2d(x, self.weight, self.bias, self.stride, pad)
+            y = F.conv2d(x, master(self.weight, self.dtype),
+                         master(self.bias, self.dtype), self.stride, pad)
         return y.permute(0, 2, 3, 1)
 
 

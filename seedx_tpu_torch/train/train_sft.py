@@ -1,5 +1,5 @@
-"""SFT training loop (reference: seedx_tpu/train/train_sft.py
-``train_loop``; src/train/train_seed_x_sft.py:124-343).
+"""SFT training loop and CLI (reference: seedx_tpu/train/train_sft.py;
+src/train/train_seed_x_sft.py:124-343).
 
 Batches (numpy, the keys of ``data/pipeline.collate_anyres``) -> the
 frozen ViT encodes the image tiles under ``torch.no_grad()`` (not
@@ -12,22 +12,38 @@ batches it would have seen; each step's dropout generator is seeded from
 (``seed``, step), so a resumed run equals an uninterrupted one.  With
 gradient accumulation, ``accum`` consecutive batches are stacked and the
 ViT encodes their tiles in one pass.  Runs on the card unless the caller
-passes ``device="cpu"``.  The ``main`` CLI with its YAML config graph and
-the file datapipes is not ported yet.
+passes ``device="cpu"``.
+
+``main`` is the JAX package's CLI, flag for flag (reference:
+train_seed_x_sft.py:32-75): the transform, tokenizer, visual encoder,
+agent and dataset come from the repo's YAML object graphs (``configs/``,
+``seedx_tpu.`` read as ``seedx_tpu_torch.``), the datasets stream the
+files on disk (``data/datasets.py``), and the run goes to ``train_loop``.
+``--device`` (default ``cuda``) is the port's own; ``--parallel`` (a
+mesh layout) raises: multi-device training is not ported.
+
+    python -m seedx_tpu_torch.train.train_sft \
+        --image_transform configs/processer/qwen_448_transform.yaml \
+        --tokenizer configs/tokenizer/clm_llama_tokenizer_224loc_anyres.yaml \
+        --visual_encoder configs/visual_encoder/qwen_vitg_448.yaml \
+        --agent_model configs/clm_models/agent_seed_x.yaml \
+        --train_dataset configs/data/sft_comprehension_gen.yaml
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import logging
 import os
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from seedx_tpu_torch import config as config_lib
 from seedx_tpu_torch.data.pipeline import ResumableIterator
 from seedx_tpu_torch.train.checkpoints import CheckpointManager
 from seedx_tpu_torch.train.trainer import (TrainConfig, TrainState,
@@ -40,6 +56,10 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class RunConfig:
+    """The JAX RunConfig's fields, less ``data_seed_per_epoch``, which no
+    loop of either package reads: the data stream is seeded by its YAML
+    and resumes exactly (``ResumableIterator``)."""
+
     output_dir: str = "runs/sft"
     save_steps: int = 1000
     log_steps: int = 10
@@ -147,3 +167,70 @@ def _to_device(batch: Dict[str, np.ndarray],
             t = t.long()
         out[k] = t.to(device)
     return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> TrainState:
+    """CLI mirroring the reference's HfArgumentParser entry
+    (train_seed_x_sft.py:32-75): YAML object-graph configs + flags.
+    Returns the final train state."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--image_transform", required=True)
+    p.add_argument("--tokenizer", required=True)
+    p.add_argument("--visual_encoder", required=True)
+    p.add_argument("--agent_model", required=True)
+    p.add_argument("--train_dataset", required=True)
+    p.add_argument("--output_dir", default="runs/sft")
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--weight_decay", type=float, default=0.05)
+    p.add_argument("--max_steps", type=int, default=20000)
+    p.add_argument("--warmup_steps", type=int, default=500)
+    p.add_argument("--min_lr_ratio", type=float, default=0.05)
+    p.add_argument("--save_steps", type=int, default=1000)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--expr_name", default="",
+                   help="experiment name for trackers (reference: "
+                        "--expr_name)")
+    p.add_argument("--trackers", default="jsonl,tensorboard",
+                   help="comma list of metric writers: jsonl, tensorboard, "
+                        "wandb (reference logs to tensorboard+wandb via "
+                        "accelerate, train_seed_x_sft.py:147-156)")
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--parallel", default=None,
+                   help="mesh layout YAML (configs/parallel/*.yaml); "
+                        "multi-device training is not ported: raises")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the run trains on (cpu for a debug "
+                        "run)")
+    args = p.parse_args(argv)
+    if args.parallel:
+        raise NotImplementedError(
+            f"--parallel {args.parallel}: multi-device training (the JAX "
+            f"package's mesh layouts) is not ported; train on one device")
+
+    transform = config_lib.instantiate_from_file(args.image_transform)
+    tokenizer = config_lib.instantiate_from_file(args.tokenizer)
+    vit = config_lib.instantiate_from_file(args.visual_encoder,
+                                           device=args.device)
+    agent = config_lib.instantiate_from_file(args.agent_model,
+                                             device=args.device)
+    data_cfg = config_lib.load_config(args.train_dataset)
+    data_iter = config_lib.instantiate(
+        data_cfg, tokenizer=tokenizer, image_transform=transform)
+
+    train_cfg = TrainConfig(
+        learning_rate=args.learning_rate, weight_decay=args.weight_decay,
+        max_steps=args.max_steps, warmup_steps=args.warmup_steps,
+        min_lr_ratio=args.min_lr_ratio,
+        gradient_accumulation_steps=args.gradient_accumulation_steps)
+    run_cfg = RunConfig(output_dir=args.output_dir,
+                        save_steps=args.save_steps, resume=args.resume,
+                        trackers=tuple(
+                            t for t in args.trackers.split(",") if t),
+                        expr_name=args.expr_name)
+    return train_loop(agent, vit, data_iter, train_cfg, run_cfg,
+                      device=args.device)
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()

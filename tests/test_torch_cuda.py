@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at the shapes of the image-in comprehension turn, of batched decode,
-of the SFT train step (the flash backward) and of the SDXL UNet (K1 in its
-self-attention, and the UNet with K1 against the plain attention).
+of the SFT train step and adapter training (the flash backward) and of the
+SDXL UNet (K1 in its self-attention, and the UNet with K1 against the
+plain attention; the adapter's diffusion loss and grads with K1 / K4 / K5
+against the CPU's plain path).
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  This file
 imports no JAX, so it runs on a machine that has none; the suite's
@@ -485,12 +487,15 @@ def test_decode_kernel_bit_equal_over_runs(cuda_device, splits):
 
 
 # (B, Sq, Skv, H, D, causal, starts, ends, q_offset): the SFT batches'
-# shapes (comprehension 2 x 880, generation 8 x 260, right-padded), a D 64
-# non-causal window, prefill into a cache, a left-pad window
+# shapes (comprehension 2 x 880, generation 8 x 260, right-padded), adapter
+# training's UNet self-attention at 1024^2 (levels 1 and 2, batch 2), a
+# D 64 non-causal window, prefill into a cache, a left-pad window
 FLASH_BWD_CASES = [
     (2, 880, 880, 40, 128, True, [0, 0], [880, 611], 0),
     (8, 260, 260, 40, 128, True, [0] * 8,
      [260, 200, 150, 260, 90, 233, 260, 17], 0),
+    (2, 4096, 4096, 10, 64, False, [0, 0], [4096, 4096], 0),
+    (2, 1024, 1024, 20, 64, False, [0, 0], [1024, 1024], 0),
     (2, 200, 200, 4, 64, False, [7, 0], [190, 200], 0),
     (2, 128, 256, 2, 64, True, [0, 10], [256, 200], 0),
     (2, 256, 256, 2, 128, True, [30, 0], [256, 200], 0)]
@@ -1186,3 +1191,68 @@ def test_checkpoint_read_to_the_card_equals_the_cpu_read(cuda_device,
         for k, v in cpu.items():
             assert card[k].is_cuda and card[k].dtype == v.dtype
             assert torch.equal(card[k].cpu(), v) and torch.equal(v, sd[k])
+
+
+@pytest.mark.cuda
+def test_adapter_loss_on_card_matches_cpu(cuda_device):
+    """``adapter_loss`` of the bf16 debug UNet and ResamplerXL on the card
+    (K1 forward, K4 / K5 backward at every self-attention) against the same
+    weights, t and noise on the CPU (the plain attention): the loss within
+    1e-2 relative and every trainable leaf's grads within 5e-2 of that
+    leaf's own largest (the SFT trainer's bf16 tolerance), floored at 1e-3
+    of the model's largest gradient, bf16 rounding's level, for a leaf
+    whose gradient is near zero; one K1, K4 and K5 launch a
+    self-attention."""
+    import dataclasses
+
+    from seedx_tpu_torch.models import detokenizer as tdet
+    from seedx_tpu_torch.models.sdxl.pipeline import (SamplerConfig,
+                                                      default_time_ids)
+    from seedx_tpu_torch.train import train_adapter as ttrain
+
+    ucfg = tunet.sdxl_debug_unet()
+    out2 = (ucfg.projection_class_embeddings_input_dim
+            - 6 * ucfg.addition_time_embed_dim)
+    rcfg = tdet.DetokenizerConfig(dim=64, depth=1, dim_head=16, heads=4,
+                                  num_queries=8, embedding_dim=32,
+                                  output2_dim=out2, output1_dim=0, ff_mult=2)
+    rcfg = dataclasses.replace(rcfg,
+                               output1_dim=ucfg.cross_attention_dim - out2)
+    g = torch.Generator().manual_seed(5)
+    batch = {"latents": torch.randn((2, 16, 16, 4), generator=g),
+             "image_embeds": torch.randn((2, 4, 32), generator=g)}
+    t = torch.tensor([17, 803])
+    noise = torch.randn((2, 16, 16, 4), generator=g)
+    tids = default_time_ids(SamplerConfig(height=128, width=128), 1)[0]
+    grads, losses = {}, {}
+    for dev in (torch.device("cpu"), cuda_device):
+        gen = torch.Generator().manual_seed(0)
+        unet = init_normal_(tunet.UNet2DCondition(ucfg).eval(), gen).to(dev)
+        res = init_normal_(tdet.ResamplerXL(rcfg).eval(), gen).to(dev)
+        init_state, _ = ttrain.make_adapter_train_step(
+            unet, res, ttrain.AdapterTrainConfig(), tids)
+        state = init_state()
+        n = (tflash.flash_fwd.launches, tflash.flash_bwd_dq.launches,
+             tflash.flash_bwd_dkv.launches)
+        loss = ttrain.adapter_loss(
+            unet, res, {k: v.to(dev) for k, v in batch.items()}, t.to(dev),
+            noise.to(dev), ttrain.make_sigma_tables(), tids)
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            per = tunet.flash_launches_per_eval(ucfg)
+            assert (tflash.flash_fwd.launches - n[0],
+                    tflash.flash_bwd_dq.launches - n[1],
+                    tflash.flash_bwd_dkv.launches - n[2]) == (per,) * 3
+        losses[dev.type] = float(loss.detach())
+        grads[dev.type] = {k: p.grad.float().cpu()
+                           for k, p in state.params.items()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-2 * abs(losses["cpu"])
+    top = max(g.abs().max().item() for g in grads["cpu"].values()
+              if g.numel())
+    for k, want in grads["cpu"].items():
+        if want.numel():
+            torch.testing.assert_close(
+                grads["cuda"][k], want, rtol=0,
+                atol=max(5e-2 * want.abs().max().item(), 1e-3 * top),
+                msg=lambda m, k=k: f"{k}: {m}")
