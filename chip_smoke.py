@@ -180,7 +180,9 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -4528,6 +4530,419 @@ def run_load(dev, smi: str):
     return launches
 
 
+# ---- phase: sharded --------------------------------------------------------
+
+def resident_bytes(*modules) -> int:
+    """Bytes of the weights the modules hold on this rank."""
+    return sum(t.numel() * t.element_size() for m in modules
+               for t in itertools.chain(m.buffers(), m.parameters()))
+
+
+def start_one_rank_group() -> None:
+    """A one-rank NCCL group under torchrun's environment, on a free
+    localhost port (``parallel.distributed.maybe_initialize``)."""
+    import socket
+
+    from seedx_tpu_torch.parallel.distributed import maybe_initialize
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    if not maybe_initialize("cuda"):
+        raise AssertionError("maybe_initialize started no group")
+
+
+def sharded_pass(rt, label: str):
+    """The turn's comprehend request and the dense engine (8 slots, the 16
+    serving requests, captured) on ``rt``: (turn tokens, image embeds,
+    engine streams, decode ms a step, launches)."""
+    import torch
+
+    from seedx_tpu_torch.inference import continuous
+    from seedx_tpu_torch.inference.apps import comprehend
+
+    images, _, _, requests, budgets = serving_inputs(rt)
+    timed = [0.0, 0]
+    base_chunk = continuous.run_chunk
+
+    def timed_chunk(program, state, k, *a):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n = base_chunk(program, state, k, *a)
+        timed[0] += time.perf_counter() - t1
+        timed[1] += n
+        return n
+
+    reset_counts()
+    turn = comprehend(rt, images[1], "Describe the image.", max_new_tokens=32)
+    continuous.run_chunk = timed_chunk
+    try:
+        eng = continuous.ContinuousEngine(rt, **ENGINE)
+        ids = [eng.submit(r, max_new_tokens=b)
+               for r, b in zip(requests, budgets)]
+        res = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        continuous.run_chunk = base_chunk
+    streams = [list(res[i]["tokens"]) for i in ids]
+    for s_, b in zip(streams, budgets):
+        check_tokens(s_, rt.agent_cfg.llm.vocab_size, b)
+    counts = path_counts(label)
+    embeds = [r["image_embeds"] for r in requests if "image_embeds" in r]
+    del eng
+    return (list(turn["tokens"]), embeds, streams,
+            timed[0] / max(timed[1], 1) * 1e3, counts)
+
+
+def check_ia3_k2(dev, g) -> None:
+    """IA3 through K2 at full width: one int4 layer's down_proj (input
+    scaled before the row quantization) and k / v_proj (output scaled)
+    with random scales, K2 against its plain version, at K2's limit."""
+    import torch
+
+    from seedx_tpu_torch.models import layers
+    from seedx_tpu_torch.ops import int4_matmul as i4
+    from seedx_tpu_torch.utils.quantize import quantize_kernel_int4
+
+    def plain_auto(x, packed, scale, *a):
+        return i4.int4_matmul_plain(x.reshape(-1, x.shape[-1]), packed,
+                                    scale, *a).reshape(*x.shape[:-1], -1)
+
+    for name, n_in, n_out, ia3 in (("down_proj", 13824, 5120, "in"),
+                                   ("k_proj", 5120, 5120, "out"),
+                                   ("v_proj", 5120, 5120, "out")):
+        d = layers.LoRADense(n_in, n_out, quantize="int4", ia3=ia3, layers=1,
+                             device=dev)
+        with torch.no_grad():
+            w = torch.randn((n_in, n_out), generator=g, device=dev)
+            d.kernel_q4[0], d.kernel_scale[0] = quantize_kernel_int4(
+                w * n_in ** -0.5)
+            d.ia3_scale[0] = (1.0 + 0.5 * torch.randn(
+                d.ia3_scale.shape[1:], generator=g, device=dev)).to(
+                    d.ia3_scale.dtype)
+        for rows in (8, 64):
+            x = torch.randn((rows, n_in), generator=g, device=dev).to(
+                torch.bfloat16)
+            reset_counts()
+            with torch.no_grad():
+                out = d(x, 0)
+            torch.cuda.synchronize()
+            n_k2 = counters()["int4_w4a8"].launches
+            add_counts(CHECKS, read_counts())
+            base = layers.int4_matmul_auto
+            layers.int4_matmul_auto = plain_auto
+            try:
+                with torch.no_grad():
+                    ref = d(x, 0)
+            finally:
+                layers.int4_matmul_auto = base
+            err = (out.float() - ref.float()).abs().max().item()
+            mag = ref.float().abs().max().item()
+            tol = 2 * 2 ** -7 * mag
+            log(f"sharded: IA3 {ia3} {name} {n_in}->{n_out} rows {rows}: K2 "
+                f"launches {n_k2}, max_abs_err {err:.3e} tol {tol:.3e}")
+            if n_k2 <= 0 or not err <= tol:
+                raise AssertionError(f"IA3 through K2 ({name}, rows {rows}): "
+                                     f"launches {n_k2}, err {err} > {tol}")
+
+
+def check_seq_cls(dev, g) -> None:
+    """LlamaForSequenceClassification at full width (2 layers, bf16), a
+    right-padded batch of 4: each layer's attention through K1 held to
+    its plain version on the same inputs at K1's limit (2e-2 of the output
+    scale, at most 2e-2), and the logits finite."""
+    import torch
+
+    from seedx_tpu_torch.models import llama as llama_mod
+    from seedx_tpu_torch.models.layers import init_normal_
+    from seedx_tpu_torch.models.llama import (LlamaForSequenceClassification,
+                                              llama2_13b)
+
+    cfg = llama2_13b(num_layers=2)
+    model = init_normal_(LlamaForSequenceClassification(cfg, 3, dev).eval(),
+                         g)
+    s, lengths = 160, (160, 127, 64, 33)
+    ids = torch.randint(0, cfg.vocab_size, (4, s), generator=g, device=dev)
+    mask = torch.arange(s, device=dev)[None] < torch.tensor(
+        lengths, device=dev)[:, None]
+    real = llama_mod.dot_product_attention
+    errs = []
+
+    def held(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        ref = real(q, k, v, **dict(kw, impl="plain"))
+        live = mask[:, :, None, None]       # pad queries attend nothing real
+        err = ((out.float() - ref.float()) * live).abs().max().item()
+        errs.append((err, 2e-2 * min(1.0, (ref.float() * live).abs().max()
+                                     .item())))
+        return out
+
+    reset_counts()
+    llama_mod.dot_product_attention = held
+    try:
+        with torch.no_grad():
+            out = model(ids, mask)
+    finally:
+        llama_mod.dot_product_attention = real
+    torch.cuda.synchronize()
+    n_k1 = counters()["flash_fwd"].launches
+    add_counts(CHECKS, read_counts())
+    log(f"sharded: sequence classification 2 x 5120 wide, B4 right-padded "
+        f"{lengths} at S {s}: logits {tuple(out.shape)}, K1 launches {n_k1}; "
+        f"each layer's K1 against its plain version: " + ", ".join(
+            f"max_abs_err {e:.3e} (tol {t:.3e})" for e, t in errs))
+    if out.shape != (4, 3) or not torch.isfinite(out.float()).all() \
+            or n_k1 != cfg.num_layers or len(errs) != cfg.num_layers \
+            or not all(e <= t for e, t in errs):
+        raise AssertionError(f"sequence classification: launches {n_k1}, "
+                             f"errors {errs}")
+
+
+# two ranks on the one card: gloo carries the collectives on CUDA tensors
+# (NCCL refuses two ranks on one device)
+TWO_RANK_LAYOUTS = ((1, 1, 2), (1, 2, 1))
+TWO_RANK_TOKENS = 24
+
+
+def uncached_logits(rt, ids):
+    """fp32 logits [S, V] of one uncached forward over ``ids``."""
+    import torch
+
+    dev = rt.device
+    x = torch.tensor([ids], device=dev)
+    pos = torch.arange(len(ids), device=dev)[None]
+    with torch.no_grad():
+        return rt.agent.llm(rt.agent.embed_ids(x), pos)[0][0].float()
+
+
+def cached_logits(rt, ids, p: int):
+    """fp32 logits [S - p + 1, V] at positions p - 1 .. S - 1: the
+    prompt's prefill, then one cached decode step a token, teacher-forced."""
+    import torch
+
+    from seedx_tpu_torch.models.llama import init_kv_cache
+
+    llm, dev, s = rt.agent.llm, rt.device, len(ids)
+    x = rt.agent.embed_ids(torch.tensor([ids], device=dev))
+    cache = init_kv_cache(llm.cfg, 1, s, device=dev, kv_heads=llm.kv_heads)
+    valid = torch.zeros((1, s), dtype=torch.bool, device=dev)
+    valid[:, :p] = True
+    pos = torch.arange(s, device=dev)[None]
+    out = []
+    with torch.no_grad():
+        lg, _, _ = llm(x[:, :p], pos[:, :p], valid, cache, 0)
+        out.append(lg[0, -1].float())
+        for t in range(p, s):
+            valid[:, t] = True
+            lg, _, _ = llm(x[:, t:t + 1], pos[:, t:t + 1], valid, cache, t)
+            out.append(lg[0, -1].float())
+    return torch.stack(out)
+
+
+def two_rank_worker(rank: int, root: str, layout) -> None:
+    """One of two ranks on the card (``--two-rank``): the 2-layer full-width
+    runtime (seed 0, so both ranks hold the same weights), its unsharded
+    greedy stream, logits and noise floor, then the same on the mesh
+    ``layout``; rank 0 writes the results to ``root``."""
+    import torch
+    import torch.distributed as dist
+
+    from seedx_tpu_torch.inference.apps import _prepare_image_prompt
+    from seedx_tpu_torch.models import vit as vit_mod
+    from seedx_tpu_torch.ops import int4_matmul as i4
+    from seedx_tpu_torch.parallel import create_mesh
+    from PIL import Image
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(root, "store"), 2), rank=rank, world_size=2)
+    rt = build_runtime(dev, PARITY_LAYERS)
+    tok = rt.tokenizer
+    prompt = [tok.bos_token_id] + tok.encode(
+        "[INST] Write a short poem about the sea. [/INST]\n")
+    p = len(prompt)
+    res = {"layout": list(layout)}
+    reset_counts()
+    rt.graphs.enabled = False          # the mesh runs eagerly under gloo
+    want = [int(t) for t in rt.generate(
+        prompt, max_new_tokens=TWO_RANK_TOKENS)["tokens"]]
+    ids = prompt + want[:-1]
+    ref = uncached_logits(rt, ids)[p - 1:]
+    floor = (ref - cached_logits(rt, ids, p)).abs().max().item()
+    img = Image.fromarray((np.random.default_rng(5).random((448, 896, 3))
+                           * 255).astype(np.uint8))
+    _, _, emb_ref, _, _ = _prepare_image_prompt(rt, img, "Describe.")
+    real_attn = vit_mod.dot_product_attention
+    vit_mod.dot_product_attention = (
+        lambda q, k, v, **kw: real_attn(q, k, v, **dict(kw, impl="plain")))
+    try:
+        _, _, emb_plain, _, _ = _prepare_image_prompt(rt, img, "Describe.")
+    finally:
+        vit_mod.dot_product_attention = real_attn
+    vit_floor = (emb_ref.float() - emb_plain.float()).abs().max().item()
+
+    res["weight_bytes_full"] = resident_bytes(rt.vit, rt.agent)
+    mesh = create_mesh(*layout, device_type="cuda")
+    rt.shard(mesh)
+    got = [int(t) for t in rt.generate(
+        prompt, max_new_tokens=TWO_RANK_TOKENS)["tokens"]]
+    sharded = uncached_logits(rt, ids)[p - 1:]
+    _, _, emb_sh, _, _ = _prepare_image_prompt(rt, img, "Describe.")
+    res.update(want=want, got=got, floor=floor,
+               err=(sharded - ref).abs().max().item(),
+               scale=ref.abs().max().item(), vit_floor=vit_floor,
+               vit_err=(emb_sh.float() - emb_ref.float()).abs().max().item(),
+               roles={n: rt.agent.llm.layers.get_submodule(n).tp for n in
+                      ("q_proj", "o_proj", "gate_proj", "down_proj")},
+               weight_bytes=resident_bytes(rt.vit, rt.agent))
+    if layout[2] == 2:
+        # the row-parallel K2: this rank's half of down_proj's rows,
+        # quantized against the whole row's absmax, summed over the ranks,
+        # against plain K2 on the unsharded layer
+        g = torch.Generator(device=dev)
+        g.manual_seed(9)
+        n_in, n_out = 13824, 5120
+        w = torch.randn((n_in, n_out), generator=g, device=dev) * n_in ** -.5
+        from seedx_tpu_torch.utils.quantize import quantize_kernel_int4
+
+        packed, scale = quantize_kernel_int4(w)
+        x = torch.randn((8, n_in), generator=g, device=dev).to(torch.bfloat16)
+        half, gh = n_in // 2, n_in // 2 // 128
+        amax = i4.row_absmax(x[:, rank * half:(rank + 1) * half])
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+        part = i4.int4_matmul(
+            x[:, rank * half:(rank + 1) * half].contiguous(),
+            packed[rank * half // 2:(rank + 1) * half // 2].contiguous(),
+            scale[rank * gh:(rank + 1) * gh].contiguous(), amax).float()
+        dist.all_reduce(part)
+        full = i4.int4_matmul_plain(x, packed, scale).float()
+        res.update(k2_err=(part - full).abs().max().item(),
+                   k2_tol=2 * 2 ** -7 * full.abs().max().item())
+    torch.cuda.synchronize()
+    res["counts"] = read_counts()
+    if rank == 0:
+        # teacher-forced along the unsharded stream: the tie rule's logits
+        res["gap"] = tie_check(f"two ranks {layout}", got, want, sharded,
+                               enforce=False)
+        with open(os.path.join(root, "result.json"), "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def run_two_ranks(smi: str) -> None:
+    """(b) Two ranks on the one card over gloo, tensor 2 then fsdp 2, at
+    full width cut to PARITY_LAYERS layers, eager: the mesh's
+    teacher-forced logits within LOGIT_FACTOR times the noise floor (the
+    unsharded prefill + cached decode against its uncached forward), its
+    greedy stream by the tie rule, the ViT's features within LOGIT_FACTOR
+    times K1's own (kernel against plain attention), and (tensor 2) the
+    row-parallel K2 with the whole-row scale against plain K2.  Each run
+    is two processes of this script, killed past their time limit."""
+    import tempfile
+
+    for layout in TWO_RANK_LAYOUTS:
+        t0 = time.perf_counter()
+        root = tempfile.mkdtemp(prefix="two_rank_")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--two-rank", str(r), root,
+                                   ",".join(map(str, layout))])
+                 for r in range(2)]
+        try:
+            for proc in procs:
+                proc.wait(timeout=300)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if any(proc.returncode for proc in procs):
+            raise AssertionError(f"two ranks {layout}: exit codes "
+                                 f"{[proc.returncode for proc in procs]}")
+        with open(os.path.join(root, "result.json")) as f:
+            res = json.load(f)
+        add_counts(CHECKS, res["counts"])
+        log(f"sharded: two ranks on the card, mesh {layout} (gloo, eager, "
+            f"{PARITY_LAYERS} layers), {smi}: roles {res['roles']}; weights "
+            f"a rank {res['weight_bytes']} bytes (unsharded "
+            f"{res['weight_bytes_full']}); teacher-forced logits "
+            f"max_abs_err {res['err']:.4g} vs the unsharded (noise floor "
+            f"{res['floor']:.4g}, limit {LOGIT_FACTOR} x; logit scale "
+            f"{res['scale']:.4g}); ViT features max_abs_err "
+            f"{res['vit_err']:.4g} (K1-vs-plain {res['vit_floor']:.4g}); "
+            f"greedy {TWO_RANK_TOKENS} tokens "
+            + ("equal" if res["gap"] is None
+               else f"part, gap {res['gap']} bf16 steps")
+            + (f"; row-parallel K2 (whole-row scale) against plain K2 "
+               f"max_abs_err {res['k2_err']:.4g} tol {res['k2_tol']:.4g}"
+               if "k2_err" in res else "")
+            + f"; {time.perf_counter() - t0:.1f} s")
+        bad = [not res["err"] <= LOGIT_FACTOR * max(res["floor"], 1e-30),
+               not res["vit_err"] <= LOGIT_FACTOR * res["vit_floor"],
+               res["gap"] is not None and not res["gap"] <= TIE_ULPS,
+               "k2_err" in res and not res["k2_err"] <= res["k2_tol"]]
+        if any(bad):
+            raise AssertionError(f"two ranks {layout}: checks failed "
+                                 f"(logits, vit, tie, k2) {bad}: {res}")
+
+
+def run_sharded(rt, dev, smi: str):
+    """The sharded phase: (a) the full-width runtime placed on a one-rank
+    NCCL mesh (``SeedXRuntime.shard``) serves the turn's request and the
+    8-slot dense engine with captured programs, tokens bit-equal to the
+    unsharded runtime (one-rank collectives are the identity); (c) IA3
+    through K2; (d) sequence classification through K1."""
+    import torch
+    import torch.distributed as dist
+
+    from seedx_tpu_torch.parallel import create_mesh
+    from seedx_tpu_torch.parallel.distributed import COLLECTIVES
+
+    t0 = time.perf_counter()
+    before = resident_bytes(rt.vit, rt.agent)
+    ref = sharded_pass(rt, "sharded: unsharded reference")
+    add_counts(CHECKS, ref[4])
+    start_one_rank_group()
+    mesh = create_mesh(1, 1, 1)
+    rt.shard(mesh)
+    after = resident_bytes(rt.vit, rt.agent)
+    got = sharded_pass(rt, "sharded (1 x 1 x 1 NCCL mesh)")
+    names = ("turn tokens", "image embeds", "engine streams")
+    same = [ref[0] == got[0],
+            all(torch.equal(a, b) for a, b in zip(ref[1], got[1])),
+            ref[2] == got[2]]
+    log(f"sharded: {smi}: mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+        f"({dist.get_backend()}); resident weights a rank {after} bytes "
+        f"(unsharded {before}); dense engine B8 decode "
+        f"{got[3]:.2f} ms/step sharded vs {ref[3]:.2f} unsharded; "
+        f"bit-equal: {dict(zip(names, same))}")
+    if not all(same) or after != before:
+        raise AssertionError(f"sharded run differs from the unsharded one: "
+                             f"{dict(zip(names, same))}, bytes {after} vs "
+                             f"{before}")
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+    x = rt.agent.embed_ids(torch.zeros((1, 1), dtype=torch.long,
+                                       device=dev))
+    with torch.no_grad():
+        rt.agent.llm(x, torch.zeros((1, 1), dtype=torch.long, device=dev))
+    log(f"sharded: collectives a one-token forward (host calls): "
+        f"{json.dumps(COLLECTIVES)}")
+    dist.destroy_process_group()
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        os.environ.pop(var, None)
+    run_two_ranks(smi)
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    check_ia3_k2(dev, g)
+    check_seq_cls(dev, g)
+    log(f"sharded phase: {time.perf_counter() - t0:.1f} s")
+    return got[4]
+
+
 def ptxas_entries(report: str):
     """(mangled kernel name, registers line, spill line) of each entry
     function in a ``ptxas -v`` report."""
@@ -4621,6 +5036,7 @@ def main() -> int:
     log(f"generation phase: {time.perf_counter() - t_gen:.1f} s")
     run_parity(dev, requests, budgets)
     add_counts(launches, run_image_out(rt, dev, smi))
+    add_counts(launches, run_sharded(rt, dev, smi))
     # the HTTP handler classes hold the servers, and so the runtime, in
     # reference cycles: collect them before the train model is built
     del rt
@@ -4680,4 +5096,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--two-rank"]:
+        two_rank_worker(int(sys.argv[2]), sys.argv[3],
+                        tuple(int(v) for v in sys.argv[4].split(",")))
+        sys.exit(0)
     sys.exit(main())

@@ -221,8 +221,8 @@ __device__ __forceinline__ int x8_word(int g, int kg, int gp) {
 // header).  A row of up to kQThreads * kQVec * 4 values is read once.
 __global__ void __launch_bounds__(kQThreads)
 quantize_rows(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x8,
-              float* __restrict__ xa, int n_in, int group, int gp,
-              int n_groups) {
+              float* __restrict__ xa, const float* __restrict__ row_amax,
+              int n_in, int group, int gp, int n_groups) {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   __shared__ float warp_max[kQThreads / 32];
   const int r = blockIdx.x, tid = threadIdx.x, n4 = n_in / 4;
@@ -249,6 +249,8 @@ quantize_rows(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x8,
   amax = warp_max[0];
 #pragma unroll
   for (int w = 1; w < kQThreads / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+  // a row-parallel shard takes the whole row's absmax from the caller
+  if (row_amax != nullptr) amax = row_amax[r];
   const float a = fmaxf(amax, 1e-8f) / 127.0f;
   if (tid == 0) xa[r] = a;
 #pragma unroll
@@ -562,13 +564,17 @@ __global__ void b_fragments_debug(const uint8_t* __restrict__ tile,
 // x8 [rows][n_groups * gp] int8 (gp = group rounded up to 32), then xa f32
 // [rows] at the next 16-byte boundary, then (splits > 1) the fp32 partials
 // [splits][rows][n_out] at the next 16-byte boundary; tickets: row tiles *
-// column tiles zeroed ints (read only when splits > 1).  mt: m-tiles of 16
+// column tiles zeroed ints (read only when splits > 1).  row_amax: null, or
+// f32 [rows], each row's absmax to quantize against in place of the
+// absmax of the `n_in` values given (a rank holding a row-parallel shard
+// of the in dimension passes the whole row's).  mt: m-tiles of 16
 // rows a warp (1, 2 or 4); splits: the live split count of
 // ops/int4_matmul.py `plan` (groups ceil(n_groups / splits) a split).
 extern "C" int int4_w4a8_bf16(const void* x, const void* packed,
                               const void* scale, void* out, void* work,
                               void* tickets, int rows, int n_in, int n_out,
-                              int group, int mt, int splits, void* stream) {
+                              int group, int mt, int splits,
+                              const void* row_amax, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0 || n_out == 0) return 0;
   if (n_in % 4 || n_out % 16 || group % 4 || group <= 0 || n_in % group ||
@@ -601,7 +607,8 @@ extern "C" int int4_w4a8_bf16(const void* x, const void* packed,
   p.tickets = static_cast<int*>(tickets);
   quantize_rows<<<rows, kQThreads, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), const_cast<int8_t*>(p.x8),
-      const_cast<float*>(p.xa), n_in, group, p.gp, p.n_groups);
+      const_cast<float*>(p.xa), static_cast<const float*>(row_amax), n_in,
+      group, p.gp, p.n_groups);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   if (mt == 1) return launch<1>(p, s);

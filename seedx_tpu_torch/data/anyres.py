@@ -12,6 +12,7 @@ Output is NHWC float32.
 
 from __future__ import annotations
 
+import ast
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
@@ -59,6 +60,25 @@ def pick_resolution(original_size, possible_resolutions) -> Tuple[int, int]:
     return (w2, h2) if w1 * h1 > w2 * h2 else (w1, h1)
 
 
+def resize_and_pad_image(image: Image.Image, target: Tuple[int, int],
+                         keep_ratio: bool = False) -> Image.Image:
+    """Resize to ``target`` (w, h); with ``keep_ratio`` fit inside it and
+    center on black (reference anyres.py:64; any_res.py:71-108)."""
+    ow, oh = image.size
+    tw, th = target
+    if not keep_ratio:
+        return image.resize((tw, th))
+    scale_w, scale_h = tw / ow, th / oh
+    if scale_w < scale_h:
+        nw, nh = tw, min(int(np.ceil(oh * scale_w)), th)
+    else:
+        nh, nw = th, min(int(np.ceil(ow * scale_h)), tw)
+    resized = image.resize((nw, nh))
+    out = Image.new("RGB", (tw, th), (0, 0, 0))
+    out.paste(resized, ((tw - nw) // 2, (th - nh) // 2))
+    return out
+
+
 def divide_to_patches(image: Image.Image,
                       patch_size: int) -> List[Image.Image]:
     """Row-major tiles (reference: any_res.py:111-130)."""
@@ -82,6 +102,17 @@ def grid_pinpoints_from_strings(resolution_grids: Sequence[str],
     return out
 
 
+def anyres_grid_shape(image_size, grid_pinpoints, patch_size
+                      ) -> Tuple[int, int]:
+    """(columns, rows) of tiles an image of ``image_size`` (w, h) is cut
+    into (reference anyres.py:103; any_res.py:133-155); ``grid_pinpoints``
+    a list or its string form."""
+    if not isinstance(grid_pinpoints, (list, tuple)):
+        grid_pinpoints = ast.literal_eval(grid_pinpoints)
+    w, h = pick_resolution(image_size, grid_pinpoints)
+    return w // patch_size, h // patch_size
+
+
 def process_anyres_image(image: Image.Image,
                          image_transform: Callable[[Image.Image], np.ndarray],
                          grid_pinpoints, base_image_size: int
@@ -90,7 +121,8 @@ def process_anyres_image(image: Image.Image,
     any_res.py:159-210): images [n_tiles + 1, H, W, 3] float32 (thumbnail
     last), patch_pos [n_tiles + 1, 2] float32 (thumbnail at (0.5, 0.5))."""
     best = pick_resolution(image.size, grid_pinpoints)
-    patches = divide_to_patches(image.resize(best), base_image_size)
+    patches = divide_to_patches(resize_and_pad_image(image, best),
+                                base_image_size)
     thumbnail = image.resize((base_image_size, base_image_size))
     tensors = [image_transform(p) for p in patches + [thumbnail]]
 

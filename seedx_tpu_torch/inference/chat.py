@@ -165,7 +165,8 @@ class ChatSession:
                        seg_bucket(len(input_ids)))
             cap = (max(self.cache_capacity, need) + 127) // 128 * 128
             self._cache = init_kv_cache(rt.agent_cfg.llm, 1, cap,
-                                        device=rt.device)
+                                        device=rt.device,
+                                        kv_heads=rt.agent.llm.kv_heads)
             self._cached_ids = []
             self._cached_cmp = []
         self.last_reused = lcp

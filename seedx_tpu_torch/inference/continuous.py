@@ -70,7 +70,8 @@ def _prefill(model, embeds, p_lens, bucket: int):
     every admitted request of a bucket."""
     b = embeds.shape[0]
     dev = embeds.device
-    cache = init_kv_cache(model.cfg.llm, b, bucket, device=dev)
+    cache = init_kv_cache(model.cfg.llm, b, bucket, device=dev,
+                          kv_heads=model.llm.kv_heads)
     positions = torch.arange(bucket, device=dev).repeat(b, 1)
     kv_valid = torch.arange(bucket, device=dev)[None, :] < p_lens[:, None]
     logits, hidden, _ = model.llm_step(embeds, positions, kv_valid, cache, 0)
@@ -399,8 +400,8 @@ class ContinuousEngine:
         if do_sample:
             self._generator = torch.Generator(device=dev)
             self._generator.manual_seed(seed)
-            self._noise = SampleNoise(slots, cfg.vocab_size, chunk_steps,
-                                      dev)
+            self._noise = SampleNoise(slots, cfg.padded_vocab_size,
+                                      chunk_steps, dev)
         t = max_new_tokens
         s_max = max(self.gen_cfg.prompt_buckets) + t
         self._s_max = s_max
@@ -430,15 +431,17 @@ class ContinuousEngine:
             # tile 0 is the reserved dump target for unused copy slots
             self._free_tiles = list(range(1, n_tiles))
             self._slot_tiles: List[Optional[list]] = [None] * slots
-            cache = init_paged_kv_pool(cfg, n_tiles * page_size, device=dev)
+            cache = init_paged_kv_pool(cfg, n_tiles * page_size, device=dev,
+                                       kv_heads=rt.agent.llm.kv_heads)
         else:
-            cache = init_kv_cache(cfg, slots, s_max, device=dev)
+            cache = init_kv_cache(cfg, slots, s_max, device=dev,
+                                  kv_heads=rt.agent.llm.kv_heads)
         i64 = dict(dtype=torch.int64, device=dev)
         self.state = {
             "cache": cache,
             "pos": torch.zeros((slots,), **i64),
             "n": torch.zeros((slots,), **i64),
-            "prev_logits": torch.zeros((slots, cfg.vocab_size),
+            "prev_logits": torch.zeros((slots, cfg.padded_vocab_size),
                                        dtype=torch.float32, device=dev),
             "prev_hidden": torch.zeros((slots, cfg.hidden_size),
                                        dtype=cfg.dtype, device=dev),

@@ -13,7 +13,9 @@
   ... chat
 
 each with ``--debug [--device cpu]``.  Generated images are saved as PNGs
-under ``--out_dir`` (default ``vis``) and their paths printed.
+under ``--out_dir`` (default ``vis``) and their paths printed; with
+``--score_against PATH`` the first is scored against that image
+(``fidelity: {...}``, ``utils/image_metrics.score_images``).
 
 JSONL in (one request per line: ``{"kind": "comprehend", "image": PATH,
 "question": Q}``, ``{"kind": "t2i", "caption": C}``, ``{"kind": "edit",
@@ -153,6 +155,12 @@ def main(argv=None):
                         "branch)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--out_dir", default="vis")
+    p.add_argument("--score_against", metavar="PATH",
+                   help="text2img/edit/detokenize: score the first "
+                        "generated image against this reference image "
+                        "(SSIM/PSNR/MSE always; LPIPS when perceptual "
+                        "weights are present), printed as a "
+                        "'fidelity: {...}' line")
     p.add_argument("--ckpt_root", metavar="DIR",
                    help="release checkpoint root (the reference README's "
                         "./pretrained layout) — builds the REAL-weight "
@@ -298,6 +306,14 @@ def _app(rt, args) -> int:
         print("(no image span generated)")
     else:
         print("saved:", _save_images(images, args.out_dir, stem))
+        if args.score_against:
+            import numpy as np
+
+            from seedx_tpu_torch.utils.image_metrics import score_images
+
+            ref = Image.open(args.score_against).convert("RGB")
+            print("fidelity:",
+                  json.dumps(score_images(ref, np.asarray(images)[0])))
     return 0
 
 

@@ -14,6 +14,11 @@ runtime's one switch, put on its agent and on any adapter it is given,
 and ``graphs.enabled = False`` turns the runtime to the eager path.  The
 CPU is always eager.
 
+``shard(mesh)`` places the ViT and the agent on a device mesh (each rank
+its shard of every weight, ``parallel/mesh.place_params``) and the
+adapter replicated; the engines, chat and generation then run on every
+rank, each over its own heads.
+
 ``SeedXRuntime.from_pretrained(root, model)`` builds the runtime from the
 release checkpoint tree (``from_checkpoints`` from any set of the
 artifacts) through the factories of ``models/factory.py``; with
@@ -44,7 +49,7 @@ from seedx_tpu_torch.models.sdxl.pipeline import SamplerConfig
 from seedx_tpu_torch.models.sdxl.unet import sdxl_debug_unet
 from seedx_tpu_torch.models.sdxl.vae import VAEConfig, vae_debug
 from seedx_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
-                                        vit_tiny_debug)
+                                        vit_downsample, vit_tiny_debug)
 from seedx_tpu_torch.text.tokenizer import load_tokenizer
 from seedx_tpu_torch.utils.graphs import Graphs
 from seedx_tpu_torch.utils.quantize import random_quantized_llama_
@@ -69,6 +74,7 @@ class SeedXRuntime:
     adapter: Optional[SDXLAdapter] = None    # image out (SDXL)
 
     def __post_init__(self):
+        self.mesh = None
         self.graphs = Graphs()
         self.agent.graphs = self.graphs
         if self.adapter is not None:
@@ -295,6 +301,39 @@ class SeedXRuntime:
         self.vit_cfg, self.vit = cfg, vit
         return self
 
+    # ---- placement ---------------------------------------------------------
+
+    def shard(self, mesh: Optional[Any] = None,
+              rules: Optional[Any] = None) -> "SeedXRuntime":
+        """Place the runtime on a device mesh (reference runtime.py:306-346):
+        the ViT's and the agent's weights split per the logical rules
+        (embed over ``fsdp``; heads, MLP columns and the vocab over
+        ``tensor``), each rank keeping only its shard; the adapter, if
+        any, replicated (``SDXLAdapter.shard``).  Every rank then runs the
+        same host code on its shards: the flash and decode attention
+        kernels over its own heads, the W4A8 matmul on its columns or rows.
+        ``mesh`` defaults to ``local_mesh()``.  Each group runs one
+        collective here (NCCL sets its communicators up then, never under
+        a capture); under gloo the captured programs are off.  Captured
+        decode programs of the unsharded weights are dropped.  Call it on
+        every rank, with the same weights (the same seed or checkpoint)."""
+        from seedx_tpu_torch.parallel.mesh import (DEFAULT_RULES, local_mesh,
+                                                   place_params)
+
+        mesh = mesh if mesh is not None else local_mesh(self.device.type)
+        rules = tuple(rules) if rules is not None else DEFAULT_RULES
+        self.agent.__dict__.pop("decode_programs", None)
+        place_params(self.vit, mesh, rules)
+        place_params(self.agent, mesh, rules)
+        groups = self.agent.llm.layers.q_proj._par
+        groups.warm_up(self.device)
+        if groups.backend == "gloo":
+            self.graphs.enabled = False
+        if self.adapter is not None:
+            self.adapter.shard(mesh, rules)
+        self.mesh = mesh
+        return self
+
     # ---- vision ------------------------------------------------------------
 
     def image_transform(self):
@@ -332,6 +371,11 @@ class SeedXRuntime:
         """One crop at the base resolution -> [1, T, D]."""
         arr = self.image_transform()(image)
         return self.vit(torch.from_numpy(arr)[None].to(self.device))
+
+    def pool_vit(self, embeds: torch.Tensor) -> torch.Tensor:
+        """The 4x-pooled ViT targets when ``vit_down`` (reference
+        runtime.py:391)."""
+        return vit_downsample(embeds) if self.vit_down else embeds
 
     # ---- language ----------------------------------------------------------
 

@@ -23,7 +23,13 @@ puts its own switch here), so ``text_to_image``, ``edit_image``,
 ``reconstruct`` and ``reconstruct_with_condition`` share them.  They are
 inference only: training never runs under them.
 
-Multi-device placement (the JAX package's ``shard``) is not ported.
+``shard(mesh)`` places the adapter on a mesh replicated (the JAX
+package's weight placement, reference adapter.py:107-151): every rank
+holds the whole UNet, VAE and resampler, broadcast from the mesh's first
+rank, and runs the whole denoise, giving the same images.  Splitting the
+denoise activations (CFG branches over ``data``, latent rows over
+``tensor`` with conv halos: the JAX package's ``_spatial_constraint``,
+unet.py:45, vae.py:31) is not ported yet.
 """
 
 from __future__ import annotations
@@ -87,6 +93,7 @@ class SDXLAdapter:
         self.visual_encoder = visual_encoder
         self.graphs = Graphs()
         self.evals: Dict[tuple, CFGEval] = {}
+        self.mesh, self.rules = None, None
 
     @classmethod
     def random(cls, cfg: AdapterConfig, vae_cfg: Optional[VAEConfig] = None,
@@ -138,6 +145,37 @@ class SDXLAdapter:
         # the evals of the bf16 UNet hold it: let both go
         self.evals.clear()
         self.unet = unet
+        return self
+
+    # ---- placement ---------------------------------------------------------
+
+    def shard(self, mesh, rules=None) -> "SDXLAdapter":
+        """Replicate the UNet, VAE and resampler over ``mesh``: each weight
+        broadcast in place from the mesh's first rank (so every rank holds
+        the same bytes and captured evals keep their addresses).  A visual
+        encoder already placed on a mesh (the runtime's ViT, shared) keeps
+        its placement; any other is replicated too.  Sets ``mesh`` and
+        ``rules``."""
+        import torch.distributed as dist
+
+        from seedx_tpu_torch.parallel.mesh import DEFAULT_RULES
+
+        group = dist.new_group(mesh.mesh.flatten().tolist())
+        src = int(mesh.mesh.flatten()[0])
+        modules = [self.unet, self.resampler, self.vae_decoder,
+                   self.vae_encoder]
+        vit = self.visual_encoder
+        if vit is not None and not any("_par" in vars(m)
+                                       for m in vit.modules()):
+            modules.append(vit)
+        with torch.no_grad():
+            for m in modules:
+                if m is None:
+                    continue
+                for t in itertools.chain(m.buffers(), m.parameters()):
+                    dist.broadcast(t.data, src=src, group=group)
+        self.mesh = mesh
+        self.rules = tuple(rules) if rules is not None else DEFAULT_RULES
         return self
 
     # ---- conditioning ------------------------------------------------------

@@ -21,6 +21,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from seedx_tpu_torch.models.layers import leaf
 from seedx_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                           causal_lm_loss)
 from seedx_tpu_torch.models.resampler import Resampler
@@ -104,7 +105,8 @@ class ContinuousLVLM(nn.Module):
         if self.cfg.add_patch_pos and patch_positions is not None:
             coords = torch.cat([patch_positions, 1.0 - patch_positions],
                                dim=-1) / 2.0
-            rel = coords.to(x.dtype) @ self.patch_pos_embed.to(x.dtype)
+            rel = coords.to(x.dtype) @ leaf(self, "patch_pos_embed").to(
+                x.dtype)
             x = x + rel[:, None, :]
         return x
 

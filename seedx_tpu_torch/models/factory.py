@@ -215,7 +215,8 @@ def build_agent(
 
     def load_llm(llm_sd, label):
         _merge_loaded(model, convert_llama_hf(
-            llm_sd, num_layers=llm.num_layers, vocab_size=llm.vocab_size),
+            llm_sd, num_layers=llm.num_layers, vocab_size=llm.vocab_size,
+            pad_to=llm.padded_vocab_size),
             label, prefix="llm.", quantize=quantize)
 
     if pretrained_llm_path:

@@ -336,7 +336,8 @@ def generate_tokens(model: ContinuousLVLM, prompt_embeds: torch.Tensor,
                                           vocab, dev, **kind)
     else:
         st = DecodeState(model, init_kv_cache(model.cfg.llm, b, p + t_cache,
-                                              device=dev),
+                                              device=dev,
+                                              kv_heads=model.llm.kv_heads),
                          b, gen_cfg, vocab, None, **kind)
 
     clock = PhaseClock(dev, timings)
@@ -404,7 +405,7 @@ class DecodeState:
                                         dtype=torch.bool, device=dev)
         self.finished = torch.zeros((b,), dtype=torch.bool, device=dev)
         self.prev_token = torch.zeros((b,), **i64)
-        self.prev_logits = torch.zeros((b, cfg.vocab_size),
+        self.prev_logits = torch.zeros((b, cfg.padded_vocab_size),
                                        dtype=torch.float32, device=dev)
         self.prev_hidden = torch.zeros((b, cfg.hidden_size), dtype=cfg.dtype,
                                        device=dev)
@@ -416,8 +417,8 @@ class DecodeState:
         self.sp = torch.zeros((len(GATE_FIELDS),), **i64)
         self.hist = torch.full((hist_len,), -1, **i64) if spec_k else None
         self.script = torch.zeros((t,), **i64) if scripted else None
-        self.noise = (SampleNoise(b, cfg.vocab_size, CHECK_EVERY, dev)
-                      if gen_cfg.do_sample else None)
+        self.noise = (SampleNoise(b, cfg.padded_vocab_size, CHECK_EVERY,
+                                  dev) if gen_cfg.do_sample else None)
         self.program = Program(
             lambda: decode_step(model, self, gen_cfg, vocab), dev, graphs)
         self.spec_program = Program(
@@ -667,7 +668,8 @@ class DecodePrograms:
                 dev) -> None:
         """Size the KV storage for ``b`` rows of ``length`` positions."""
         need = [(math.prod(x.shape), x.dtype) for x in
-                init_kv_cache(model.cfg.llm, b, length, device="meta")]
+                init_kv_cache(model.cfg.llm, b, length, device="meta",
+                              kv_heads=model.llm.kv_heads)]
         if len(self._storage) == len(need) and all(
                 s.numel() >= n and s.dtype == dt
                 for s, (n, dt) in zip(self._storage, need)):
@@ -682,7 +684,8 @@ class DecodePrograms:
         return tuple(
             s[:math.prod(x.shape)].view(x.shape) for s, x in zip(
                 self._storage, init_kv_cache(model.cfg.llm, b, length,
-                                             device="meta")))
+                                             device="meta",
+                                             kv_heads=model.llm.kv_heads)))
 
     def state(self, model: ContinuousLVLM, b: int, length: int,
               gen_cfg: GenerationConfig, vocab: MultimodalVocab, dev,
@@ -905,7 +908,7 @@ class BeamState:
         self.cache = cache
         self.step_idx = torch.zeros((), **i64)
         self.prompt_mask = torch.zeros((bk, p), dtype=torch.bool, device=dev)
-        self.prev_logits = torch.zeros((bk, cfg.vocab_size),
+        self.prev_logits = torch.zeros((bk, cfg.padded_vocab_size),
                                        dtype=torch.float32, device=dev)
         self.prev_hidden = torch.zeros((bk, cfg.hidden_size),
                                        dtype=cfg.dtype, device=dev)
@@ -1025,10 +1028,12 @@ def generate_tokens_beam(model: ContinuousLVLM, prompt_embeds: torch.Tensor,
                                                dev)
     else:
         st = BeamState(model, init_kv_cache(model.cfg.llm, b * k, p + t,
-                                            device=dev),
+                                            device=dev,
+                                            kv_heads=model.llm.kv_heads),
                        b, p, gen_cfg, vocab, None)
     clock = PhaseClock(dev, timings)
-    cache = init_kv_cache(model.cfg.llm, b, p + t, device=dev)
+    cache = init_kv_cache(model.cfg.llm, b, p + t, device=dev,
+                          kv_heads=model.llm.kv_heads)
     positions = positions_from_mask(prompt_mask)
     kv_valid = torch.cat([prompt_mask,
                           torch.zeros((b, t), dtype=torch.bool, device=dev)],

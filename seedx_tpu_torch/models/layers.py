@@ -15,6 +15,16 @@ are cast to the compute dtype at each use (``Stacked.w``), as the JAX
 package does with ``param_dtype=float32``; frozen leaves stay bf16
 buffers.  LoRA dropout (training) draws its masks from an explicit
 ``torch.Generator`` passed to ``LoRADense.forward``.
+
+On a mesh (``parallel/mesh.place_params``) a module holds its rank's
+shard of each leaf; ``leaf`` reads a leaf with the splits the module does
+not compute on gathered (``_gathers``), and a projection's ``tp`` role
+says how it computes on the rest: ``"col"`` (its output columns: local
+heads or MLP columns), ``"row"`` (its input rows: partial sums
+all-reduced over the tensor group before the IA3 output scale and the
+bias; under int4 every row is quantized against the whole row's absmax,
+an all-reduce MAX, so the shards sum to the unsharded W4A8 product), or
+None (everything gathered, the whole product).
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from seedx_tpu_torch.ops.attention import dot_product_attention
-from seedx_tpu_torch.ops.int4_matmul import int4_matmul_auto
+from seedx_tpu_torch.ops.int4_matmul import int4_matmul_auto, row_absmax
 from seedx_tpu_torch.ops.norms import rms_norm
 
 
@@ -35,15 +45,42 @@ def _lead(layers: Optional[int]) -> tuple:
     return () if layers is None else (layers,)
 
 
+def leaf(mod: nn.Module, name: str, layer: Optional[int] = None
+         ) -> torch.Tensor:
+    """Weight ``name`` of ``mod`` (its layer view with ``layer``); on a
+    mesh, the splits ``mod`` does not compute on gathered from every rank
+    (a buffer per leaf, reused by every layer)."""
+    t = getattr(mod, name)
+    t = t if layer is None else t[layer]
+    gathers = mod.__dict__.get("_gathers")
+    if gathers:
+        for dim, axis in gathers.get(name, ()):
+            t = mod._par.all_gather(t, dim, axis, key=(id(mod), name, dim))
+    return t
+
+
+def tensor_size(mod: nn.Module) -> int:
+    """The tensor axis's size of the mesh ``mod`` is placed on (1 off one)."""
+    par = mod.__dict__.get("_par")
+    return 1 if par is None else par.size["tensor"]
+
+
+def reduce_partial(mod: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """Sum a row-parallel product's partial sums over the tensor group (in
+    fp32, one rounding back)."""
+    return mod._par.all_reduce(y.float()).to(y.dtype)
+
+
 class Stacked(nn.Module):
     """Base: ``self.w(name, layer)`` is weight ``name`` or its layer view;
     a trainable (fp32 ``nn.Parameter``) leaf comes back cast to the
     compute dtype."""
 
+    tp: Optional[str] = None       # "col" | "row" on a mesh (see above)
+
     def w(self, name: str, layer: Optional[int]) -> torch.Tensor:
-        t = getattr(self, name)
-        cast = isinstance(t, nn.Parameter)
-        t = t if layer is None else t[layer]
+        cast = isinstance(getattr(self, name), nn.Parameter)
+        t = leaf(self, name, layer)
         return t.to(self.dtype) if cast else t
 
 
@@ -81,6 +118,8 @@ class PDense(Stacked):
     def forward(self, x: torch.Tensor,
                 layer: Optional[int] = None) -> torch.Tensor:
         y = x.to(self.dtype) @ self.dense_kernel(layer)
+        if self.tp == "row":
+            y = reduce_partial(self, y)
         if self.use_bias:
             y = y + self.w("bias", layer)
         return y
@@ -95,12 +134,17 @@ class LoRADense(PDense):
     kernel.  ``lora_rank > 0`` adds ``scale * (dropout(x) @ lora_a) @
     lora_b``, scale = alpha / rank; dropout (rate ``lora_dropout``, on the
     LoRA input only, reference layers.py:180-193) runs only when the
-    caller passes a generator."""
+    caller passes a generator.  ``ia3`` (reference layers.py:101-121,
+    194-199): a learned ``ia3_scale`` vector, ones at init, that scales the
+    input (``"in"``: before any quantized product, so int4 quantizes the
+    scaled rows) or the output (``"out"``: after the LoRA delta, before
+    the bias)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = False,
                  lora_rank: int = 0, lora_alpha: float = 32.0,
                  lora_dropout: float = 0.0,
                  quantize: str = "none", quantize_group: int = 128,
+                 ia3: Optional[str] = None,
                  dtype=torch.bfloat16, layers: Optional[int] = None,
                  device=None):
         base_q = "int8" if quantize in ("int8", "int8_full") else "none"
@@ -109,15 +153,23 @@ class LoRADense(PDense):
                          device=device)
         self.quantize = quantize if quantize != "int8_full" else "int8"
         lead = _lead(layers)
+        if ia3 not in (None, "in", "out"):
+            raise ValueError(f"LoRADense ia3 must be None|in|out: {ia3}")
+        self.ia3 = ia3
+        if ia3 is not None:
+            self.register_buffer("ia3_scale", torch.ones(
+                lead + (in_features if ia3 == "in" else features,),
+                dtype=dtype, device=device))
+        self.group = (quantize_group if in_features % quantize_group == 0
+                      else in_features)
         if quantize == "int4":
             del self.kernel
-            group = (quantize_group if in_features % quantize_group == 0
-                     else in_features)
             self.register_buffer("kernel_q4", torch.zeros(
                 lead + (in_features // 2, features), dtype=torch.uint8,
                 device=device))
             self.register_buffer("kernel_scale", torch.ones(
-                lead + (in_features // group, features), dtype=torch.float32,
+                lead + (in_features // self.group, features),
+                dtype=torch.float32,
                 device=device))
         self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
         self.lora_dropout = lora_dropout
@@ -129,9 +181,18 @@ class LoRADense(PDense):
 
     def forward(self, x: torch.Tensor, layer: Optional[int] = None,
                 dropout: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.ia3 == "in":
+            x = x * self.w("ia3_scale", layer).to(x.dtype)
         if self.quantize == "int4":
+            scale, amax = self.w("kernel_scale", layer), None
+            if self.tp == "row":
+                # this rank's rows [r * n, (r + 1) * n) of the whole in dim
+                n, r = x.shape[-1], self._par.rank["tensor"]
+                scale = scale[r * n // self.group:(r + 1) * n // self.group]
+                amax = self._par.all_reduce(row_absmax(x.to(self.dtype)),
+                                            op="max")
             y = int4_matmul_auto(x.to(self.dtype), self.w("kernel_q4", layer),
-                                 self.w("kernel_scale", layer))
+                                 scale, *(() if amax is None else (amax,)))
         else:
             y = x.to(self.dtype) @ self.dense_kernel(layer)
         if self.lora_rank > 0:
@@ -144,9 +205,19 @@ class LoRADense(PDense):
             delta = ((xd.to(self.dtype) @ self.w("lora_a", layer))
                      @ self.w("lora_b", layer))
             y = y + (self.lora_alpha / self.lora_rank) * delta
+        if self.tp == "row":
+            y = reduce_partial(self, y)
+        if self.ia3 == "out":
+            y = y * self.w("ia3_scale", layer).to(y.dtype)
         if self.use_bias:
             y = y + self.w("bias", layer)
         return y
+
+    def row_split_ok(self, tensor: int) -> bool:
+        """Whether ``tensor`` ranks can each take whole int4 groups of the
+        in dimension (always, unquantized or int8)."""
+        n = self.kernel_q4.shape[-2] * 2 if self.quantize == "int4" else 0
+        return not n or (n // tensor) % self.group == 0
 
 
 class PLayerNorm(Stacked):
@@ -197,6 +268,9 @@ class MLP(nn.Module):
         self.c_proj = PDense(hidden, dim, quantize=quantize, dtype=dtype,
                              layers=layers, device=device)
 
+    def tp_plan(self, tensor: int) -> dict:
+        return {"c_fc": "col", "c_proj": "row"}
+
     def forward(self, x: torch.Tensor,
                 layer: Optional[int] = None) -> torch.Tensor:
         return self.c_proj(F.gelu(self.c_fc(x, layer)), layer)
@@ -213,18 +287,27 @@ class TorchMHA(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, PDense(dim, dim, dtype=dtype, device=device))
 
+    def tp_plan(self, tensor: int) -> dict:
+        """Heads over ``tensor`` where they divide (else all on each rank)."""
+        ok = self.num_heads % tensor == 0
+        return {"q_proj": "col" if ok else None, "k_proj": "col" if ok
+                else None, "v_proj": "col" if ok else None,
+                "out_proj": "row" if ok else None}
+
     def forward(self, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
         dim = q.shape[-1]
         hd = dim // self.num_heads
+        nh = self.num_heads // (tensor_size(self) if self.q_proj.tp == "col"
+                                else 1)
 
         def heads(t):
-            return t.reshape(*t.shape[:-1], self.num_heads, hd)
+            return t.reshape(*t.shape[:-1], nh, hd)
 
         out = dot_product_attention(heads(self.q_proj(q)),
                                     heads(self.k_proj(k)),
                                     heads(self.v_proj(v)), impl="plain")
-        return self.out_proj(out.reshape(*q.shape[:-1], dim))
+        return self.out_proj(out.reshape(*q.shape[:-1], nh * hd))
 
 
 @torch.no_grad()

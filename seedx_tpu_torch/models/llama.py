@@ -39,6 +39,19 @@ Training (``LlamaForCausalLM.forward_train``, ``causal_lm_loss``) runs the
 cache-less forward with per-layer recomputation (``remat``, the JAX
 package's ``nn.remat``) on a bf16 / fp32 base; its causal attention goes
 through the flash kernels' autograd function on the card.
+
+On a mesh (``parallel/mesh.place_params``, ``SeedXRuntime.shard``) each
+rank holds its shard of every leaf: q / k / v / gate / up are
+column-parallel and o / down row-parallel over ``tensor`` (one all-reduce
+each), the embedding is vocab-parallel (a masked local lookup, then an
+all-reduce), the LM head's logits are all-gathered over the vocab (every
+rank samples from the same logits), and leaves split over ``fsdp`` are
+gathered a layer at a time right before use.  Each rank attends over its
+own heads, and its KV cache holds only those (``kv_heads``).  Where the
+heads do not divide over ``tensor`` (or an int4 o_proj's row shard would
+cut a quantization group) attention runs whole on every rank; where an
+int4 down_proj's row shard would cut a group (13824 / 8), down_proj
+gathers its input and its weight and runs whole.
 """
 
 from __future__ import annotations
@@ -52,7 +65,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from seedx_tpu_torch.models.layers import LoRADense, RMSNorm
+from seedx_tpu_torch.models.layers import (LoRADense, PDense, RMSNorm, leaf,
+                                           tensor_size)
 from seedx_tpu_torch.ops.attention import dot_product_attention
 from seedx_tpu_torch.ops.decode_attention import ragged_decode_attention
 from seedx_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -75,6 +89,9 @@ class LlamaConfig:
     lora_rank: int = 0
     lora_alpha: float = 32.0
     lora_dropout: float = 0.05      # training only (a generator is given)
+    # IA3 (the PEFT fork's tuner; reference llama.py:53-58): ones-init
+    # scales on the k_proj / v_proj outputs and the down_proj input
+    ia3: bool = False
     # "none" | "int8" (projections) | "int8_full" (+ embedding, lm_head) |
     # "int4" (nibble-packed projections, int8 embedding + lm_head)
     quantization: str = "none"
@@ -87,11 +104,19 @@ class LlamaConfig:
     decode_attention: str = "auto"
     attention_impl: str = "auto"    # "auto" | "plain" | "flash"
     remat: bool = True              # training: recompute each layer
+    # Pad the embedding and lm_head rows up to this size (0 = exact;
+    # reference llama.py:80-95): 32330 = 2*5*53*61 splits over tensor only
+    # at 2, 5 and 10; 32336 = 8*4042 at 8.  Pad logits are masked to -1e9.
+    vocab_pad_to: int = 0
     dtype: torch.dtype = torch.bfloat16
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def padded_vocab_size(self) -> int:
+        return max(self.vocab_size, self.vocab_pad_to)
 
 
 def llama2_13b(**overrides) -> LlamaConfig:
@@ -108,15 +133,17 @@ def llama_debug(**overrides) -> LlamaConfig:
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
-                  device=None) -> KVCache:
+                  device=None, kv_heads: Optional[int] = None) -> KVCache:
     """(k, v) [L, B, S, Hkv*D] in ``dtype``; with int8 KV, int8 codes plus
     per-(position, head) scales [L, B, S, Hkv] in ``dtype``.  The JAX
     package pads the scale lanes to 128 for TPU DMA; here they stay
-    compact."""
+    compact.  ``kv_heads``: the heads a rank holds (``LlamaForCausalLM.
+    kv_heads``; default all)."""
     dtype = dtype or cfg.dtype
-    flat = (cfg.num_layers, batch, max_len, cfg.num_kv_heads * cfg.head_dim)
+    hkv = kv_heads or cfg.num_kv_heads
+    flat = (cfg.num_layers, batch, max_len, hkv * cfg.head_dim)
     if cfg.kv_quantization == "int8":
-        sshape = flat[:-1] + (cfg.num_kv_heads,)
+        sshape = flat[:-1] + (hkv,)
         return (torch.zeros(flat, dtype=torch.int8, device=device),
                 torch.zeros(flat, dtype=torch.int8, device=device),
                 torch.zeros(sshape, dtype=dtype, device=device),
@@ -126,15 +153,16 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
 
 
 def init_paged_kv_pool(cfg: LlamaConfig, pool_tokens: int, dtype=None,
-                       device=None) -> KVCache:
+                       device=None, kv_heads: Optional[int] = None) -> KVCache:
     """Shared paged KV pool: the leaves of ``init_kv_cache`` without the
     per-slot batch axis, [L, pool_tokens, Hkv*D] (+ scales [L, pool_tokens,
     Hkv]).  Rows are handed out in fixed-size pages through block tables
     (inference/continuous.py paged mode)."""
     dtype = dtype or cfg.dtype
-    flat = (cfg.num_layers, pool_tokens, cfg.num_kv_heads * cfg.head_dim)
+    hkv = kv_heads or cfg.num_kv_heads
+    flat = (cfg.num_layers, pool_tokens, hkv * cfg.head_dim)
     if cfg.kv_quantization == "int8":
-        sshape = flat[:-1] + (cfg.num_kv_heads,)
+        sshape = flat[:-1] + (hkv,)
         return (torch.zeros(flat, dtype=torch.int8, device=device),
                 torch.zeros(flat, dtype=torch.int8, device=device),
                 torch.zeros(sshape, dtype=dtype, device=device),
@@ -168,23 +196,45 @@ class LlamaLayers(nn.Module):
         self.cfg = cfg
         L, d, dt = cfg.num_layers, cfg.hidden_size, cfg.dtype
         hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        # IA3 target set = the PEFT fork's llama defaults (reference
+        # llama.py:208-210): k / v outputs, the down_proj input
+        ia3 = ({"k_proj": "out", "v_proj": "out", "down_proj": "in"}
+               if cfg.ia3 else {})
 
-        def dense(n_in, n_out):
+        def dense(name, n_in, n_out):
             return LoRADense(n_in, n_out, lora_rank=cfg.lora_rank,
                              lora_alpha=cfg.lora_alpha,
                              lora_dropout=cfg.lora_dropout,
-                             quantize=cfg.quantization, dtype=dt, layers=L,
-                             device=device)
+                             quantize=cfg.quantization, ia3=ia3.get(name),
+                             dtype=dt, layers=L, device=device)
 
         self.input_layernorm = RMSNorm(d, cfg.rms_eps, dt, L, device)
-        self.q_proj = dense(d, hq)
-        self.k_proj = dense(d, hkv)
-        self.v_proj = dense(d, hkv)
-        self.o_proj = dense(hq, d)
+        self.q_proj = dense("q_proj", d, hq)
+        self.k_proj = dense("k_proj", d, hkv)
+        self.v_proj = dense("v_proj", d, hkv)
+        self.o_proj = dense("o_proj", hq, d)
         self.post_attention_layernorm = RMSNorm(d, cfg.rms_eps, dt, L, device)
-        self.gate_proj = dense(d, cfg.intermediate_size)
-        self.up_proj = dense(d, cfg.intermediate_size)
-        self.down_proj = dense(cfg.intermediate_size, d)
+        self.gate_proj = dense("gate_proj", d, cfg.intermediate_size)
+        self.up_proj = dense("up_proj", d, cfg.intermediate_size)
+        self.down_proj = dense("down_proj", cfg.intermediate_size, d)
+
+    def tp_plan(self, tensor: int) -> dict:
+        """Roles over ``tensor`` (see the module docstring)."""
+        cfg = self.cfg
+        attn = (cfg.num_heads % tensor == 0 and cfg.num_kv_heads % tensor == 0
+                and self.o_proj.row_split_ok(tensor))
+        roles = {n: "col" if attn else None
+                 for n in ("q_proj", "k_proj", "v_proj")}
+        roles.update(o_proj="row" if attn else None, gate_proj="col",
+                     up_proj="col", down_proj="row"
+                     if self.down_proj.row_split_ok(tensor) else None)
+        return roles
+
+    def heads(self) -> Tuple[int, int]:
+        """(query heads, kv heads) this rank attends over."""
+        cfg = self.cfg
+        t = tensor_size(self) if self.q_proj.tp == "col" else 1
+        return cfg.num_heads // t, cfg.num_kv_heads // t
 
     def block(self, li: int, x, cache: Optional[KVCache], cos, sin,
               kv_valid, cache_index, step: Optional["_Step"] = None,
@@ -196,9 +246,9 @@ class LlamaLayers(nn.Module):
         LoRA dropout masks of the seven projections in order."""
         cfg = self.cfg
         b, s, _ = x.shape
-        nh, hd = cfg.num_kv_heads, cfg.head_dim
+        (nq, nh), hd = self.heads(), cfg.head_dim
         h = self.input_layernorm(x, li)
-        q = self.q_proj(h, li, drop).reshape(b, s, cfg.num_heads, hd)
+        q = self.q_proj(h, li, drop).reshape(b, s, nq, hd)
         k = self.k_proj(h, li, drop).reshape(b, s, nh, hd)
         v = self.v_proj(h, li, drop).reshape(b, s, nh, hd)
         q = apply_rope(q, cos, sin)
@@ -246,12 +296,14 @@ class LlamaLayers(nn.Module):
                         q_offset=cache_index if s > 1 else None,
                         impl="plain" if s == 1 else cfg.attention_impl)
 
-        x = x + self.o_proj(attn.reshape(b, s, cfg.num_heads * hd), li,
-                            drop)
+        x = x + self.o_proj(attn.reshape(b, s, nq * hd), li, drop)
         h = self.post_attention_layernorm(x, li)
         gate = self.gate_proj(h, li, drop)
         up = self.up_proj(h, li, drop)
-        return x + self.down_proj(F.silu(gate) * up, li, drop)
+        act = F.silu(gate) * up
+        if self.gate_proj.tp == "col" and self.down_proj.tp != "row":
+            act = self.down_proj._par.all_gather(act, -1, "tensor")
+        return x + self.down_proj(act, li, drop)
 
 
 @dataclasses.dataclass
@@ -311,29 +363,47 @@ class _Step:
 
 
 class Embedder(nn.Module):
-    """Token table [vocab, hidden]; int8 rows + per-row fp32 scales under
-    ``int8_full`` / ``int4`` (reference llama.py:336-349)."""
+    """Token table [padded vocab, hidden]; int8 rows + per-row fp32 scales
+    under ``int8_full`` / ``int4`` (reference llama.py:336-349).  On a
+    mesh (``tp == "vocab"``) a rank holds a contiguous range of rows: ids
+    outside it look up zeros, and the all-reduce over the tensor group
+    sums each id's one real row."""
+
+    tp: Optional[str] = None
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        shape = (cfg.vocab_size, cfg.hidden_size)
+        shape = (cfg.padded_vocab_size, cfg.hidden_size)
         self.quantized = cfg.quantization in ("int8_full", "int4")
         if self.quantized:
             self.register_buffer("embedding_q", torch.zeros(
                 shape, dtype=torch.int8, device=device))
             self.register_buffer("embedding_scale", torch.ones(
-                (cfg.vocab_size,), dtype=torch.float32, device=device))
+                (cfg.padded_vocab_size,), dtype=torch.float32,
+                device=device))
         else:
             self.register_buffer("embedding", torch.zeros(
                 shape, dtype=cfg.dtype, device=device))
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
+        ids, ok = input_ids, None
+        if self.tp == "vocab":
+            n = self.embedding_scale.shape[0] if self.quantized \
+                else self.embedding.shape[0]
+            ids = input_ids - self._par.rank["tensor"] * n
+            ok = (ids >= 0) & (ids < n)
+            ids = torch.where(ok, ids, 0)
         if self.quantized:
-            rows = self.embedding_q[input_ids].to(dt)
-            return rows * self.embedding_scale[input_ids][..., None].to(dt)
-        return self.embedding[input_ids].to(dt)
+            rows = leaf(self, "embedding_q")[ids].to(dt)
+            rows = rows * leaf(self, "embedding_scale")[ids][..., None].to(dt)
+        else:
+            rows = leaf(self, "embedding")[ids].to(dt)
+        if ok is not None:
+            rows = torch.where(ok[..., None], rows, 0.0)
+            rows = self._par.all_reduce(rows.float()).to(dt)
+        return rows
 
 
 class LlamaForCausalLM(nn.Module):
@@ -348,12 +418,35 @@ class LlamaForCausalLM(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
                             device=device)
         self.lm_head = LoRADense(
-            cfg.hidden_size, cfg.vocab_size,
+            cfg.hidden_size, cfg.padded_vocab_size,
             quantize=("int8" if cfg.quantization in ("int8_full", "int4")
                       else "none"), dtype=cfg.dtype, device=device)
 
+    def tp_plan(self, tensor: int) -> dict:
+        return {"embed_tokens": "vocab", "lm_head": "col"}
+
+    @property
+    def kv_heads(self) -> int:
+        """The KV heads this rank's cache holds."""
+        return self.layers.heads()[1]
+
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)
+
+    def head(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Logits over the vocab (gathered from the tensor group on a
+        mesh), pad columns masked to -1e9 (reference llama.py:494-499)."""
+        logits = self.lm_head(hidden)
+        if self.lm_head.tp == "col":
+            logits = self.lm_head._par.all_gather(logits, -1, "tensor")
+        cfg = self.cfg
+        if cfg.padded_vocab_size != cfg.vocab_size:
+            keep = torch.arange(logits.shape[-1], device=logits.device) \
+                < cfg.vocab_size
+            logits = torch.where(keep, logits,
+                                 torch.tensor(-1e9, dtype=logits.dtype,
+                                              device=logits.device))
+        return logits
 
     def forward(self, inputs_embeds: torch.Tensor, positions: torch.Tensor,
                 kv_valid: Optional[torch.Tensor] = None,
@@ -418,7 +511,7 @@ class LlamaForCausalLM(nn.Module):
             x = self.layers.block(li, x, cache, cos, sin, kv_valid,
                                   cache_index, step)
         hidden = self.norm(x)
-        logits = self.lm_head(hidden)
+        logits = self.head(hidden)
         if packed:
             return logits[0], hidden[0], cache
         return logits, hidden, cache
@@ -457,7 +550,7 @@ class LlamaForCausalLM(nn.Module):
             else:
                 x = fn(x, cos, sin, kv_valid)
         hidden = self.norm(x)
-        return self.lm_head(hidden), hidden
+        return self.head(hidden), hidden
 
     def _train_block(self, li: int, seed: Optional[int], x, cos, sin,
                      kv_valid) -> torch.Tensor:
@@ -554,3 +647,43 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
     total = torch.where(valid, -token_ll, 0.0).sum()
     return total / torch.clamp(valid.sum(), min=1)
+
+
+class LlamaForSequenceClassification(nn.Module):
+    """Sequence classification over the trunk (reference llama.py:517-544;
+    modeling_llama_xformer.py:804-919): ``score`` (no bias) on the hidden
+    state of each row's last non-pad token.  Leaves as the JAX package
+    names them (``embed_tokens``, the trunk ``layers`` + ``norm``,
+    ``score``).  The padded trunk attends with ``kv_valid`` = the mask,
+    causally, through the flash kernel on the card."""
+
+    def __init__(self, cfg: LlamaConfig, num_labels: int = 2, device=None):
+        super().__init__()
+        self.cfg, self.num_labels = cfg, num_labels
+        self.embed_tokens = Embedder(cfg, device)
+        self.layers = LlamaLayers(cfg, device)
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
+                            device=device)
+        self.score = PDense(cfg.hidden_size, num_labels, use_bias=False,
+                            dtype=cfg.dtype, device=device)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """input_ids [B, S], attention_mask [B, S] (right-padded) ->
+        logits [B, num_labels]."""
+        cfg = self.cfg
+        b, s = input_ids.shape
+        if attention_mask is None:
+            attention_mask = torch.ones((b, s), dtype=torch.bool,
+                                        device=input_ids.device)
+        mask = attention_mask.to(torch.int64)
+        positions = torch.clamp(torch.cumsum(mask, dim=-1) - 1, min=0)
+        x = self.embed_tokens(input_ids)
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        kv_valid = attention_mask.to(torch.bool)
+        for li in range(cfg.num_layers):
+            x = self.layers.block(li, x, None, cos, sin, kv_valid, 0)
+        logits = self.score(self.norm(x))
+        last = mask.sum(dim=-1) - 1
+        return logits[torch.arange(b, device=logits.device), last]

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from seedx_tpu_torch.models.layers import PDense, PLayerNorm, TorchMHA
+from seedx_tpu_torch.models.layers import PDense, PLayerNorm, TorchMHA, leaf
 
 
 def sincos_2d_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
@@ -109,7 +109,7 @@ class Resampler(nn.Module):
         if self.kv_proj is not None:
             x = self.kv_proj(x)
         x = self.ln_kv(x)
-        q = self.ln_q(self.query.to(self.dtype))
+        q = self.ln_q(leaf(self, "query").to(self.dtype))
         kv_pos = resize_pos_embed(self.pos, x.shape[1])
         q_in = (q + self.pos)[None].to(self.dtype).expand(
             x.shape[0], self.num_queries, self.embed_dim)

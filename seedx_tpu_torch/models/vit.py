@@ -15,7 +15,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from seedx_tpu_torch.models.layers import MLP, PDense, PLayerNorm
+from seedx_tpu_torch.models.layers import (MLP, PDense, PLayerNorm, leaf,
+                                           tensor_size)
 from seedx_tpu_torch.models.resampler import Resampler, resize_pos_embed
 from seedx_tpu_torch.ops.attention import dot_product_attention
 
@@ -81,20 +82,29 @@ class ViTBlocks(nn.Module):
         self.ln_1 = PLayerNorm(w, dtype=dt, layers=L, device=device)
         self.in_proj = PDense(w, 3 * w, quantize=q, dtype=dt, layers=L,
                               device=device)
+        self.in_proj.fused_parts = 3     # q | k | v, split head-aligned
         self.out_proj = PDense(w, w, quantize=q, dtype=dt, layers=L,
                                device=device)
         self.ln_2 = PLayerNorm(w, dtype=dt, layers=L, device=device)
         self.mlp = MLP(w, cfg.mlp_hidden, quantize=q, dtype=dt, layers=L,
                        device=device)
 
+    def tp_plan(self, tensor: int) -> dict:
+        """Heads over ``tensor`` where they divide; the MLP always."""
+        ok = self.cfg.heads % tensor == 0
+        return {"in_proj": "col" if ok else None,
+                "out_proj": "row" if ok else None}
+
     def block(self, x: torch.Tensor, li: int) -> torch.Tensor:
         cfg = self.cfg
         hd = cfg.width // cfg.heads
+        nh = cfg.heads // (tensor_size(self) if self.in_proj.tp == "col"
+                           else 1)
         qkv = self.in_proj(self.ln_1(x, li), li)
-        q, k, v = (t.reshape(*t.shape[:-1], cfg.heads, hd)
+        q, k, v = (t.reshape(*t.shape[:-1], nh, hd)
                    for t in qkv.chunk(3, dim=-1))
         attn = dot_product_attention(q, k, v, impl="auto")
-        x = x + self.out_proj(attn.reshape(x.shape), li)
+        x = x + self.out_proj(attn.reshape(x.shape[:-1] + (nh * hd,)), li)
         return x + self.mlp(self.ln_2(x, li), li)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -132,16 +142,18 @@ class VisionTransformer(nn.Module):
                 ) -> torch.Tensor:
         cfg = self.cfg
         x = self.conv1(images)
-        x = x + resize_pos_embed(self.positional_embedding, x.shape[1])[None]
+        x = x + resize_pos_embed(leaf(self, "positional_embedding"),
+                                 x.shape[1])[None]
         x = self.ln_pre(x)
         x = self.blocks(x)
         x = self.attn_pool(x)
         if cfg.patch_pos:
             coords = torch.cat([patch_positions, 1.0 - patch_positions],
                                dim=-1) / 2.0
-            x = x + (coords.to(cfg.dtype) @ self.patch_pos_embed)[:, None]
+            x = x + (coords.to(cfg.dtype)
+                     @ leaf(self, "patch_pos_embed"))[:, None]
         x = self.ln_post(x)
-        return x @ self.proj
+        return x @ leaf(self, "proj")
 
 
 def vit_downsample(embeds: torch.Tensor, pool: int = 4) -> torch.Tensor:

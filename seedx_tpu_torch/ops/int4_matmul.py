@@ -14,11 +14,18 @@ for CPU tensors.  ``int4_matmul_unpack`` ports the JAX package's W4A16
 ``int4_matmul_xla`` (unpack to bf16, then a dense dot).  ``int4_matmul_auto``
 dispatches as the reference's does: W4A8 up to ``MAX_KERNEL_ROWS`` rows,
 W4A16 above, on every device.
+
+``row_amax`` (fp32 [rows, 1]) gives the row quantization each row's absmax
+from outside: a rank holding a row-parallel shard ``x[:, in/t]`` of a
+projection passes the absmax of the whole row (an all-reduce MAX over the
+tensor group), so every rank quantizes against the unsharded row's scale
+and the partial products sum to the unsharded W4A8 result.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -26,7 +33,7 @@ from seedx_tpu_torch.ops._build import check, load_library, sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"int4_w4a8_bf16": [_P] * 6 + [_I] * 6 + [_P],
+_SIGNATURES = {"int4_w4a8_bf16": [_P] * 6 + [_I] * 6 + [_P, _P],
                "int4_w4a8_fragments_debug": [_P, _P, _P]}
 
 BN = 128             # output columns a block of the kernel
@@ -52,10 +59,17 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
                                                  n_out).to(torch.int8)
 
 
-def quantize_rows(x: torch.Tensor):
-    """Per-row int8 activation quantization: (x8 int8, xa fp32 [rows, 1])."""
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """fp32 [rows, 1]: each row's absmax (what ``quantize_rows`` scales by)."""
+    return x.float().abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_rows(x: torch.Tensor, row_amax: Optional[torch.Tensor] = None):
+    """Per-row int8 activation quantization: (x8 int8, xa fp32 [rows, 1]);
+    ``row_amax`` [rows, 1] replaces the rows' own absmax."""
     xf = x.float()
-    xa = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    amax = row_absmax(x) if row_amax is None else row_amax.float()
+    xa = torch.clamp(amax, min=1e-8) / 127.0
     return torch.round(xf / xa).to(torch.int8), xa
 
 
@@ -95,7 +109,8 @@ def split_ranges(n_groups: int, splits: int):
 
 
 def int4_matmul_split_plain(x: torch.Tensor, packed: torch.Tensor,
-                            scale: torch.Tensor, splits: int
+                            scale: torch.Tensor, splits: int,
+                            row_amax: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """The kernel's arithmetic at ``splits`` splits in plain torch.  Group
     dots run as fp32 matmuls of integers: |dot| <= 127 * 8 * group < 2**24
@@ -106,7 +121,7 @@ def int4_matmul_split_plain(x: torch.Tensor, packed: torch.Tensor,
     rows, n_in = x.shape
     n_groups, n_out = scale.shape
     group = n_in // n_groups
-    x8, xa = quantize_rows(x)
+    x8, xa = quantize_rows(x, row_amax)
     w = unpack_int4(packed).float().reshape(n_groups, group, n_out)
     xg = x8.float().reshape(rows, n_groups, group).transpose(0, 1)
     dots = torch.bmm(xg, w)                          # [groups, rows, out]
@@ -120,10 +135,12 @@ def int4_matmul_split_plain(x: torch.Tensor, packed: torch.Tensor,
 
 
 def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
-                      scale: torch.Tensor) -> torch.Tensor:
+                      scale: torch.Tensor,
+                      row_amax: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """The kernel's contract in plain torch: one split, the group scales
     accumulated in group order, as the TPU kernel does."""
-    return int4_matmul_split_plain(x, packed, scale, 1)
+    return int4_matmul_split_plain(x, packed, scale, 1, row_amax)
 
 
 def workspace_bytes(rows: int, n_in: int, n_out: int, group: int,
@@ -164,8 +181,8 @@ def row_band(rows: int) -> str:
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
-                scale: torch.Tensor, *, _tile: int = 0,
-                _splits: int = 0) -> torch.Tensor:
+                scale: torch.Tensor, row_amax: Optional[torch.Tensor] = None,
+                *, _tile: int = 0, _splits: int = 0) -> torch.Tensor:
     """x [rows, in] @ dequant(packed [in//2, out], scale [in/g, out]) ->
     [rows, out] in x's dtype.  Wrapper: kernel for CUDA tensors (two
     launches: the row quantization, the matmul; ``_tile`` / ``_splits``
@@ -176,14 +193,22 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     if packed.shape != (n_in // 2, n_out) or n_in % n_groups:
         raise ValueError(f"int4_matmul: x {tuple(x.shape)} packed "
                          f"{tuple(packed.shape)} scale {tuple(scale.shape)}")
+    if row_amax is not None and row_amax.shape != (rows, 1):
+        raise ValueError(f"int4_matmul: row_amax {tuple(row_amax.shape)} "
+                         f"!= ({rows}, 1)")
     if not x.is_cuda:
-        return int4_matmul_plain(x, packed, scale)
+        return int4_matmul_plain(x, packed, scale, row_amax)
     group = n_in // n_groups
     if x.dtype != torch.bfloat16:
         raise ValueError(f"int4_matmul: x must be bf16 on CUDA, got {x.dtype}")
     if packed.dtype != torch.uint8 or scale.dtype != torch.float32:
         raise ValueError("int4_matmul: packed must be uint8, scale float32")
-    for name, t in (("x", x), ("packed", packed), ("scale", scale)):
+    if row_amax is not None:
+        row_amax = row_amax.float().contiguous()
+    for name, t in (("x", x), ("packed", packed), ("scale", scale),
+                    ("row_amax", row_amax)):
+        if t is None:
+            continue
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"int4_matmul: {name} must be contiguous, "
                              f"16-byte aligned and on {x.device}")
@@ -201,7 +226,8 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     err = library().int4_w4a8_bf16(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
         work.data_ptr(), tickets.data_ptr() if tickets is not None else None,
-        rows, n_in, n_out, group, tile // 16, splits, stream)
+        rows, n_in, n_out, group, tile // 16, splits,
+        row_amax.data_ptr() if row_amax is not None else None, stream)
     check(err, "int4_w4a8_bf16")
     int4_matmul.launches += 1
     int4_matmul.tile_launches[f"m{tile}"] += 1
@@ -250,15 +276,18 @@ def int4_branch(rows: int) -> str:
 
 
 def int4_matmul_auto(x: torch.Tensor, packed: torch.Tensor,
-                     scale: torch.Tensor) -> torch.Tensor:
+                     scale: torch.Tensor,
+                     row_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Leading dims flattened into rows, then ``int4_matmul`` up to
     ``MAX_KERNEL_ROWS`` rows and ``int4_matmul_unpack`` (bf16 out) above,
     as ``seedx_tpu/ops/int4_matmul.py`` ``int4_matmul_auto`` dispatches
-    under ``FORCE_KERNEL`` or on the TPU."""
+    under ``FORCE_KERNEL`` or on the TPU.  ``row_amax`` [..., 1] (the W4A8
+    branch only: W4A16 does not quantize x) as ``int4_matmul``'s."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if int4_branch(x2.shape[0]) == "w4a8":
-        y = int4_matmul(x2.contiguous(), packed, scale)
+        y = int4_matmul(x2.contiguous(), packed, scale,
+                        None if row_amax is None else row_amax.reshape(-1, 1))
     else:
         y = int4_matmul_unpack(x2, packed, scale)
     return y.reshape(*lead, y.shape[-1])

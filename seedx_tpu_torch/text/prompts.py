@@ -44,6 +44,15 @@ def multi_patch_image_string(num_patches: int, num_tokens: int = 64,
     return s
 
 
+def comprehension_prompt(question: str, num_patches: int = 1,
+                         num_tokens: int = 64,
+                         vocab: MultimodalVocab = DEFAULT_VOCAB) -> str:
+    """The instruction prompt around an anyres image string and the
+    question (reference prompts.py:47)."""
+    imgs = multi_patch_image_string(num_patches, num_tokens, vocab)
+    return INSTRUCTION_PROMPT.format(instruction=imgs + question)
+
+
 def generation_prompt(caption: str) -> str:
     return GENERATION_PROMPT.format(caption=caption)
 

@@ -20,7 +20,9 @@ agent and dataset come from the repo's YAML object graphs (``configs/``,
 ``seedx_tpu.`` read as ``seedx_tpu_torch.``), the datasets stream the
 files on disk (``data/datasets.py``), and the run goes to ``train_loop``.
 ``--device`` (default ``cuda``) is the port's own; ``--parallel`` (a
-mesh layout) raises: multi-device training is not ported.
+mesh layout) raises: training on a mesh (FSDP over ``fsdp``, replicas
+over ``data``) is not ported yet; a mesh serves through
+``SeedXRuntime.shard``.
 
     python -m seedx_tpu_torch.train.train_sft \
         --image_transform configs/processer/qwen_448_transform.yaml \
@@ -197,15 +199,16 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--parallel", default=None,
                    help="mesh layout YAML (configs/parallel/*.yaml); "
-                        "multi-device training is not ported: raises")
+                        "training on a mesh is not ported yet: raises")
     p.add_argument("--device", default="cuda",
                    help="torch device the run trains on (cpu for a debug "
                         "run)")
     args = p.parse_args(argv)
     if args.parallel:
         raise NotImplementedError(
-            f"--parallel {args.parallel}: multi-device training (the JAX "
-            f"package's mesh layouts) is not ported; train on one device")
+            f"--parallel {args.parallel}: multi-device training on a mesh "
+            f"(FSDP over fsdp, replicas over data) is not ported yet; "
+            f"train on one device (serving on a mesh: SeedXRuntime.shard)")
 
     transform = config_lib.instantiate_from_file(args.image_transform)
     tokenizer = config_lib.instantiate_from_file(args.tokenizer)

@@ -102,6 +102,13 @@ def quantize_llama_params(state: Dict[str, torch.Tensor],
     return out
 
 
+def dequantize_kernel(q: torch.Tensor, scale: torch.Tensor,
+                      dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 [in, out] codes times the per-output scale [out], in ``dtype``
+    (reference quantize.py:119)."""
+    return q.to(dtype) * scale.to(dtype)[None, :]
+
+
 VIT_QUANT_TARGETS = ("in_proj", "out_proj", "c_fc", "c_proj")
 
 

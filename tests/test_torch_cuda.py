@@ -1256,3 +1256,119 @@ def test_adapter_loss_on_card_matches_cpu(cuda_device):
                 grads["cuda"][k], want, rtol=0,
                 atol=max(5e-2 * want.abs().max().item(), 1e-3 * top),
                 msg=lambda m, k=k: f"{k}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 64, 512])
+def test_int4_kernel_row_amax(cuda_device, rows):
+    """K2 given each row's absmax from outside (a row-parallel shard's
+    whole-row absmax): equal to its plain version at that scale, and bit
+    equal to the call without it when it is the rows' own absmax."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(rows)
+    n_in, n_out = 1792, 5120          # 13824 / 8 rounded to whole groups
+    w = torch.randn((n_in, n_out), generator=g, device=cuda_device)
+    packed, scale = tquant.quantize_kernel_int4(w * n_in ** -0.5)
+    x = torch.randn((rows, n_in), generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    own = tint4.row_absmax(x)
+    assert torch.equal(tint4.int4_matmul(x, packed, scale, own),
+                       tint4.int4_matmul(x, packed, scale))
+    amax = own * (1.0 + 3.0 * torch.rand((rows, 1), generator=g,
+                                         device=cuda_device))
+    out = tint4.int4_matmul(x, packed, scale, amax)
+    ref = tint4.int4_matmul_plain(x, packed, scale, amax)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 * 2 ** -7 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_ia3_through_int4_kernel_and_captured_decode(cuda_device):
+    """IA3 on an int4 LoRADense through K2 (input scaled before the row
+    quantization, output scaled after) against the plain path; and an
+    IA3 int4 agent's greedy tokens with decode captured equal to eager."""
+    from seedx_tpu_torch.inference.runtime import SeedXRuntime
+    from seedx_tpu_torch.models import layers
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(3)
+    for ia3, n_in, n_out in (("in", 1024, 512), ("out", 512, 512)):
+        d = layers.LoRADense(n_in, n_out, quantize="int4", ia3=ia3,
+                             device=cuda_device)
+        with torch.no_grad():
+            d.kernel_q4[:], d.kernel_scale[:] = tquant.quantize_kernel_int4(
+                torch.randn((n_in, n_out), generator=g,
+                            device=cuda_device) * n_in ** -0.5)
+            d.ia3_scale[:] = 1.0 + 0.5 * torch.randn(
+                d.ia3_scale.shape, generator=g, device=cuda_device)
+        x = torch.randn((8, n_in), generator=g, device=cuda_device).to(
+            torch.bfloat16)
+        before = tint4.int4_matmul.launches
+        out = d(x)
+        assert tint4.int4_matmul.launches > before
+        xs = x * d.ia3_scale.to(x.dtype) if ia3 == "in" else x
+        ref = tint4.int4_matmul_plain(xs, d.kernel_q4, d.kernel_scale)
+        if ia3 == "out":
+            ref = ref * d.ia3_scale.to(ref.dtype)
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= 2 * 2 ** -7 * ref.float().abs().max().item(), err
+
+    rt = SeedXRuntime.debug(quantization="int4", kv_quantization="int8",
+                            device=cuda_device)
+    llm_cfg = rt.agent_cfg.llm
+    import dataclasses
+
+    from seedx_tpu_torch.models.agent import ContinuousLVLM
+    from seedx_tpu_torch.utils.quantize import random_quantized_llama_
+
+    cfg = dataclasses.replace(rt.agent_cfg,
+                              llm=dataclasses.replace(llm_cfg, ia3=True))
+    agent = init_normal_(ContinuousLVLM(cfg, cuda_device).eval(), g)
+    random_quantized_llama_(agent.llm, g)
+    rt.agent_cfg, rt.agent = cfg, agent
+    ids = [rt.tokenizer.bos_token_id] + rt.tokenizer.encode("hello there")
+    streams = []
+    for enabled in (True, False):
+        rt.graphs.enabled = enabled
+        streams.append(list(rt.generate(ids, max_new_tokens=12)["tokens"]))
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_shard_bit_equal(cuda_device):
+    """``SeedXRuntime.shard`` on a one-rank NCCL mesh (one-rank collectives
+    are the identity): the debug int4 + int8-KV runtime's comprehend tokens
+    and continuous-engine streams, with captured programs, bit-equal to the
+    unsharded runtime's."""
+    import numpy as np
+    import torch.distributed as dist
+    from PIL import Image
+
+    from seedx_tpu_torch.inference import apps
+    from seedx_tpu_torch.inference.continuous import ContinuousEngine
+    from seedx_tpu_torch.inference.runtime import SeedXRuntime
+    from seedx_tpu_torch.parallel import create_mesh
+
+    rng = np.random.default_rng(3)
+    image = Image.fromarray(rng.integers(0, 255, (60, 90, 3), np.uint8))
+    rt = SeedXRuntime.debug(quantization="int4", kv_quantization="int8",
+                            device=cuda_device)
+    tok = rt.tokenizer
+    reqs = [{"input_ids": [tok.bos_token_id] + tok.encode(t)}
+            for t in ("hi there", "a red boat", "one two three four")]
+
+    def run():
+        turn = apps.comprehend(rt, image, "what?", max_new_tokens=8)
+        eng = ContinuousEngine(rt, slots=2, max_new_tokens=8, chunk_steps=4,
+                               prompt_buckets=(64,))
+        ids = [eng.submit(r) for r in reqs]
+        res = eng.run()
+        return list(turn["tokens"]), [list(res[i]["tokens"]) for i in ids]
+
+    ref = run()
+    try:
+        rt.shard(create_mesh(1, 1, 1))
+        assert rt.graphs.enabled and rt.mesh is not None
+        assert run() == ref
+    finally:
+        dist.destroy_process_group()

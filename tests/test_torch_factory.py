@@ -667,12 +667,8 @@ assert resolve_target("seedx_tpu.models.factory.build_agent").__module__ \\
     == "seedx_tpu_torch.models.factory"
 assert resolve_target("seedx_tpu.data.datasets.build_multi_datapipes"
                       ).__module__ == "seedx_tpu_torch.data.datasets"
-for target in ("seedx_tpu.parallel.mesh.create_mesh",):
-    try:
-        resolve_target(target)
-        raise AssertionError(target)
-    except ImportError:
-        pass
+assert resolve_target("seedx_tpu.parallel.mesh.create_mesh").__module__ \
+    == "seedx_tpu_torch.parallel.mesh"
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(
     ("jax.", "jaxlib", "flax", "seedx_tpu.")) or m == "seedx_tpu")
 assert not bad, bad[:5]

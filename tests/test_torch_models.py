@@ -239,3 +239,20 @@ def test_agent_splice_helpers_match_jax():
                                           per_slot).numpy(),
             np.asarray(jagent._gather_from_positions(
                 jnp.asarray(base), jnp.asarray(mask), slots_n, per_slot)))
+
+
+def test_dequantize_kernel_matches_jax():
+    from seedx_tpu.utils.quantize import dequantize_kernel as jdeq
+    from seedx_tpu_torch.utils.quantize import dequantize_kernel as tdeq
+
+    rng = np.random.default_rng(18)
+    q = rng.integers(-127, 128, (64, 32)).astype(np.int8)
+    scale = (0.01 * rng.random(32)).astype(np.float32)
+    for jt, tt in ((jnp.bfloat16, torch.bfloat16),
+                   (jnp.float32, torch.float32)):
+        got = tdeq(torch.from_numpy(q), torch.from_numpy(scale), tt)
+        assert got.dtype == tt
+        np.testing.assert_array_equal(
+            got.float().numpy(),
+            np.asarray(jdeq(jnp.asarray(q), jnp.asarray(scale), jt),
+                       np.float32))

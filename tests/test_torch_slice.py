@@ -377,3 +377,28 @@ def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=repo)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=repo,
                    env=env, timeout=120)
+
+
+def test_comprehension_prompt_and_anyres_helpers_match_jax():
+    """``text/prompts.comprehension_prompt`` and ``data/anyres``'s
+    ``resize_and_pad_image`` / ``anyres_grid_shape`` against the JAX
+    package's: equal strings, equal pixels, equal grids."""
+    from seedx_tpu.data import anyres as janyres
+    from seedx_tpu.text import prompts as jprompts
+    from seedx_tpu_torch.data import anyres as tanyres
+    from seedx_tpu_torch.text import prompts as tprompts
+
+    for n, t in ((1, 64), (3, 64), (5, 16)):
+        assert tprompts.comprehension_prompt("What?", n, t) == \
+            jprompts.comprehension_prompt("What?", n, t)
+    img = _image(70, 130, seed=3)
+    for target in ((448, 448), (896, 448), (300, 500)):
+        for keep in (False, True):
+            np.testing.assert_array_equal(
+                np.asarray(tanyres.resize_and_pad_image(img, target, keep)),
+                np.asarray(janyres.resize_and_pad_image(img, target, keep)))
+    grids = [[448, 448], [896, 448], [448, 896], [1344, 448], [896, 896]]
+    for size in ((130, 70), (70, 130), (900, 900), (2000, 300)):
+        for g in (grids, str(grids)):
+            assert tanyres.anyres_grid_shape(size, g, 448) == \
+                janyres.anyres_grid_shape(size, g, 448)

@@ -4,9 +4,10 @@ datapipes, on the debug models (``SEEDX_DEBUG=1``) on the CPU.
 
   * both repo data YAMLs (only their paths rewritten to synthetic files)
     train for 2 steps, save, and resume to a third;
-  * every YAML under ``configs/`` outside ``configs/parallel/`` resolves
-    to a target of the port (``seedx_tpu.`` read as ``seedx_tpu_torch.``);
-  * ``--parallel`` raises: multi-device training is not ported;
+  * every YAML under ``configs/`` resolves to a target of the port
+    (``seedx_tpu.`` read as ``seedx_tpu_torch.``), the mesh layouts of
+    ``configs/parallel/`` to the port's ``create_mesh``;
+  * ``--parallel`` raises: training on a mesh is not ported yet;
   * the first step's loss equals the JAX package's train step loss on the
     same batch and weights to 1e-3 relative (the loss tolerance of
     tests/test_torch_train.py; LoRA dropout off in the agent YAML, since
@@ -28,6 +29,7 @@ from seedx_tpu.models import agent as jagent
 from seedx_tpu.models import vit as jvit
 from seedx_tpu.models.llama import llama_debug as jllama_debug
 from seedx_tpu_torch import config as tconfig
+from seedx_tpu_torch.parallel.mesh import create_mesh
 from seedx_tpu_torch.train import train_sft
 
 from torch_data_fixtures import REPO, data_yamls
@@ -104,9 +106,8 @@ def _targets(node):
 
 def test_every_repo_yaml_resolves_to_the_port():
     found = 0
+    meshes = 0
     for root, _, files in os.walk(os.path.join(REPO, "configs")):
-        if os.path.basename(root) == "parallel":
-            continue
         for f in sorted(files):
             with open(os.path.join(root, f)) as fh:
                 cfg = yaml.safe_load(fh)
@@ -115,7 +116,10 @@ def test_every_repo_yaml_resolves_to_the_port():
                 assert obj.__module__.startswith("seedx_tpu_torch."), \
                     (f, target, obj.__module__)
                 found += 1
-    assert found >= 18
+                if os.path.basename(root) == "parallel":
+                    assert obj is create_mesh, (f, target)
+                    meshes += 1
+    assert found >= 20 and meshes == 2
     ident = tconfig.instantiate_from_file(os.path.join(
         REPO, "configs/discrete_model/discrete_identity.yaml"))
     x = torch.ones(2, 3)
@@ -123,7 +127,9 @@ def test_every_repo_yaml_resolves_to_the_port():
 
 
 def test_parallel_flag_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(NotImplementedError,
+                       match="multi-device training on a mesh .* is not "
+                             "ported yet"):
         train_sft.main(_argv("unused.yaml", tmp_path, "--parallel",
                              os.path.join(REPO, "configs/parallel/"
                                           "fsdp.yaml")))
