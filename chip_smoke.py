@@ -94,7 +94,13 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    collapse, a ``ServingEngine`` flush of a t2i and an edit request and
    one ``/v1/generate`` POST.  Every UNet eval must launch K1 70 times,
    every eps, latent and image (before the clip) be finite, every image
-   [B, 1024, 1024, 3];
+   [B, 1024, 1024, 3]; then the split denoise (``run_split_image``): the
+   base adapter's ``generate`` at 1024^2, Euler 30, CFG 2, captured,
+   unsplit and then on a one-rank NCCL mesh (``SDXLAdapter.shard``: the
+   CFG branches over data, the latent rows over tensor), images
+   bit-equal, the collectives of one split eval against the prediction,
+   the captured eval's ms both ways; the sharded phase adds the split at
+   tensor 2 on two ranks over gloo (``run_two_rank_image``);
 11. train: SEED-X SFT at full width through the entry point a user
    runs, ``train_sft.main`` with the repo's transform, tokenizer,
    visual-encoder and ``agent_seed_x.yaml`` configs (ViT-bigG frozen,
@@ -117,7 +123,13 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    under ordinary autograd, which a zero-delta backward must fail; last
    ``main(--resume)`` to ``CLI_RESUME_STEPS``: the checkpoint restored,
    the trained batches skipped, the factories' frozen weights the same,
-   the trainable ones moved on from the checkpoint;
+   the trainable ones moved on from the checkpoint; then ``main(--parallel
+   configs/parallel/fsdp.yaml)`` on a one-rank NCCL mesh, fed the first
+   run's two batches: losses, grad norms and the trainable leaves
+   bit-equal to its first two steps (``train_cli_parallel``); then
+   training on two ranks on the card over gloo at ``PARITY_LAYERS``
+   layers, fsdp 2 and tensor 2, against the unsharded steps and the
+   fsdp checkpoint's step on one rank (``run_mesh_train``);
 12. adapter training: ``make_adapter_train_step`` at the full SDXL base
    width (ResamplerXL ``DetokenizerConfig()``, the base UNet bf16 with
    its to_k / to_v and conv_in as fp32 masters, AdamW) on a batch of
@@ -161,8 +173,9 @@ program adds its launches at every replay, so the counters count what
 ran.  In the kernels line ``launches`` is the sum over the main path's
 runs of phases 4-6, 8, 10, 11, 12 and 13 (the turn, the serving engines
 and HTTP, the chat sessions, the warm captured scripted runs, the beams
-and the spec chat, the image-out runs, the CLI's and the accumulation
-train steps, the adapter steps, the loaded stack's turn, text to image,
+and the spec chat, the image-out runs, the split denoise on the one-rank
+mesh, the CLI's, the ``--parallel`` CLI's, the accumulation and the
+two-rank mesh train steps, the adapter steps, the loaded stack's turn, text to image,
 int8 ViT and int8 UNet step), with K3's by mode and K2's by row tile
 (``launches_by_tile``; its calls by row band are logged); the eager
 twins of phases 5, 7, 8 and 10, the forced runs, phase 9, the gradient
@@ -350,7 +363,18 @@ FLASH_SHAPES = (
     ("unet_edit_4096", 3, 4096, 4096, 10, 64, False, (0,) * 3, (4096,) * 3,
      0),
     ("unet_edit_1024", 3, 1024, 1024, 20, 64, False, (0,) * 3, (1024,) * 3,
-     0))
+     0),
+    # a rank's local query rows against the gathered keys (the split
+    # denoise at tensor 2) and a rank's rows / heads of the generation
+    # batch (training at fsdp 2 / tensor 2)
+    ("unet_4096_split2", 2, 2048, 4096, 10, 64, False, (0, 0), (4096, 4096),
+     0),
+    ("unet_1024_split2", 2, 512, 1024, 20, 64, False, (0, 0), (1024, 1024),
+     0),
+    ("train_generation_fsdp2", 4, 260, 260, 40, 128, True, (0,) * 4,
+     (260, 211, 174, 260), 0),
+    ("train_generation_tensor2", 8, 260, 260, 20, 128, True, (0,) * 8,
+     (260, 211, 174, 260, 143, 238, 197, 160), 0))
 
 
 def check_flash(dev, g, shapes=FLASH_SHAPES):
@@ -424,7 +448,12 @@ FLASH_BWD_SHAPES = (
      (260, 211, 174, 260, 143, 238, 197, 160)),
     ("d64_noncausal", 2, 512, 16, 64, False, (0, 7), (512, 400)),
     ("unet_4096", 2, 4096, 10, 64, False, (0, 0), (4096, 4096)),
-    ("unet_1024", 2, 1024, 20, 64, False, (0, 0), (1024, 1024)))
+    ("unet_1024", 2, 1024, 20, 64, False, (0, 0), (1024, 1024)),
+    # a rank's rows (fsdp 2) and heads (tensor 2) of the generation batch
+    ("generation_fsdp2", 4, 260, 40, 128, True, (0,) * 4,
+     (260, 211, 174, 260)),
+    ("generation_tensor2", 8, 260, 20, 128, True, (0,) * 8,
+     (260, 211, 174, 260, 143, 238, 197, 160)))
 
 
 def check_flash_bwd(dev, g, shapes=FLASH_BWD_SHAPES):
@@ -3077,12 +3106,16 @@ class CliRun:
     (``StepCounts``; on a resume the first entries are the skipped
     batches, which launch nothing)."""
 
-    def __init__(self):
+    def __init__(self, feed=None):
         from seedx_tpu_torch.train import train_sft
 
         self.mod, self.real = train_sft, train_sft.train_loop
         self.agent = self.vit = self.steps = self.frozen_before = None
         self.trainable_names = self.trainable_before = None
+        # ``feed``: batches handed to the loop in place of its stream; the
+        # first two batches the loop took, and the trainable leaves' bit
+        # checksum once two steps are done
+        self.feed, self.first, self.after_two = feed, [], None
 
     def __enter__(self):
         self.mod.train_loop = self._loop
@@ -3091,7 +3124,22 @@ class CliRun:
     def __exit__(self, *exc):
         self.mod.train_loop = self.real
 
-    def _loop(self, agent, vit, data_iter, train_cfg, run_cfg, device):
+    def _watch(self, it):
+        for i, b in enumerate(it):
+            if i == 2:
+                self.after_two = self.params_sum()
+            if i < 2:
+                self.first.append(b)
+            yield b
+        if len(self.first) == 2 and self.after_two is None:
+            self.after_two = self.params_sum()
+
+    def params_sum(self) -> int:
+        return bit_checksum(p.detach() for _, p in sorted(
+            self.agent.named_parameters()))
+
+    def _loop(self, agent, vit, data_iter, train_cfg, run_cfg, device,
+              mesh=None):
         from seedx_tpu_torch.train.partition import path_labels
 
         self.agent, self.vit = agent, vit
@@ -3104,11 +3152,14 @@ class CliRun:
             if lab == "trainable")
         self.trainable_before = bit_checksum(
             state[n].float() for n in self.trainable_names)
-        self.steps = StepCounts(data_iter)
+        del state                  # no second reference to any weight
+        if self.feed is not None:
+            data_iter = iter(self.feed)
+        self.steps = StepCounts(self._watch(data_iter))
         # every step logged (the CLI's default logs every 10th)
         return self.real(agent, vit, iter(self.steps), train_cfg,
                          dataclasses.replace(run_cfg, log_steps=1),
-                         device=device)
+                         device=device, mesh=mesh)
 
     def frozen_names(self):
         from seedx_tpu_torch.train.partition import path_labels
@@ -3159,6 +3210,66 @@ def cli_steps(label: str, run: CliRun, metrics, n_layers: int,
         if got != want or not np.isfinite(m["total_loss"]):
             raise AssertionError(f"{label} step {m['step']}: launches {got}"
                                  f" (want {want}), loss {m['total_loss']}")
+
+
+def train_cli_parallel(dev, dataset: str, out_dir: str, unsharded,
+                       n_layers: int, vit_layers: int) -> dict:
+    """``main(--parallel configs/parallel/fsdp.yaml)`` at full width on a
+    one-rank NCCL mesh (torchrun's environment for one process): the
+    factories' weights placed by ``place_params``, every collective of the
+    forward, the backward and the optimizer a one-rank NCCL call, fed the
+    unsharded CLI run's first two batches (the threaded tar reader's order
+    is not fixed from run to run).  Losses and grad norms of both steps
+    and the trainable leaves after them must be bit-equal to the unsharded
+    run's.  Logs ms a step both ways, the collectives a step (host calls)
+    and K1 / K4 / K5 launches a step.  Returns the launches."""
+    import torch
+    import torch.distributed as dist
+
+    from seedx_tpu_torch.parallel.distributed import COLLECTIVES
+    from seedx_tpu_torch.train import train_sft
+
+    batches, ref_metrics, ref_sum = unsharded
+    totals = {}
+    start_one_rank_group()
+    before = dict(COLLECTIVES)
+    t0 = time.perf_counter()
+    try:
+        with CliRun(feed=batches) as run:
+            # the unsharded run's schedule (its lr decays over
+            # CLI_STEPS); the loop ends with the two batches fed
+            state = train_sft.main(cli_argv(
+                dataset, out_dir, dev, "--max_steps", str(CLI_STEPS),
+                "--parallel", "configs/parallel/fsdp.yaml"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = {k: (COLLECTIVES[k] - before[k]) / 2 for k in COLLECTIVES}
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(x) for x in f]
+        cli_steps("train cli --parallel", run, metrics, n_layers,
+                  vit_layers, totals)
+        keys = ("total_loss", "lm_loss", "rec_loss", "grad_norm")
+        same = ([[m[k] for k in keys] for m in metrics]
+                == [[m[k] for k in keys] for m in ref_metrics])
+        ms = [[m["vit_ms"] + m["fwd_bwd_ms"] + m["opt_ms"] for m in ms_]
+              for ms_ in (metrics, ref_metrics)]
+        log(f"train cli --parallel configs/parallel/fsdp.yaml (one-rank "
+            f"NCCL mesh, {state.step} steps in {wall:.1f} s, the build "
+            f"included): ms a step {', '.join(f'{x:.1f}' for x in ms[0])} "
+            f"vs {', '.join(f'{x:.1f}' for x in ms[1])} unsharded; "
+            f"collectives a step (host calls) {json.dumps(calls)}; losses "
+            f"and grad norms bit-equal: {same}; trainable leaves after 2 "
+            f"steps bit-equal (checksum): {run.after_two == ref_sum}")
+        if not same or run.after_two != ref_sum or state.step != 2:
+            raise AssertionError("train cli --parallel: the one-rank mesh "
+                                 "run differs from the unsharded one")
+        del state, run
+    finally:
+        dist.destroy_process_group()
+        for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                    "MASTER_PORT"):
+            os.environ.pop(var, None)
+    return totals
 
 
 READER_BATCHES = 6
@@ -3290,6 +3401,8 @@ def run_train(dev):
             f"{CLI_STEPS} steps in {wall:.1f} s (the build and the data "
             f"stream included)")
         cli_steps("train cli", run, metrics, n, vit_layers, totals)
+        # the unsharded run's first two steps: the mesh run's reference
+        unsharded = (run.first, metrics[:2], run.after_two)
         if run.frozen_sum() != run.frozen_before:
             raise AssertionError("train cli: a frozen weight changed")
         log(f"train cli: frozen weights unchanged ({len(run.frozen_names())}"
@@ -3418,6 +3531,11 @@ def run_train(dev):
             raise AssertionError("train cli resume: no trainable leaf "
                                  f"changed after checkpoint-{CLI_STEPS}")
         del state, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        add_counts(totals, train_cli_parallel(
+            dev, yamls["comprehension_gen"], os.path.join(root, "mesh"),
+            unsharded, n, vit_layers))
     finally:
         checkpoints.CheckpointManager.save = base_save
         shutil.rmtree(root, ignore_errors=True)
@@ -4935,12 +5053,497 @@ def run_sharded(rt, dev, smi: str):
                 "MASTER_PORT"):
         os.environ.pop(var, None)
     run_two_ranks(smi)
+    run_two_rank_image(smi)
     g = torch.Generator(device=dev)
     g.manual_seed(15)
     check_ia3_k2(dev, g)
     check_seq_cls(dev, g)
     log(f"sharded phase: {time.perf_counter() - t0:.1f} s")
     return got[4]
+
+
+# ---- the split denoise and training on a mesh ------------------------------
+
+# the split denoise's collectives a CFG UNet eval at SDXL base width: one
+# halo a 3x3 conv, one all-reduce a GroupNorm, one K / V gather a
+# self-attention, then the rows (tensor) and the branches (data)
+SPLIT_EVAL_COLLECTIVES = {"halo": 40, "all_reduce": 46, "all_gather": 72}
+SPLIT2_SIZE, SPLIT2_STEPS = 512, 4   # the two-rank (gloo) denoise
+# the split bf16 images' distance to the fp32 UNet's at most this many
+# times the unsharded bf16 images' (a CFG of 7.5 over 4 steps lifts bf16
+# rounding to ~2e-2 either way: JAX's own 2e-2, tests/test_sharding.py,
+# is fp32's)
+SPLIT2_FACTOR = 2.0
+MESH_TRAIN_LAYOUTS = (("fsdp 2", (1, 2, 1)), ("tensor 2", (1, 1, 2)))
+MESH_LOSS_REL, MESH_NORM_REL = 1e-2, 2e-2
+MESH_UPDATE_REL = 5e-2
+
+
+def split_eval(adapter, dev, g):
+    """A CFG-2 eval of ``adapter``'s UNet on random inputs (a CFGEval):
+    (eval, its call)."""
+    import torch
+
+    from seedx_tpu_torch.models.sdxl.pipeline import CFGEval
+    from seedx_tpu_torch.utils.graphs import Graphs
+
+    lat, _, ctx, pooled, tids = unet_inputs(adapter, 2, dev, g)
+    lat = lat[:1, ..., :4].contiguous()
+    sigma = torch.tensor(7.0, device=dev)
+    t = torch.tensor(501.0, device=dev)
+
+    def make(graphs):
+        ev = CFGEval(adapter.unet, lat, ctx, pooled, tids, None, 7.5, 1.5,
+                     0.0, graphs)
+        ev.set_conditioning(ctx, pooled, tids, None)
+        return ev, lambda: ev(lat, sigma, t)
+
+    return make(Graphs(enabled=True)), make(None)
+
+
+
+def eval_collectives(call) -> dict:
+    """The host's collectives (``COLLECTIVES``) of one eager call."""
+    import torch
+
+    from seedx_tpu_torch.parallel.distributed import COLLECTIVES
+
+    before = dict(COLLECTIVES)
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    return {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES}
+
+
+def run_split_image(rt, dev, smi: str):
+    """Phase 8b: the split denoise at full width on a one-rank NCCL mesh.
+    The SDXL base adapter (sharing the runtime's ViT-bigG for its CFG
+    negative) generates from one set of agent features at 1024^2, Euler
+    ``T2I_STEPS``, CFG 2, captured: unsplit, then ``SDXLAdapter.shard``
+    on a one-rank mesh (CFG branches over data, latent rows over tensor,
+    every collective a one-rank NCCL call inside the captured eval); the
+    images must be bit-equal.  Logs the collectives of one eager split
+    eval by kind against ``SPLIT_EVAL_COLLECTIVES``, the wall ms of a
+    captured eval split and unsplit, K1 launches an eval.  Returns the
+    split run's launches (the unsplit twin's go to CHECKS)."""
+    import torch
+    import torch.distributed as dist
+
+    from seedx_tpu_torch.models.sdxl.unet import flash_launches_per_eval
+    from seedx_tpu_torch.parallel import create_mesh
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = build_adapter(dev, rt.vit, edit=False)
+    g = torch.Generator(device=dev).manual_seed(61)
+    embeds = torch.randn((1, 64, 4096), generator=g, device=dev).to(
+        torch.bfloat16)
+    runs, ms = {}, {}
+    for mode in ("unsplit", "split"):
+        if mode == "split":
+            start_one_rank_group()
+            base.shard(create_mesh(1, 1, 1))
+            (_, _), (_, eager) = split_eval(base, dev, g)
+            per_eval = eval_collectives(eager)
+        (ev, call), _ = split_eval(base, dev, g)
+        reset_counts()
+        with torch.no_grad():
+            call()                       # the warm run and the capture
+            ms[mode] = wall_ms(call)
+        add_counts(CHECKS, read_counts())
+        del ev, call
+        watch = UNetWatch(base)
+        timings = {}
+        images, counts = timed_run(f"split image: {mode}", lambda: (
+            base.generate(embeds, seed=0, num_inference_steps=T2I_STEPS,
+                          timings=timings)))
+        watch.check(f"split image: {mode}", T2I_STEPS, images)
+        runs[mode] = (images, counts, timings["denoise"] * 1e3 / T2I_STEPS)
+    same = np.array_equal(runs["unsplit"][0], runs["split"][0])
+    k1 = flash_launches_per_eval(base.cfg.unet)      # UNetWatch held it
+    log(f"split image: SDXL base 1024^2, Euler {T2I_STEPS}, CFG 2, "
+        f"captured, one-rank NCCL mesh ({smi}): collectives of one eager "
+        f"split eval (host calls) {json.dumps(per_eval)} (predicted "
+        f"{json.dumps(SPLIT_EVAL_COLLECTIVES)}); a captured eval "
+        f"{ms['split']:.2f} ms split vs {ms['unsplit']:.2f} ms unsplit "
+        f"(wall, +{ms['split'] - ms['unsplit']:.2f} ms); denoise "
+        f"{runs['split'][2]:.1f} vs {runs['unsplit'][2]:.1f} ms a step "
+        f"(host); K1 {k1} launches an eval; images bit-equal: {same}")
+    add_counts(CHECKS, runs["unsplit"][1])
+    dist.destroy_process_group()
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        os.environ.pop(var, None)
+    bad = {k: v for k, v in SPLIT_EVAL_COLLECTIVES.items()
+           if per_eval[k] != v}
+    if not same or bad:
+        raise AssertionError(f"split image: images bit-equal {same}, "
+                             f"collectives off the prediction {bad}")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"split image phase: {time.perf_counter() - t0:.1f} s")
+    return runs["split"][1]
+
+
+def rank_pair(mode: str, layout, timeout: int = 300) -> dict:
+    """Two processes of this script (``mode`` RANK ROOT LAYOUT), killed past
+    ``timeout``; rank 0's ``result.json``."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="rank_pair_")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               mode, str(r), root,
+                               ",".join(map(str, layout))])
+             for r in range(2)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=timeout)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if any(proc.returncode for proc in procs):
+        raise AssertionError(f"{mode} {layout}: exit codes "
+                             f"{[proc.returncode for proc in procs]}")
+    with open(os.path.join(root, "result.json")) as f:
+        return json.load(f)
+
+
+def gloo_pair(root: str, rank: int):
+    """This process's gloo group of two on the card (NCCL refuses two
+    ranks on one device)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(root, "store"), 2), rank=rank, world_size=2)
+    return torch.device("cuda", 0)
+
+
+def two_rank_image_worker(rank: int, root: str, layout) -> None:
+    """One of two ranks (``--two-rank-image``): the 8-channel SDXL edit
+    adapter at full width (seed 0) at ``SPLIT2_SIZE``^2, Euler
+    ``SPLIT2_STEPS``, eager; text to image (zeros for the condition) and
+    edit, unsharded, with the plain attention (the noise floor), then
+    split on the mesh ``layout``; rank 0 writes the results."""
+    import torch
+    import torch.distributed as dist
+
+    from seedx_tpu_torch.models.adapter import AdapterConfig, SDXLAdapter
+    from seedx_tpu_torch.models.detokenizer import DetokenizerConfig
+    from seedx_tpu_torch.models.sdxl.pipeline import SamplerConfig
+    from seedx_tpu_torch.models.sdxl.unet import (UNet2DCondition,
+                                                  sdxl_edit_unet)
+    from seedx_tpu_torch.parallel import create_mesh
+    from seedx_tpu_torch.parallel.distributed import COLLECTIVES
+
+    dev = gloo_pair(root, rank)
+    cfg = AdapterConfig(unet=sdxl_edit_unet(), resampler=DetokenizerConfig(),
+                        sampler=SamplerConfig(height=SPLIT2_SIZE,
+                                              width=SPLIT2_SIZE),
+                        with_latent_image=True)
+    ad = SDXLAdapter.random(cfg, seed=0, device=dev)
+    ad.graphs.enabled = False
+    g = torch.Generator(device=dev).manual_seed(62)
+    embeds, neg = (torch.randn((1, 64, cfg.resampler.embedding_dim),
+                               generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(2))
+    cond = torch.rand((1, SPLIT2_SIZE, SPLIT2_SIZE, 3), generator=g,
+                      device=dev) * 2 - 1
+
+    def both():
+        return [ad.generate(embeds, negative_embeds=neg, seed=0,
+                            num_inference_steps=SPLIT2_STEPS),
+                ad.generate(embeds, latent_image=cond, negative_embeds=neg,
+                            seed=0, num_inference_steps=SPLIT2_STEPS)]
+
+    ref = both()
+    with plain_unet_attention():
+        plain = both()
+    # the exact images' stand-in: the same UNet weights in fp32
+    unet = ad.unet
+    ad.unet = UNet2DCondition(dataclasses.replace(cfg.unet,
+                                                  dtype=torch.float32), dev)
+    ad.unet.load_state_dict(unet.state_dict())
+    exact = both()
+    ad.unet = unet
+    gc.collect()
+    torch.cuda.empty_cache()
+    ad.shard(create_mesh(*layout, device_type="cuda"))
+    before = dict(COLLECTIVES)
+    reset_counts()
+    got = both()
+    torch.cuda.synchronize()
+    res = {"collectives": {k: COLLECTIVES[k] - before[k]
+                           for k in COLLECTIVES},
+           "counts": read_counts(),
+           "err": [float(np.abs(a - b).max()) for a, b in zip(got, ref)],
+           "floor": [float(np.abs(a - b).max()) for a, b in zip(plain, ref)],
+           "split_exact": [float(np.abs(a - b).max())
+                           for a, b in zip(got, exact)],
+           "unsplit_exact": [float(np.abs(a - b).max())
+                             for a, b in zip(ref, exact)],
+           "shape": list(got[0].shape)}
+    if rank == 0:
+        with open(os.path.join(root, "result.json"), "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def run_two_rank_image(smi: str) -> None:
+    """The split denoise on two ranks on the one card over gloo, eager:
+    ``tensor`` 2 (the halo path) at ``SPLIT2_SIZE``^2; text to image and
+    edit no further from the fp32 UNet's images than ``SPLIT2_FACTOR``
+    times the unsharded bf16 run, the collectives of the two generates as
+    the modules count them.  Layouts over
+    ``data`` are held on the CPU only (tests/test_torch_split_denoise.py)."""
+    from seedx_tpu_torch.models.sdxl.unet import (Conv, GroupNorm,
+                                                  UNet2DCondition,
+                                                  flash_launches_per_eval,
+                                                  sdxl_edit_unet)
+    from seedx_tpu_torch.models.sdxl.vae import VAEConfig, VAEDecoder
+
+    t0 = time.perf_counter()
+    res = rank_pair("--two-rank-image", (1, 1, 2))
+    add_counts(CHECKS, res["counts"])
+    unet = UNet2DCondition(sdxl_edit_unet(), device="meta")
+    dec = VAEDecoder(VAEConfig(), device="meta")
+
+    def count(m, kind):
+        return sum(isinstance(c, kind) and (kind is not Conv
+                                            or c.kernel_size[0] == 3)
+                   for c in m.modules())
+
+    att = flash_launches_per_eval(sdxl_edit_unet())
+    evals = 2 * SPLIT2_STEPS
+    want = {"halo": evals * count(unet, Conv) + 2 * count(dec, Conv),
+            "all_reduce": evals * count(unet, GroupNorm)
+            + 2 * count(dec, GroupNorm),
+            "all_gather": evals * (att + 2) + 2 * 2}
+    got = {k: res["collectives"][k] for k in want}
+    log(f"split image: two ranks on the card, tensor 2 (gloo, eager), "
+        f"edit UNet {SPLIT2_SIZE}^2, Euler {SPLIT2_STEPS} ({smi}): text to "
+        f"image / edit max_abs_err {res['err'][0]:.3e} / "
+        f"{res['err'][1]:.3e} against the unsharded images (K1-vs-plain "
+        f"floor {res['floor'][0]:.3e} / {res['floor'][1]:.3e}); against "
+        f"the fp32 UNet's images: split {res['split_exact'][0]:.3e} / "
+        f"{res['split_exact'][1]:.3e}, unsharded bf16 "
+        f"{res['unsplit_exact'][0]:.3e} / {res['unsplit_exact'][1]:.3e} "
+        f"(limit {SPLIT2_FACTOR} x the unsharded); collectives "
+        f"{json.dumps(got)} (predicted {json.dumps(want)}); K1 "
+        f"{res['counts']['flash_fwd']} launches; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if got != want or any(s > SPLIT2_FACTOR * u for s, u in zip(
+            res["split_exact"], res["unsplit_exact"])) or min(
+            res["counts"]["flash_fwd"], 1) <= 0:
+        raise AssertionError(f"split image two ranks: {res}")
+
+
+def mesh_train_samples(tok, image_size: int):
+    """Two global batches of 8 captions at 260 tokens, one image (tile) a
+    row, so an fsdp split keeps each row's image with it."""
+    return sft_batches(tok, image_size, 64, 64)[1:]
+
+
+def two_rank_train_worker(rank: int, root: str, layouts) -> None:
+    """One of two ranks (``--two-rank-train``): the SEED-X agent at full
+    width cut to ``PARITY_LAYERS`` layers (bf16, LoRA r32, dropout on),
+    random weights from seed 11 (the same on both ranks), two global
+    caption batches encoded by a ViT-bigG (the factory's seed).  The
+    unsharded steps (3: b, b2, b), the same 2 with the plain attention
+    (the noise floor), then for each mesh of ``layouts`` (flattened
+    (data, fsdp, tensor) triples) 2 steps on this rank's rows; under fsdp
+    the mesh's checkpoint restored on one rank (no mesh) and its next
+    step.  Rank 0 writes the metrics, the errors and the bytes a rank."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from seedx_tpu_torch import config as config_lib
+    from seedx_tpu_torch.models.agent import ContinuousLVLM
+    from seedx_tpu_torch.models.layers import init_normal_
+    from seedx_tpu_torch.parallel import create_mesh
+    from seedx_tpu_torch.parallel.mesh import (gather_full, leaf_layout,
+                                               place_params)
+    from seedx_tpu_torch.text.tokenizer import load_tokenizer
+    from seedx_tpu_torch.train import checkpoints as ck
+    from seedx_tpu_torch.train import train_sft
+    from seedx_tpu_torch.train.trainer import (TrainConfig,
+                                               create_train_state,
+                                               make_train_step, mesh_groups)
+
+    dev = gloo_pair(root, rank)
+    vit = config_lib.instantiate_from_file(SFT_CONFIGS[2][1], device=dev)
+    batches = []
+    for b in mesh_train_samples(load_tokenizer(), vit.cfg.image_size):
+        d = train_sft._to_device(b, dev)
+        with torch.no_grad():
+            d["image_embeds"] = vit(d.pop("images"), d["patch_positions"])
+        batches.append(d)
+    del vit
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches.append(batches[0])
+    cfg = train_agent_cfg(PARITY_LAYERS)
+    tcfg = TrainConfig(warmup_steps=0, max_steps=10)
+
+    def fresh(mesh=None):
+        gen = torch.Generator(device=dev).manual_seed(11)
+        agent = init_normal_(ContinuousLVLM(cfg, dev), gen)
+        if mesh is not None:
+            place_params(agent, mesh)
+        st = create_train_state(agent, tcfg)
+        return agent, st, make_train_step(agent, tcfg)
+
+    def drop(i):
+        return torch.Generator(device=dev).manual_seed(500 + i)
+
+    def snap(agent, st):
+        groups = mesh_groups(agent)
+        return {n: (p.detach() if groups is None else gather_full(
+            p.detach(), leaf_layout(agent, n), groups)).to("cpu", copy=True)
+            for n, p in st.params.items()}
+
+    def run(agent, st, step, rows, n, first=0):
+        out = []
+        for i in range(first, first + n):
+            out.append((step(st, rows(batches[i]), drop(i)),
+                        snap(agent, st)))
+        return out
+
+    def update_err(got, want, init):
+        num = sum(float(((got[k] - want[k]).float() ** 2).sum())
+                  for k in want)
+        den = sum(float(((want[k] - init[k]).float() ** 2).sum())
+                  for k in want)
+        return (num / max(den, 1e-30)) ** 0.5
+
+    def errs(runs, ref):
+        return [{"loss": abs(m["total_loss"] - r[0]["total_loss"])
+                 / abs(r[0]["total_loss"]),
+                 "norm": abs(m["grad_norm"] - r[0]["grad_norm"])
+                 / abs(r[0]["grad_norm"]),
+                 "update": update_err(s, r[1], init)}
+                for (m, s), r in zip(runs, ref)]
+
+    def nbytes(st):
+        return sum(t.numel() * t.element_size()
+                   for m in st.opt_state.values() for t in m.values())
+
+    def whole(b):
+        return b
+
+    agent, st, step = fresh()
+    init = snap(agent, st)
+    res = {"bytes_full": resident_bytes(agent), "opt_full": nbytes(st)}
+    ref = run(agent, st, step, whole, 3)
+    del agent, st, step
+    agent, st, step = fresh()
+    agent.llm.layers.cfg = dataclasses.replace(cfg.llm,
+                                               attention_impl="plain")
+    res["floor"] = errs(run(agent, st, step, whole, 2), ref)
+    res["ref_metrics"] = [{k: m[k] for k in ("total_loss", "grad_norm")}
+                          for m, _ in ref]
+    del agent, st, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["layouts"] = []
+    for i in range(0, len(layouts), 3):
+        layout = tuple(layouts[i:i + 3])
+        agent, st, step = fresh(create_mesh(*layout, device_type="cuda"))
+        groups = mesh_groups(agent)
+        out = {"layout": list(layout), "bytes": resident_bytes(agent),
+               "opt": nbytes(st)}
+
+        def rows(b):
+            n, j = groups.batch_count, groups.batch_index
+            return {k: v[j * (len(v) // n):(j + 1) * (len(v) // n)]
+                    for k, v in b.items()}
+
+        reset_counts()
+        got = run(agent, st, step, rows, 2)
+        torch.cuda.synchronize()
+        out["counts"] = read_counts()
+        out["mesh"] = errs(got, ref)
+        out["metrics"] = [{k: m[k] for k in ("total_loss", "grad_norm")}
+                          for m, _ in got]
+        path = os.path.join(root, "ckpt")
+        if layout[1] > 1:
+            ck.save_train_state(ck.CheckpointManager(path), st, agent)
+        del agent, st, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if layout[1] > 1:
+            if rank == 0:
+                agent, st, step = fresh()
+                ck.restore_train_state(ck.CheckpointManager(path), st, agent)
+                out["resume"] = dict(errs(run(agent, st, step, whole, 1,
+                                              first=2), ref[2:])[0],
+                                     step=st.step)
+                del agent, st, step
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        res["layouts"].append(out)
+    if rank == 0:
+        with open(os.path.join(root, "result.json"), "w") as f:
+            json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_mesh_train(smi: str) -> dict:
+    """Training on two ranks on the one card over gloo, eager, at full
+    width cut to ``PARITY_LAYERS`` layers: fsdp 2, then tensor 2, in one
+    pair of processes.  Steps 1 and 2 (loss, grad norm, every trainable
+    leaf's update) against the unsharded run's within the stated limits,
+    beside the same numbers for the unsharded run with the plain
+    attention (the noise floor); the fsdp 2 run's checkpoint restored on
+    one rank and its next step held against the unsharded run's third.
+    Returns the mesh steps' launches (the main path of training on a
+    mesh)."""
+    t0 = time.perf_counter()
+    totals = {}
+    res = rank_pair("--two-rank-train", sum(
+        (layout for _, layout in MESH_TRAIN_LAYOUTS), ()), timeout=500)
+    floor = max(f["update"] for f in res["floor"])
+
+    def fmt(cs):
+        return "; ".join(f"loss {c['loss']:.2e} norm {c['norm']:.2e} "
+                         f"update {c['update']:.2e}" for c in cs)
+
+    log(f"mesh train: the unsharded run's K1-vs-plain floor (relative): "
+        f"{fmt(res['floor'])}; its metrics {json.dumps(res['ref_metrics'])}")
+    for (name, _), out in zip(MESH_TRAIN_LAYOUTS, res["layouts"]):
+        add_counts(totals, out["counts"])
+        checks = out["mesh"] + ([out["resume"]] if "resume" in out else [])
+        bad = [c for c in checks
+               if not (c["loss"] <= MESH_LOSS_REL and c["norm"]
+                       <= MESH_NORM_REL and c["update"]
+                       <= max(MESH_UPDATE_REL, 4 * floor))]
+        log(f"mesh train: {name} (gloo, eager, {PARITY_LAYERS} layers at "
+            f"full width, {smi}): steps 1-2 against the unsharded run "
+            f"(relative): {fmt(out['mesh'])} (limits {MESH_LOSS_REL} / "
+            f"{MESH_NORM_REL} / max({MESH_UPDATE_REL}, 4 x the floor)); "
+            f"metrics {json.dumps(out['metrics'])}"
+            + (f"; the checkpoint restored on one rank, step 3: "
+               f"{fmt([out['resume']])}" if "resume" in out else "")
+            + f"; weights a rank {out['bytes']} bytes (unsharded "
+            f"{res['bytes_full']}), Adam moments a rank {out['opt']} "
+            f"(unsharded {res['opt_full']}); launches a rank for 2 steps "
+            f"K1 {out['counts']['flash_fwd']} K4 "
+            f"{out['counts']['flash_bwd_dq']} K5 "
+            f"{out['counts']['flash_bwd_dkv']}")
+        if bad or min(out["counts"][k] for k in (
+                "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")) <= 0:
+            raise AssertionError(f"mesh train {name}: {out}")
+    log(f"mesh train phase: {time.perf_counter() - t0:.1f} s")
+    return totals
 
 
 def ptxas_entries(report: str):
@@ -5036,6 +5639,7 @@ def main() -> int:
     log(f"generation phase: {time.perf_counter() - t_gen:.1f} s")
     run_parity(dev, requests, budgets)
     add_counts(launches, run_image_out(rt, dev, smi))
+    add_counts(launches, run_split_image(rt, dev, smi))
     add_counts(launches, run_sharded(rt, dev, smi))
     # the HTTP handler classes hold the servers, and so the runtime, in
     # reference cycles: collect them before the train model is built
@@ -5043,6 +5647,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     add_counts(launches, run_train(dev))
+    add_counts(launches, run_mesh_train(smi))
     add_counts(launches, run_adapter_train(dev, smi))
     add_counts(launches, run_load(dev, smi))
     log(f"main path (turn, serving, chat, generation, image out, train "
@@ -5096,8 +5701,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--two-rank"]:
-        two_rank_worker(int(sys.argv[2]), sys.argv[3],
-                        tuple(int(v) for v in sys.argv[4].split(",")))
+    workers = {"--two-rank": two_rank_worker,
+               "--two-rank-image": two_rank_image_worker,
+               "--two-rank-train": two_rank_train_worker}
+    if sys.argv[1:2] and sys.argv[1] in workers:
+        workers[sys.argv[1]](int(sys.argv[2]), sys.argv[3],
+                             tuple(int(v) for v in sys.argv[4].split(",")))
         sys.exit(0)
     sys.exit(main())

@@ -118,13 +118,15 @@ def read_tar_shards(path: str) -> Iterator[Dict[str, Any]]:
 # ---------------------------------------------------------------------------
 
 def process_rank():
-    """(rank, world size) of this process: ``torch.distributed``'s when it
-    is initialised, else (0, 1) (the JAX package's process index / count)."""
-    import torch.distributed as dist
+    """(index, count) of this process among the readers of different data
+    (the JAX package's process index / count): on a mesh its coordinate
+    over the batch axes (data x fsdp), so ``tensor`` peers, which are
+    processes of their own here, read the same rows; else the
+    ``torch.distributed`` rank and world size when a group is initialised,
+    else (0, 1) (``parallel.distributed.batch_coordinate``)."""
+    from seedx_tpu_torch.parallel.distributed import batch_coordinate
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return batch_coordinate()
 
 
 def read_tar_shards_multi(paths, num_threads: int = 4,

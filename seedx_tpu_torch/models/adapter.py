@@ -23,13 +23,15 @@ puts its own switch here), so ``text_to_image``, ``edit_image``,
 ``reconstruct`` and ``reconstruct_with_condition`` share them.  They are
 inference only: training never runs under them.
 
-``shard(mesh)`` places the adapter on a mesh replicated (the JAX
-package's weight placement, reference adapter.py:107-151): every rank
-holds the whole UNet, VAE and resampler, broadcast from the mesh's first
-rank, and runs the whole denoise, giving the same images.  Splitting the
-denoise activations (CFG branches over ``data``, latent rows over
-``tensor`` with conv halos: the JAX package's ``_spatial_constraint``,
-unet.py:45, vae.py:31) is not ported yet.
+``shard(mesh)`` places the adapter on a mesh as the JAX package does
+(reference adapter.py:107-151): every rank holds the whole UNet, VAE and
+resampler, broadcast from the mesh's first rank, and the denoise
+activations split by the rules ``("cfg_batch", ...)`` and ``("height",
+...)`` (default: CFG branches over ``data``, latent rows over ``tensor``
+with conv halos; ``models/sdxl/unet.RowSplit``), as the JAX package's
+``_spatial_constraint`` (unet.py:43-45, vae.py:25) inside ``_mesh_scope``.
+The UNet and the VAE decoder run split; the conditioning and the VAE
+encoder run whole on every rank, and every rank returns the whole image.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ from seedx_tpu_torch.models.sdxl.pipeline import (CFGEval, SamplerConfig,
                                                   denoise_text2image,
                                                   prepare_latents)
 from seedx_tpu_torch.models.sdxl.scheduler import make_schedule
-from seedx_tpu_torch.models.sdxl.unet import UNet2DCondition, UNetConfig
+from seedx_tpu_torch.models.sdxl.unet import (UNet2DCondition, UNetConfig,
+                                              row_split, split_rows)
 from seedx_tpu_torch.models.sdxl.vae import (VAEConfig, VAEDecoder,
                                              VAEEncoder, sample_moments)
 from seedx_tpu_torch.models.vit import vit_downsample
@@ -144,6 +147,7 @@ class SDXLAdapter:
         self.cfg = dataclasses.replace(self.cfg, unet=ucfg)
         # the evals of the bf16 UNet hold it: let both go
         self.evals.clear()
+        split_rows(unet, row_split(self.unet))
         self.unet = unet
         return self
 
@@ -154,11 +158,19 @@ class SDXLAdapter:
         broadcast in place from the mesh's first rank (so every rank holds
         the same bytes and captured evals keep their addresses).  A visual
         encoder already placed on a mesh (the runtime's ViT, shared) keeps
-        its placement; any other is replicated too.  Sets ``mesh`` and
-        ``rules``."""
+        its placement; any other is replicated too.  Then the UNet and the
+        VAE decoder split their activations as the rules map
+        ``cfg_batch`` and ``height`` onto the mesh axes (a split over one
+        rank runs its collectives too: the one-card path is the path of a
+        larger mesh).  Each group runs one collective here (NCCL sets its
+        communicators up then, never under a capture); under gloo the
+        captured evals are off.  Sets ``mesh`` and ``rules``."""
         import torch.distributed as dist
 
-        from seedx_tpu_torch.parallel.mesh import DEFAULT_RULES
+        from seedx_tpu_torch.models.sdxl.unet import RowSplit
+        from seedx_tpu_torch.parallel.distributed import MeshGroups
+        from seedx_tpu_torch.parallel.mesh import (DEFAULT_RULES,
+                                                   logical_to_mesh_axes)
 
         group = dist.new_group(mesh.mesh.flatten().tolist())
         src = int(mesh.mesh.flatten()[0])
@@ -176,6 +188,20 @@ class SDXLAdapter:
                     dist.broadcast(t.data, src=src, group=group)
         self.mesh = mesh
         self.rules = tuple(rules) if rules is not None else DEFAULT_RULES
+        batch, rows = logical_to_mesh_axes(("cfg_batch", "height"),
+                                           self.rules)
+        if not (isinstance(batch, str) and isinstance(rows, str)):
+            raise ValueError(f"the denoise splits its CFG batch and its "
+                             f"rows over one mesh axis each, the rules give "
+                             f"{batch!r} and {rows!r}")
+        groups = MeshGroups(mesh)
+        groups.warm_up(self.device)
+        if groups.backend == "gloo":
+            self.graphs.enabled = False
+        split = RowSplit(groups, rows=rows, batch=batch)
+        split_rows(self.unet, split)
+        split_rows(self.vae_decoder, split)
+        self.evals.clear()          # the evals of the unsplit UNet
         return self
 
     # ---- conditioning ------------------------------------------------------

@@ -169,7 +169,9 @@ class ContinuousLVLM(nn.Module):
         logits, hidden = self.llm.forward_train(
             input_embeds, positions_from_mask(attention_mask),
             attention_mask.to(torch.bool), generator)
-        lm_loss = causal_lm_loss(logits, labels)
+        # on a mesh both losses are means over the global batch
+        par = self.llm.lm_head.__dict__.get("_par")
+        lm_loss = causal_lm_loss(logits, labels, par)
         rec_loss = torch.zeros((), dtype=torch.float32,
                                device=lm_loss.device)
         if image_embeds is not None:
@@ -191,6 +193,8 @@ class ContinuousLVLM(nn.Module):
             slot_valid = (torch.arange(n_slots, device=num_gen.device)
                           < num_gen)[:, None, None]
             sq = (recon.float() - target.float()) ** 2
+            if par is not None:
+                num_gen = par.batch_sum(num_gen.clone())
             denom = (torch.clamp(num_gen, min=1) * target.shape[1]
                      * target.shape[2])
             rec_loss = torch.where(slot_valid, sq, 0.0).sum() / denom

@@ -24,7 +24,14 @@ heads or MLP columns), ``"row"`` (its input rows: partial sums
 all-reduced over the tensor group before the IA3 output scale and the
 bias; under int4 every row is quantized against the whole row's absmax,
 an all-reduce MAX, so the shards sum to the unsharded W4A8 product), or
-None (everything gathered, the whole product).
+None (everything gathered, the whole product).  Training on a mesh takes
+its gradients through these collectives: a trainable leaf's fsdp gather
+reduce-scatters its gradient, a column-parallel input all-reduces its
+dx (Megatron's "f", ``col_input``), a row-parallel sum passes its
+gradient on (``reduce_partial``, "g"); LoRA's rank-r bottleneck is whole
+on every tensor rank, so no replicated leaf gets a partial gradient; and
+dropout keeps this rank's block of the unsharded step's mask
+(``dropout_mask``).
 """
 
 from __future__ import annotations
@@ -55,7 +62,12 @@ def leaf(mod: nn.Module, name: str, layer: Optional[int] = None
     gathers = mod.__dict__.get("_gathers")
     if gathers:
         for dim, axis in gathers.get(name, ()):
-            t = mod._par.all_gather(t, dim, axis, key=(id(mod), name, dim))
+            if t.requires_grad:
+                # a trainable leaf: its gradient is reduce-scattered back
+                t = mod._par.gather_leaf(t, dim, axis)
+            else:
+                t = mod._par.all_gather(t, dim, axis,
+                                        key=(id(mod), name, dim))
     return t
 
 
@@ -67,8 +79,36 @@ def tensor_size(mod: nn.Module) -> int:
 
 def reduce_partial(mod: nn.Module, y: torch.Tensor) -> torch.Tensor:
     """Sum a row-parallel product's partial sums over the tensor group (in
-    fp32, one rounding back)."""
-    return mod._par.all_reduce(y.float()).to(y.dtype)
+    fp32, one rounding back); the backward is the identity (Megatron's
+    "g")."""
+    return mod._par.reduce_from(y)
+
+
+def col_input(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel product: the identity, whose backward
+    sums each rank's partial dx over the tensor group (Megatron's "f")."""
+    return mod._par.copy_to(x) if x.requires_grad else x
+
+
+def dropout_mask(x: torch.Tensor, rate: float, generator: torch.Generator,
+                 mod: nn.Module, split_cols: bool) -> torch.Tensor:
+    """The keep mask of ``x`` [B, ..., F]: drawn for the unsharded step's
+    whole input, of which this rank keeps its rows (its block of the batch
+    axes, data x fsdp) and, with ``split_cols`` (a row-parallel input),
+    its block of the tensor-split last dim; so a sharded step drops what
+    the unsharded one drops, from the same generator."""
+    par = mod.__dict__.get("_par")
+    if par is None:
+        return torch.rand(x.shape, generator=generator,
+                          device=x.device) < 1.0 - rate
+    nb, nt = par.batch_count, par.size["tensor"] if split_cols else 1
+    b, f = x.shape[0], x.shape[-1]
+    keep = torch.rand((nb * b,) + x.shape[1:-1] + (nt * f,),
+                      generator=generator, device=x.device) < 1.0 - rate
+    keep = keep[par.batch_index * b:(par.batch_index + 1) * b]
+    if nt > 1:
+        keep = keep[..., par.rank["tensor"] * f:(par.rank["tensor"] + 1) * f]
+    return keep
 
 
 class Stacked(nn.Module):
@@ -117,6 +157,8 @@ class PDense(Stacked):
 
     def forward(self, x: torch.Tensor,
                 layer: Optional[int] = None) -> torch.Tensor:
+        if self.tp == "col":
+            x = col_input(self, x)
         y = x.to(self.dtype) @ self.dense_kernel(layer)
         if self.tp == "row":
             y = reduce_partial(self, y)
@@ -183,6 +225,9 @@ class LoRADense(PDense):
                 dropout: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.ia3 == "in":
             x = x * self.w("ia3_scale", layer).to(x.dtype)
+        xl = x                      # the LoRA branch's input
+        if self.tp == "col":
+            x = col_input(self, x)
         if self.quantize == "int4":
             scale, amax = self.w("kernel_scale", layer), None
             if self.tp == "row":
@@ -195,18 +240,27 @@ class LoRADense(PDense):
                                  scale, *(() if amax is None else (amax,)))
         else:
             y = x.to(self.dtype) @ self.dense_kernel(layer)
-        if self.lora_rank > 0:
-            xd = x
-            rate = self.lora_dropout
-            if rate > 0.0 and dropout is not None:
-                keep = torch.rand(x.shape, generator=dropout,
-                                  device=x.device) < 1.0 - rate
-                xd = torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
-            delta = ((xd.to(self.dtype) @ self.w("lora_a", layer))
-                     @ self.w("lora_b", layer))
-            y = y + (self.lora_alpha / self.lora_rank) * delta
         if self.tp == "row":
             y = reduce_partial(self, y)
+        if self.lora_rank > 0:
+            xd = xl
+            rate = self.lora_dropout
+            if rate > 0.0 and dropout is not None:
+                keep = dropout_mask(xl, rate, dropout, self,
+                                    split_cols=self.tp == "row")
+                xd = torch.where(keep, xl / (1.0 - rate), 0.0).to(xl.dtype)
+            # on a mesh the rank-r bottleneck h is whole on every tensor
+            # rank: a column-parallel layer's h enters its local lora_b
+            # columns through "f" (so lora_a's gradient is whole), a
+            # row-parallel layer's partial h is summed before the
+            # replicated lora_b (so lora_b's gradient is whole)
+            h = xd.to(self.dtype) @ self.w("lora_a", layer)
+            if self.tp == "col":
+                h = col_input(self, h)
+            elif self.tp == "row":
+                h = reduce_partial(self, h)
+            delta = h @ self.w("lora_b", layer)
+            y = y + (self.lora_alpha / self.lora_rank) * delta
         if self.ia3 == "out":
             y = y * self.w("ia3_scale", layer).to(y.dtype)
         if self.use_bias:

@@ -51,7 +51,10 @@ own heads, and its KV cache holds only those (``kv_heads``).  Where the
 heads do not divide over ``tensor`` (or an int4 o_proj's row shard would
 cut a quantization group) attention runs whole on every rank; where an
 int4 down_proj's row shard would cut a group (13824 / 8), down_proj
-gathers its input and its weight and runs whole.
+gathers its input and its weight and runs whole.  Training on a mesh:
+the embedding's all-reduce and the logits' gather carry gradients
+(``MeshGroups.reduce_from`` / ``gather_from``), and ``causal_lm_loss``
+divides by the global batch's label count.
 """
 
 from __future__ import annotations
@@ -402,7 +405,7 @@ class Embedder(nn.Module):
             rows = leaf(self, "embedding")[ids].to(dt)
         if ok is not None:
             rows = torch.where(ok[..., None], rows, 0.0)
-            rows = self._par.all_reduce(rows.float()).to(dt)
+            rows = self._par.reduce_from(rows)
         return rows
 
 
@@ -438,7 +441,10 @@ class LlamaForCausalLM(nn.Module):
         mesh), pad columns masked to -1e9 (reference llama.py:494-499)."""
         logits = self.lm_head(hidden)
         if self.lm_head.tp == "col":
-            logits = self.lm_head._par.all_gather(logits, -1, "tensor")
+            par = self.lm_head._par
+            # training: the gather's backward keeps this rank's vocab block
+            logits = (par.gather_from(logits, -1) if logits.requires_grad
+                      else par.all_gather(logits, -1, "tensor"))
         cfg = self.cfg
         if cfg.padded_vocab_size != cfg.vocab_size:
             keep = torch.arange(logits.shape[-1], device=logits.device) \
@@ -636,9 +642,15 @@ class LlamaForCausalLM(nn.Module):
                      block_tables=block_tables, page=page, packed=packed)
 
 
-def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   groups=None) -> torch.Tensor:
     """Shifted cross-entropy over fp32 log-softmax, mean over the labels
-    that are not ``IGNORE_INDEX`` (reference llama.py:503-514)."""
+    that are not ``IGNORE_INDEX`` (reference llama.py:503-514).  With a
+    mesh's ``groups`` (``parallel.distributed.MeshGroups``) the mean is
+    the global batch's, as the JAX package's loss under SPMD: this rank's
+    sum over the valid labels of the whole batch (their count summed over
+    the batch axes), so the ranks' losses and gradients sum to the
+    global ones."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != IGNORE_INDEX
@@ -646,7 +658,10 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(shift_logits, dim=-1)
     token_ll = torch.gather(logp, -1, safe[..., None])[..., 0]
     total = torch.where(valid, -token_ll, 0.0).sum()
-    return total / torch.clamp(valid.sum(), min=1)
+    count = valid.sum()
+    if groups is not None:
+        count = groups.batch_sum(count)
+    return total / torch.clamp(count, min=1)
 
 
 class LlamaForSequenceClassification(nn.Module):

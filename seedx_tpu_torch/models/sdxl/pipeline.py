@@ -12,6 +12,14 @@ and the solver state in fp32, the UNet's eps and the CFG combination in
 the UNet's compute dtype, ``decode_latents`` in fp32.  CFG combines in eps
 space: the combination is affine with weights summing to 1, so it commutes
 with the reference's eps -> x0 conversion (its "sigma-space hack").
+
+On a row split (``unet.RowSplit``, ``SDXLAdapter.shard``) the eval also
+splits its CFG batch over the split's ``batch`` axis (the rule
+``("cfg_batch", "data")``): each rank runs the UNet on its block of the
+branches (padded with zero rows to a multiple of the axis, as GSPMD
+pads, the pad rows dropped after the gather), its rows split inside the
+UNet, and the branches are gathered before the guidance combine, so
+every rank holds the same eps and steps the same latents.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from seedx_tpu_torch.models.sdxl.scheduler import (EulerSchedule,
                                                    dpmpp_2m_step,
                                                    dpmpp_3m_step, euler_step,
                                                    scale_model_input)
+from seedx_tpu_torch.models.sdxl.unet import row_split
 from seedx_tpu_torch.utils.graphs import Graphs, Program
 
 
@@ -118,7 +127,12 @@ def cfg_eps(unet, lat: torch.Tensor, sigma, t, context: torch.Tensor,
     scaled = scale_model_input(torch.cat([lat] * n), sigma)
     if cond is not None:
         scaled = torch.cat([scaled, cond.to(scaled.dtype)], dim=-1)
-    eps = unet(scaled, t.expand(len(scaled)), context, pooled, time_ids)
+    split = row_split(unet)
+    if split is None:
+        eps = unet(scaled, t.expand(len(scaled)), context, pooled, time_ids)
+    else:
+        eps = _split_branches(unet, split, scaled, t, context, pooled,
+                              time_ids)
     if cond is None:
         eps_uncond, eps_text = eps.chunk(2)
         eps_cfg = eps_uncond + guidance_scale * (eps_text - eps_uncond)
@@ -135,6 +149,24 @@ def cfg_eps(unet, lat: torch.Tensor, sigma, t, context: torch.Tensor,
     return eps_cfg
 
 
+def _split_branches(unet, split, scaled, t, context, pooled, time_ids):
+    """The UNet over this rank's block of the CFG batch (zero-padded to a
+    multiple of the batch axis), then every rank's eps, pad rows
+    dropped."""
+    groups, axis = split.groups, split.batch
+    d, r, rows = groups.size[axis], groups.rank[axis], scaled.shape[0]
+    per = -(-rows // d)
+
+    def mine(x):
+        if per * d != rows:
+            x = torch.cat([x, x.new_zeros((per * d - rows,) + x.shape[1:])])
+        return x[r * per:(r + 1) * per]
+
+    eps = unet(mine(scaled), t.expand(per), mine(context), mine(pooled),
+               mine(time_ids))
+    return groups.all_gather(eps, 0, axis)[:rows]
+
+
 class CFGEval:
     """``cfg_eps`` over static buffers, as one program (the body of the
     JAX package's ``_solver_scan``): the latents, sigma and timestep are
@@ -142,7 +174,8 @@ class CFGEval:
     (``set_conditioning``); on the card the eval is a captured CUDA graph
     replayed once a step while ``graphs`` is on (None: always eager), its
     eps a static output the next step overwrites.  An owner keeps one per
-    ``key`` (UNet, CFG batch, latent shape, dtypes, guidance)."""
+    ``key`` (UNet, its row split, CFG batch, latent shape, dtypes,
+    guidance)."""
 
     def __init__(self, unet, lat, context, pooled, time_ids, cond,
                  guidance_scale: float, image_guidance_scale: float,
@@ -168,8 +201,10 @@ class CFGEval:
         shapes = tuple((tuple(x.shape), x.dtype) for x in
                        (lat, context, pooled, time_ids) + (
                            () if cond is None else (cond,)))
-        return ("cfg_eval", id(unet), shapes, float(guidance_scale),
-                float(image_guidance_scale), float(guidance_rescale))
+        split = row_split(unet)
+        return ("cfg_eval", id(unet), None if split is None else split.key,
+                shapes, float(guidance_scale), float(image_guidance_scale),
+                float(guidance_rescale))
 
     def set_conditioning(self, context, pooled, time_ids, cond) -> None:
         self.context.copy_(context)

@@ -26,13 +26,31 @@ fp32 per-output-channel scale applied to the output (``Dense8`` /
 impl="auto")``, as in the JAX module: the flash kernel (K1) for a CUDA
 bf16 tensor, the plain path otherwise; cross-attention (64 context
 tokens) is plain.
+
+Row split (``RowSplit``, set by ``split_rows``; ``SDXLAdapter.shard``
+from the rules ``("height", "tensor")`` / ``("cfg_batch", "data")``):
+from ``conv_in`` to ``conv_out`` each rank holds a contiguous block of
+H / n latent rows, where the JAX package's ``_spatial_constraint``
+splits them (unet.py:43-45) and GSPMD derives the rest.  Here it is
+written out: a 3x3 conv takes the rows its block reads past its edges
+from its neighbours (``MeshGroups.halo``; zeros at the image's top and
+bottom), worked out from its stride (1 above and 1 below at stride 1, 1
+above at stride 2), an upsample takes one source row each side before it
+repeats them; GroupNorm sums its fp32 statistics over the ranks;
+self-attention keeps its query rows and gathers the keys and values
+(K1 with Sq = the block's tokens, Skv = all); the 1x1 convs, the
+projections, LayerNorm, the FF and cross-attention (keys and values from
+the conditioning every rank holds) stay local.  The output rows are
+gathered at the end.  Every conv pads its rows itself (zeros, or the
+halo) and convolves with row padding 0, split or not, so a split over
+one rank is the unsplit forward bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -105,6 +123,53 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     return emb
 
 
+class RowSplit:
+    """Latent rows over the ``rows`` axis and CFG branches over the
+    ``batch`` axis of a mesh (``parallel.distributed.MeshGroups``)."""
+
+    def __init__(self, groups, rows: str = "tensor", batch: str = "data"):
+        self.groups, self.rows, self.batch = groups, rows, batch
+        self.n, self.r = groups.size[rows], groups.rank[rows]
+
+    @property
+    def key(self) -> tuple:
+        return (id(self.groups), self.rows, self.n, self.batch,
+                self.groups.size[self.batch])
+
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of rows of a whole NHWC tensor."""
+        h = x.shape[1]
+        if h % self.n:
+            raise ValueError(f"{h} rows do not split over {self.n} ranks")
+        k = h // self.n
+        return x[:, self.r * k:(self.r + 1) * k]
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's block along ``dim``: its rows (NHWC dim 1) or its
+        tokens (the rows flattened)."""
+        return self.groups.all_gather(x, dim, self.rows)
+
+    def halo(self, x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
+        return self.groups.halo(x, top, bottom, self.rows)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.groups.all_reduce(t, self.rows)
+
+
+def split_rows(module: nn.Module, split: Optional[RowSplit]) -> nn.Module:
+    """Run ``module`` (a UNet or VAE decoder) on ``split`` (None: whole)."""
+    for m in module.modules():
+        if split is None:
+            vars(m).pop("_rows", None)
+        else:
+            m._rows = split
+    return module
+
+
+def row_split(module: nn.Module) -> Optional[RowSplit]:
+    return vars(module).get("_rows")
+
+
 def master(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A trainable leaf (an fp32 ``nn.Parameter``) cast to ``dtype`` at its
     use; a frozen buffer as it is."""
@@ -122,8 +187,11 @@ class GroupNorm(nn.Module):
         self.register_buffer("bias", torch.zeros(channels, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm_fp32_stats(x, self.scale, self.bias,
-                                     self.num_groups, self.epsilon)
+        split = row_split(self)
+        return group_norm_fp32_stats(
+            x, self.scale, self.bias, self.num_groups, self.epsilon,
+            None if split is None else split.sum,
+            1 if split is None else split.n)
 
 
 class LayerNorm(nn.Module):
@@ -192,6 +260,7 @@ class Conv(nn.Module):
             raise ValueError(f"quantize must be none|int8: {quantize}")
         self.quantize, self.dtype = quantize, dtype
         self.stride, self.padding = stride, padding
+        self.kernel_size = tuple(kernel_size)
         shape = (features, in_channels) + tuple(kernel_size)
         if quantize == "int8":
             self.register_buffer("weight_q", torch.zeros(
@@ -206,12 +275,48 @@ class Conv(nn.Module):
         self.register_buffer("bias", torch.zeros(features, dtype=dtype,
                                                  device=device))
 
+    def row_pads(self, h: int) -> Tuple[int, int]:
+        """(above, below): the input rows a block of ``h`` rows needs past
+        its edges, from the stride and the row padding; below < 0 drops
+        rows no output reads.  Split over n ranks, each rank's output
+        rows must read from its own block's start on."""
+        pad = self.padding
+        top, bottom = (pad, pad) if isinstance(pad, int) else pad[0]
+        k, s = self.kernel_size[0], self.stride
+        split = row_split(self)
+        n = 1 if split is None else split.n
+        out = (h * n + top + bottom - k) // s + 1
+        if out % n or (n > 1 and out // n * s != h):
+            raise ValueError(f"a stride-{s} conv over {h * n} rows does not "
+                             f"split into {n} blocks of {h}")
+        return top, (out // n - 1) * s + k - top - h
+
+    def pad_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` with the rows ``row_pads`` asks for: the neighbours' rows
+        (``halo``) on a split, zeros past the image's edges."""
+        top, below = self.row_pads(x.shape[1])
+        if below < 0:
+            x, below = x[:, :x.shape[1] + below], 0
+        if not (top or below):
+            return x
+        split = row_split(self)
+        if split is not None:
+            return split.halo(x, top, below)
+        return torch.cat([x.new_zeros((x.shape[0], top) + x.shape[2:]), x,
+                          x.new_zeros((x.shape[0], below) + x.shape[2:])], 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv_rows(self.pad_rows(x.to(self.dtype)))
+
+    def conv_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution of an input whose rows are padded already."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         pad = self.padding
-        if not isinstance(pad, int):
-            (top, bottom), (left, right) = pad
-            x, pad = F.pad(x, (left, right, top, bottom)), 0
+        if isinstance(pad, int):
+            pad = (0, pad)
+        else:
+            (_, (left, right)) = pad
+            x, pad = F.pad(x, (left, right)), 0
         if self.quantize == "int8":
             y = F.conv2d(x, self.weight_q.to(self.dtype), None, self.stride,
                          pad)
@@ -259,17 +364,24 @@ class CrossAttention(nn.Module):
         self.to_out = Dense(query_dim, query_dim, **kw)
 
     def forward(self, x: torch.Tensor, context=None) -> torch.Tensor:
-        context = x if context is None else context
-
         def split(t):
             return t.reshape(*t.shape[:-1], self.heads, self.head_dim)
 
-        # auto: self-attention (4096 / 1024 tokens at 1024^2, no mask) takes
-        # the flash kernel on the card; cross-attention (kv = the 64
-        # detokenizer tokens) stays plain
-        out = dot_product_attention(split(self.to_q(x)),
-                                    split(self.to_k(context)),
-                                    split(self.to_v(context)), impl="auto")
+        if context is None:
+            k, v = self.to_k(x), self.to_v(x)
+            rows = row_split(self)
+            if rows is not None:
+                # local queries against every rank's keys and values
+                k, v = rows.gather(torch.stack([k, v]), 2).unbind(0)
+        else:
+            k, v = self.to_k(context), self.to_v(context)
+        # auto: self-attention (4096 / 1024 tokens at 1024^2, no mask; on a
+        # row split the block's queries against every key, which q_offset
+        # marks as the kernel's case) takes the flash kernel on the card;
+        # cross-attention (kv = the 64 detokenizer tokens) stays plain
+        out = dot_product_attention(split(self.to_q(x)), split(k), split(v),
+                                    impl="auto",
+                                    q_offset=0 if context is None else None)
         return self.to_out(out.reshape(*x.shape[:-1], -1))
 
 
@@ -341,6 +453,20 @@ def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
+def upsample_conv(conv: Conv, x: torch.Tensor) -> torch.Tensor:
+    """Nearest x2, then ``conv`` (3x3, padding 1): one source row each side
+    (the neighbours' on a split, else zeros), repeated, gives the
+    upsampled rows one halo row each side."""
+    split = row_split(conv)
+    x = x.to(conv.dtype)
+    if split is not None:
+        x = split.halo(x, 1, 1)
+    else:
+        zeros = x.new_zeros((x.shape[0], 1) + x.shape[2:])
+        x = torch.cat([zeros, x, zeros], 1)
+    return conv.conv_rows(upsample_nearest(x)[:, 1:-1])
+
+
 class Upsample(nn.Module):
     def __init__(self, channels: int, cfg: UNetConfig, device=None):
         super().__init__()
@@ -349,7 +475,7 @@ class Upsample(nn.Module):
                          device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(upsample_nearest(x))
+        return upsample_conv(self.conv, x)
 
 
 class UNet2DCondition(nn.Module):
@@ -427,6 +553,9 @@ class UNet2DCondition(nn.Module):
         temb = temb + self.add_embed_2(F.silu(self.add_embed_1(add)))
 
         context = encoder_hidden_states.to(cfg.dtype)
+        split = row_split(self)
+        if split is not None:
+            sample = split.local_rows(sample)
         x = self.conv_in(sample)
 
         skips = [x]
@@ -456,13 +585,14 @@ class UNet2DCondition(nn.Module):
             if i < n_blocks - 1:
                 x = getattr(self, f"up_{i}_upsample")(x)
 
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        out = self.conv_out(F.silu(self.conv_norm_out(x)))
+        return out if split is None else split.gather(out, 1)
 
 
 def flash_launches_per_eval(cfg: UNetConfig) -> int:
     """Self-attention calls of one UNet eval (one K1 launch each on the
-    card): down and up blocks of every level with transformers, and the
-    mid block (70 for SDXL base)."""
+    card, on each rank of a row split): down and up blocks of every level
+    with transformers, and the mid block (70 for SDXL base)."""
     per_level = sum(d * (2 * cfg.layers_per_block + 1)
                     for d in cfg.transformer_layers)
     return per_level + cfg.transformer_layers[-1]

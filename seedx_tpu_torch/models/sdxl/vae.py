@@ -9,6 +9,13 @@ scaling_factor 0.13025.  NHWC, fp32 throughout: the SDXL VAE overflows in
 fp16 (the reference upcasts too).  The mid attention's head dim (512) is
 above what the flash kernel takes, and the JAX module computes it as a
 plain einsum: so does this one.
+
+The decoder splits its rows as the UNet does (``unet.RowSplit``, the
+JAX package's constraints at vae.py:153-160): its convs take halo rows,
+its GroupNorms sum their statistics over the ranks, the mid attention
+keeps its query rows and gathers the keys and values, and the image's
+rows are gathered at the end.  The encoder stays whole, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from seedx_tpu_torch.models.sdxl.unet import (Conv, Dense, GroupNorm,
-                                              upsample_nearest)
+                                              row_split, upsample_conv)
 
 SDXL_VAE_SCALING = 0.13025
 
@@ -89,6 +96,10 @@ class VAEAttention(nn.Module):
         b, h, w, c = x.shape
         hidden = self.group_norm(x).reshape(b, h * w, c)
         q, k, v = self.to_q(hidden), self.to_k(hidden), self.to_v(hidden)
+        rows = row_split(self)
+        if rows is not None:
+            # local query rows against every rank's keys and values
+            k, v = rows.gather(torch.stack([k, v]), 2).unbind(0)
         # [B, h*w, h*w] fp32 logits: at 1024^2 (128^2 latents, 16384
         # tokens) 1 GiB an image, and the softmax another
         attn = torch.softmax(torch.einsum("bqc,bkc->bqk", q, k)
@@ -163,14 +174,18 @@ class VAEDecoder(nn.Module):
     def forward(self, latents: torch.Tensor) -> torch.Tensor:
         """latents [B, h, w, latent] (unscaled) -> images [B, H, W, 3]."""
         cfg = self.cfg
+        split = row_split(self)
+        if split is not None:
+            latents = split.local_rows(latents)
         x = self.conv_in(self.post_quant_conv(latents))
         x = self.mid_res_1(self.mid_attn(self.mid_res_0(x)))
         for i in range(len(cfg.channels)):
             for j in range(cfg.layers_per_block + 1):
                 x = getattr(self, f"up_{i}_res_{j}")(x)
             if i < len(cfg.channels) - 1:
-                x = getattr(self, f"up_{i}_upsample")(upsample_nearest(x))
-        return self.conv_out(F.silu(self.norm_out(x)))
+                x = upsample_conv(getattr(self, f"up_{i}_upsample"), x)
+        out = self.conv_out(F.silu(self.norm_out(x)))
+        return out if split is None else split.gather(out, 1)
 
 
 def sample_moments(moments: torch.Tensor,

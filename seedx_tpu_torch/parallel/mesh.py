@@ -61,8 +61,7 @@ DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
     ("layers", None),
     ("queries", None),
     # SDXL denoise activations: CFG branches over data, latent rows over
-    # tensor (the activation split is not ported yet: SDXLAdapter.shard
-    # replicates the image side)
+    # tensor (SDXLAdapter.shard; models/sdxl/unet.RowSplit)
     ("cfg_batch", "data"),
     ("height", "tensor"),
 )
@@ -96,12 +95,14 @@ def create_mesh(data: int = 1, fsdp: int = -1, tensor: int = 1, *,
     Starts the default group first (``distributed.maybe_initialize``; in a
     single process without torchrun's environment, a group of one rank:
     NCCL on the card, gloo for ``device_type="cpu"``).  ``device_type``
-    defaults to the group's: ``cpu`` under gloo, else ``cuda``."""
+    defaults to the group's: ``cpu`` under gloo, else ``cuda``.  The mesh
+    becomes the process's data mesh (``distributed.DATA_MESH``): the data
+    pipeline shards its files by the rank's batch coordinate on it."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    from seedx_tpu_torch.parallel.distributed import maybe_initialize
+    from seedx_tpu_torch.parallel import distributed
 
-    if not maybe_initialize(device_type):
+    if not distributed.maybe_initialize(device_type):
         cuda = device_type != "cpu"
         if cuda:
             torch.cuda.set_device(0)
@@ -115,8 +116,10 @@ def create_mesh(data: int = 1, fsdp: int = -1, tensor: int = 1, *,
     ranks = list(devices if devices is not None
                  else range(dist.get_world_size()))
     sizes = mesh_shape(data, fsdp, tensor, len(ranks))
-    return DeviceMesh(device_type, torch.tensor(ranks).reshape(sizes),
+    mesh = DeviceMesh(device_type, torch.tensor(ranks).reshape(sizes),
                       mesh_dim_names=MESH_AXES)
+    distributed.DATA_MESH = mesh
+    return mesh
 
 
 def local_mesh(device_type: Optional[str] = None):
@@ -312,8 +315,10 @@ def tensor_plan(module: nn.Module, tensor: int) -> Dict[str, str]:
 
 
 def _local_shards(module: nn.Module, mesh, rules):
-    """{state name: (local shard, gathers, role)}: gathers lists the (dim
-    from the end, mesh axis) splits the owner gathers at use."""
+    """{state name: (local shard, gathers, role, splits)}: gathers lists
+    the (dim from the end, mesh axis) splits the owner gathers at use,
+    splits the (dim, mesh axes, fused parts) of every split over more
+    than one rank."""
     names = mesh.mesh_dim_names
     roles = tensor_plan(module, mesh.size(names.index("tensor")))
     axes = logical_axes(module)
@@ -323,7 +328,7 @@ def _local_shards(module: nn.Module, mesh, rules):
         owner = module.get_submodule(owner_name)
         role = roles.get(owner_name)
         spec = logical_to_mesh_axes(axes[name], rules)
-        local, gathers = t.detach(), []
+        local, gathers, splits = t.detach(), [], []
         for d, s in enumerate(spec):
             parts = () if s is None else s if isinstance(s, tuple) else (s,)
             if math.prod(mesh.size(names.index(a)) for a in parts) == 1:
@@ -331,12 +336,13 @@ def _local_shards(module: nn.Module, mesh, rules):
             fused = (getattr(owner, "fused_parts", 1)
                      if role == "col" and parts == ("tensor",)
                      and d == t.dim() - 1 else 1)
+            splits.append((d, parts, fused))
             local = _split(local, d, parts, mesh, fused)
             if not (role is not None and parts == ("tensor",)):
                 if len(parts) != 1:
                     raise ValueError(f"{name}: a weight split over {parts}")
                 gathers.append((d - t.dim(), parts[0]))
-        out[name] = (local, gathers, role)
+        out[name] = (local, gathers, role, splits)
     return out
 
 
@@ -355,15 +361,18 @@ def place_params(module: nn.Module, mesh,
     """Keep only this rank's shard of every weight of ``module`` (in
     place), and set each owning module up to compute on it: ``_par`` (the
     mesh's groups), ``_gathers`` ({leaf: [(dim, axis)]}, the splits
-    gathered at use) and ``tp`` (its role, see ``tensor_plan``)."""
+    gathered at use), ``_splits`` ({leaf: [(dim, mesh axes, fused
+    parts)]}, every split: see ``split_axes``, ``gather_full`` and
+    ``local_part``) and ``tp`` (its role, see ``tensor_plan``)."""
     from seedx_tpu_torch.parallel.distributed import MeshGroups
 
     groups = MeshGroups(mesh)
     shards = _local_shards(module, mesh, rules)
-    for name, (local, gathers, role) in shards.items():
+    for name, (local, gathers, role, splits) in shards.items():
         owner_name, _, leaf = name.rpartition(".")
         owner = module.get_submodule(owner_name)
-        local = local.clone()
+        if splits:
+            local = local.clone()      # the shard alone, not a view
         if leaf in owner._parameters:
             owner._parameters[leaf] = nn.Parameter(
                 local, requires_grad=owner._parameters[leaf].requires_grad)
@@ -372,12 +381,49 @@ def place_params(module: nn.Module, mesh,
         owner._par = groups
         owner.tp = role
         if "_gathers" not in owner.__dict__:
-            owner._gathers = {}
+            owner._gathers, owner._splits = {}, {}
         owner._gathers[leaf] = gathers
+        owner._splits[leaf] = splits
     for sub in module.modules():
         if getattr(sub, "tp_plan", None) is not None:
             sub._par = groups
     return module
+
+
+def leaf_layout(module: nn.Module, name: str) -> list:
+    """[(dim, mesh axes, fused parts)] of every split of leaf ``name`` of a
+    placed ``module`` (empty when whole)."""
+    owner_name, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(owner_name)
+    return owner.__dict__.get("_splits", {}).get(leaf, [])
+
+
+def split_axes(layout) -> Tuple[str, ...]:
+    """The mesh axes of a ``leaf_layout``."""
+    return tuple(a for _, parts, _ in layout for a in parts)
+
+
+def gather_full(t: torch.Tensor, layout, groups) -> torch.Tensor:
+    """The whole leaf from every rank's shard ``t`` (a collective: every
+    rank of the mesh calls it); the inverse of ``local_part``."""
+    for d, parts, fused in layout:
+        if len(parts) != 1:
+            raise ValueError(f"a weight split over {parts}")
+        n, k = groups.size[parts[0]], t.shape[d]
+        t = groups.all_gather(t, d, parts[0])
+        if fused > 1:
+            # rank r held [fused, part] of the dim: back to [fused, n, part]
+            t = t.unflatten(d, (n, fused, k // fused)).transpose(
+                d, d + 1).flatten(d, d + 2)
+    return t
+
+
+def local_part(t: torch.Tensor, layout, mesh) -> torch.Tensor:
+    """This rank's shard of the whole leaf ``t``, as ``place_params`` keeps
+    it."""
+    for d, parts, fused in layout:
+        t = _split(t, d, parts, mesh, fused)
+    return t
 
 
 def unbox(tree: Any) -> Any:

@@ -5,7 +5,16 @@ seedx_tpu/train/checkpoints.py, which writes orbax trees).
 ``TrainState.state_dict`` gives: the step, the trainable leaves and the
 optimizer state.  The frozen weights are never written.  A save goes to a
 temporary directory first and is renamed into place, so a crash leaves
-either the old checkpoint or the new one.  ``save_pytree`` /
+either the old checkpoint or the new one.
+
+The file holds whole leaves, whatever the layout that wrote it, as an
+orbax checkpoint is one logical artifact: on a mesh ``save_train_state``
+gathers every trainable leaf and its Adam moments (a collective), the
+first rank writes them and every rank waits at a barrier until the
+rename is done; ``restore_train_state`` reads the file on every rank and
+keeps each rank's shard (``parallel/mesh.local_part``), so a checkpoint
+written on one layout restores on any other, or on one device.
+``save_pytree`` /
 ``restore_pytree`` write and read one state dict (an exported serving
 artifact, ``utils/export.py``) the same way.
 """
@@ -90,3 +99,63 @@ def restore_pytree(path: str, template: Any = None) -> Any:
     with torch.no_grad():
         template.load_state_dict(state, strict=True)
     return template
+
+
+def _layouts(model, names):
+    from seedx_tpu_torch.parallel.mesh import leaf_layout
+
+    return {n: leaf_layout(model, n) for n in names}
+
+
+def save_train_state(manager: CheckpointManager, state, model,
+                     step: Optional[int] = None) -> str:
+    """Write ``state`` (a ``trainer.TrainState`` over ``model``'s
+    trainable leaves) as checkpoint ``step`` (default ``state.step``),
+    whole leaves whatever the mesh (see the module docstring)."""
+    step = state.step if step is None else step
+    import torch.distributed as dist
+
+    from seedx_tpu_torch.parallel.mesh import gather_full
+    from seedx_tpu_torch.train.trainer import mesh_groups
+
+    groups = mesh_groups(model)
+    if groups is None:
+        return manager.save(step, state.state_dict())
+    layouts = _layouts(model, state.params)
+    sd = state.state_dict()
+
+    def whole(tree):
+        return {n: gather_full(t, layouts[n], groups).cpu()
+                for n, t in tree.items()}
+
+    full = {"step": sd["step"], "trainable": whole(sd["trainable"]),
+            "opt_state": {k: whole(v) for k, v in sd["opt_state"].items()}}
+    path = manager.path(step)
+    if dist.get_rank() == 0:
+        path = manager.save(step, full)
+    dist.barrier()
+    return path
+
+
+def restore_train_state(manager: CheckpointManager, state, model,
+                        step: Optional[int] = None) -> None:
+    """Load checkpoint ``step`` (default: the latest) into ``state``: on a
+    mesh each rank keeps its shard of every whole leaf."""
+    from seedx_tpu_torch.parallel.mesh import local_part
+    from seedx_tpu_torch.train.trainer import mesh_groups
+
+    groups = mesh_groups(model)
+    device = next(iter(state.params.values())).device
+    saved = manager.restore(step, map_location="cpu" if groups is not None
+                            else device)
+    if groups is not None:
+        layouts = _layouts(model, state.params)
+
+        def mine(tree):
+            return {n: local_part(t, layouts[n], groups.mesh)
+                    for n, t in tree.items()}
+
+        saved = {"step": saved["step"], "trainable": mine(saved["trainable"]),
+                 "opt_state": {k: mine(v) for k, v in
+                               saved["opt_state"].items()}}
+    state.load_state_dict(saved)

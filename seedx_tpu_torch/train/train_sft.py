@@ -19,10 +19,18 @@ train_seed_x_sft.py:32-75): the transform, tokenizer, visual encoder,
 agent and dataset come from the repo's YAML object graphs (``configs/``,
 ``seedx_tpu.`` read as ``seedx_tpu_torch.``), the datasets stream the
 files on disk (``data/datasets.py``), and the run goes to ``train_loop``.
-``--device`` (default ``cuda``) is the port's own; ``--parallel`` (a
-mesh layout) raises: training on a mesh (FSDP over ``fsdp``, replicas
-over ``data``) is not ported yet; a mesh serves through
-``SeedXRuntime.shard``.
+``--device`` (default ``cuda``) is the port's own.  ``--parallel`` (a
+``configs/parallel/*.yaml`` mesh layout) trains on a mesh, one process a
+card under torchrun's environment (``parallel/distributed``): the agent
+and the ViT keep their shards (``parallel/mesh.place_params``: FSDP over
+``fsdp``, heads / MLP columns / vocab over ``tensor``), each rank reads
+the files of its coordinate on the batch axes (data x fsdp; its
+``tensor`` peers read the same), and the losses, gradients and metrics
+are the global batch's (``train/trainer.py``).  Checkpoints hold whole
+leaves and restore onto any layout (``train/checkpoints.py``).
+
+    torchrun --nproc_per_node 4 -m seedx_tpu_torch.train.train_sft \\
+        ... --parallel configs/parallel/fsdp_tensor.yaml
 
     python -m seedx_tpu_torch.train.train_sft \
         --image_transform configs/processer/qwen_448_transform.yaml \
@@ -47,7 +55,10 @@ from torch import nn
 
 from seedx_tpu_torch import config as config_lib
 from seedx_tpu_torch.data.pipeline import ResumableIterator
-from seedx_tpu_torch.train.checkpoints import CheckpointManager
+from seedx_tpu_torch.parallel.distributed import maybe_initialize
+from seedx_tpu_torch.train.checkpoints import (CheckpointManager,
+                                               restore_train_state,
+                                               save_train_state)
 from seedx_tpu_torch.train.trainer import (TrainConfig, TrainState,
                                            create_train_state,
                                            make_train_step, sync_time)
@@ -74,39 +85,51 @@ class RunConfig:
 def train_loop(agent: nn.Module, vit: Optional[nn.Module],
                data_iter: Iterator[Dict[str, np.ndarray]],
                train_cfg: TrainConfig, run_cfg: RunConfig,
-               device="cuda") -> TrainState:
+               device="cuda", mesh=None) -> TrainState:
     """Train ``agent`` (its trainable leaves become fp32 parameters in
     place) on ``data_iter`` until ``train_cfg.max_steps``; returns the
     final state.  A logged step's metrics add ``vit_ms`` (the frozen
-    encode), ``tokens`` (attention-mask tokens trained on) and
-    ``steps_per_sec`` to the train step's."""
+    encode), ``tokens`` (attention-mask tokens trained on, this rank's)
+    and ``steps_per_sec`` to the train step's.  With a ``mesh`` the agent
+    and the ViT are placed on it first (``parallel/mesh.place_params``)
+    and ``data_iter`` yields this rank's rows of each global batch; the
+    state then holds this rank's shards."""
     device = torch.device(device)
     agent.to(device)
     if vit is not None:
         vit.to(device)
+    if mesh is not None:
+        from seedx_tpu_torch.parallel.mesh import place_params
+
+        place_params(agent, mesh)
+        if vit is not None:
+            place_params(vit, mesh)
     os.makedirs(run_cfg.output_dir, exist_ok=True)
     ckpt = CheckpointManager(os.path.join(run_cfg.output_dir, "checkpoints"))
     state = create_train_state(agent, train_cfg)
     if run_cfg.resume and ckpt.latest_step() is not None:
-        state.load_state_dict(ckpt.restore(map_location=device))
+        restore_train_state(ckpt, state, agent)
         logger.info("resumed from step %d", state.step)
     train_step = make_train_step(agent, train_cfg)
     accum = train_cfg.gradient_accumulation_steps
     if state.step:
-        # exact data resume: skip every batch already trained on
+        # exact data resume: skip every batch this rank already trained on
         data_iter = ResumableIterator(data_iter)
         skipped = data_iter.skip(state.step * accum)
         logger.info("data stream fast-forwarded %d batches", skipped)
     if accum > 1:
         data_iter = _stack_microbatches(data_iter, accum)
     t_last = time.perf_counter()
-    with MetricWriters(run_cfg.output_dir, trackers=run_cfg.trackers,
+    # on a mesh every rank holds the global metrics: the first one logs
+    first = mesh is None or torch.distributed.get_rank() == 0
+    with MetricWriters(run_cfg.output_dir,
+                       trackers=run_cfg.trackers if first else (),
                        expr_name=run_cfg.expr_name) as writers:
         for batch in data_iter:
             step = state.step
             if step >= train_cfg.max_steps:
                 break
-            dev_batch = _to_device(batch, device)
+            dev_batch = _to_device(_same_rows(batch, mesh), device)
             t0 = sync_time(device)
             if vit is not None and "images" in dev_batch:
                 dev_batch["image_embeds"] = _encode(
@@ -127,8 +150,8 @@ def train_loop(agent: nn.Module, vit: Optional[nn.Module],
                 writers.log(metrics, step)
                 logger.info("step %d: %s", step, metrics)
             if step > 0 and step % run_cfg.save_steps == 0:
-                ckpt.save(step, state.state_dict())
-    ckpt.save(state.step, state.state_dict())
+                save_train_state(ckpt, state, agent, step)
+    save_train_state(ckpt, state, agent)
     return state
 
 
@@ -159,9 +182,33 @@ def _stack_microbatches(it: Iterator[Dict[str, np.ndarray]], accum: int
             group = []
 
 
+def _same_rows(batch: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
+    """On a mesh with ``tensor`` > 1, the batch of the first rank of this
+    rank's tensor group, on every rank of it: tensor peers compute on the
+    same rows, and though they read the same files, the threaded tar
+    reader interleaves its shards in no fixed order."""
+    if mesh is None or mesh.size(mesh.mesh_dim_names.index("tensor")) == 1:
+        return batch
+    import torch.distributed as dist
+
+    group = mesh.get_group("tensor")
+    box = [batch]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
+
+
 def _to_device(batch: Dict[str, np.ndarray],
                device: torch.device) -> Dict[str, torch.Tensor]:
-    """numpy batch -> tensors on ``device``; integer arrays as int64."""
+    """numpy batch -> tensors on ``device``; integer arrays as int64.
+
+    On a mesh the batch is this rank's rows: the JAX package's
+    per-process contract (``put_global``) with one process a card, so the
+    local batch is the rank's whole share of the keys JAX shards ("batch"
+    and "images" over data x fsdp), kept as plain tensors for the kernels.
+    JAX's rule for a dim that does not divide the shards a process holds
+    (replicate in one process, raise across processes) has no case here:
+    a process holds one shard."""
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
@@ -198,17 +245,17 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
                         "accelerate, train_seed_x_sft.py:147-156)")
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--parallel", default=None,
-                   help="mesh layout YAML (configs/parallel/*.yaml); "
-                        "training on a mesh is not ported yet: raises")
+                   help="mesh layout YAML (configs/parallel/*.yaml): one "
+                        "process a card under torchrun's environment")
     p.add_argument("--device", default="cuda",
                    help="torch device the run trains on (cpu for a debug "
                         "run)")
     args = p.parse_args(argv)
-    if args.parallel:
-        raise NotImplementedError(
-            f"--parallel {args.parallel}: multi-device training on a mesh "
-            f"(FSDP over fsdp, replicas over data) is not ported yet; "
-            f"train on one device (serving on a mesh: SeedXRuntime.shard)")
+    maybe_initialize(args.device)
+    # the mesh first: the datasets shard their files by its batch axes
+    mesh = (config_lib.instantiate_from_file(
+        args.parallel, device_type=torch.device(args.device).type)
+        if args.parallel else None)
 
     transform = config_lib.instantiate_from_file(args.image_transform)
     tokenizer = config_lib.instantiate_from_file(args.tokenizer)
@@ -231,7 +278,7 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
                             t for t in args.trackers.split(",") if t),
                         expr_name=args.expr_name)
     return train_loop(agent, vit, data_iter, train_cfg, run_cfg,
-                      device=args.device)
+                      device=args.device, mesh=mesh)
 
 
 if __name__ == "__main__":

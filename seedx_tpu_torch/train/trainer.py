@@ -99,20 +99,55 @@ def create_train_state(model: nn.Module, cfg: TrainConfig) -> TrainState:
     return TrainState(step=0, params=params, opt_state=opt_state)
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every element (optax.global_norm)."""
-    norms = torch.stack([torch.linalg.vector_norm(t.float())
-                         for t in tensors])
-    return torch.linalg.vector_norm(norms)
+def global_norm(tensors: Iterable[torch.Tensor], splits=None,
+                groups=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every element (optax.global_norm).
+    On a mesh (``groups``) the tensors are this rank's shards and
+    ``splits`` gives, per tensor, the mesh axes that split it: each
+    tensor's sum of squares is summed over those axes, and a replicated
+    tensor counts once."""
+    sq = torch.stack([t.float().square().sum() for t in tensors])
+    if groups is not None:
+        for axis in ("fsdp", "tensor"):
+            idx = [i for i, axes in enumerate(splits) if axis in axes]
+            if idx:
+                part = groups.all_reduce(sq[idx].contiguous(), axis)
+                sq = sq.index_copy(0, torch.tensor(idx, device=sq.device),
+                                   part)
+    return torch.sqrt(sq.sum())
+
+
+def mesh_groups(model: nn.Module):
+    """The ``MeshGroups`` of a model placed on a mesh
+    (``parallel/mesh.place_params``), else None."""
+    return next((vars(m)["_par"] for m in model.modules()
+                 if "_par" in vars(m)), None)
+
+
+@torch.no_grad()
+def sync_grads(grads: Mapping[str, torch.Tensor], splits, groups) -> None:
+    """Sum each rank's gradients over the batch axes, in place: over
+    ``data``, and over ``fsdp`` for a leaf ``fsdp`` does not split (the
+    gather's backward already reduce-scattered the others).  A leaf's
+    ``tensor`` peers hold the same rows and so the same gradient."""
+    for name, g in grads.items():
+        for axis in (("data",) if "fsdp" in splits[name]
+                     else ("fsdp", "data")):
+            groups.all_reduce(g, axis)
 
 
 @torch.no_grad()
 def apply_updates(state: TrainState, grads: Mapping[str, torch.Tensor],
-                  cfg: TrainConfig, schedule: Schedule) -> torch.Tensor:
+                  cfg: TrainConfig, schedule: Schedule, splits=None,
+                  groups=None) -> torch.Tensor:
     """One optimizer update in place (optax ``chain(clip_by_global_norm,
     adamw)`` then ``apply_updates``); increments ``state.step``.  Returns
-    the global norm of ``grads`` before the clip."""
-    norm = global_norm(grads.values())
+    the global norm of ``grads`` before the clip.  On a mesh each rank
+    updates its shards, clipped by the norm of the logical leaves
+    (``global_norm``)."""
+    norm = global_norm(grads.values(),
+                       None if splits is None else
+                       [splits[n] for n in grads], groups)
     clip = norm >= cfg.max_grad_norm
     count = state.step + 1
     b1, b2 = cfg.adam_beta1, cfg.adam_beta2
@@ -148,6 +183,7 @@ def compute_grads(model: nn.Module, params: Mapping[str, nn.Parameter],
     for p in params.values():
         p.grad = None
     sums = {k: torch.zeros((), dtype=torch.float32) for k in LOSS_KEYS}
+    groups = mesh_groups(model)
     for mb in micro_batches(batch, accum):
         out = model(**{k: mb.get(k) for k in _BATCH_KEYS},
                     generator=generator)
@@ -159,6 +195,10 @@ def compute_grads(model: nn.Module, params: Mapping[str, nn.Parameter],
         g = p.grad if p.grad is not None else torch.zeros_like(p)
         grads[n] = g / accum if accum > 1 else g
         p.grad = None
+    if groups is not None:
+        # each rank's losses are its share of the global means
+        for v in sums.values():
+            groups.batch_sum(v)
     return grads, {k: v / accum for k, v in sums.items()}
 
 
@@ -179,10 +219,18 @@ def make_train_step(model: nn.Module, cfg: TrainConfig
     tensors on the model's device, with a leading micro-batch axis when
     ``cfg.gradient_accumulation_steps`` > 1.  Metrics: the three losses,
     ``grad_norm`` (before the clip), ``lr``, and the device-synchronised
-    milliseconds of forward + backward (``fwd_bwd_ms``) and of the
-    optimizer (``opt_ms``)."""
+    milliseconds of forward + backward (``fwd_bwd_ms``, the gradients'
+    sum over the batch axes included) and of the optimizer (``opt_ms``).
+
+    On a mesh (``model`` placed by ``parallel/mesh.place_params``) each
+    rank passes its rows of the global batch; the losses are global means
+    (``llama.causal_lm_loss``), the gradients are summed over the batch
+    axes (``sync_grads``), the clip takes the norm of the logical leaves,
+    AdamW updates each rank's shards, and the metrics are the global ones
+    on every rank."""
     schedule = make_schedule(cfg)
     accum = cfg.gradient_accumulation_steps
+    groups = mesh_groups(model)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None
@@ -191,9 +239,15 @@ def make_train_step(model: nn.Module, cfg: TrainConfig
         t0 = sync_time(device)
         grads, losses = compute_grads(model, state.params, batch, accum,
                                       generator)
+        splits = None
+        if groups is not None:
+            from seedx_tpu_torch.parallel.mesh import leaf_layout, split_axes
+
+            splits = {n: split_axes(leaf_layout(model, n)) for n in grads}
+            sync_grads(grads, splits, groups)
         t1 = sync_time(device)
         lr = schedule(state.step)
-        norm = apply_updates(state, grads, cfg, schedule)
+        norm = apply_updates(state, grads, cfg, schedule, splits, groups)
         t2 = sync_time(device)
         metrics = {k: float(v) for k, v in losses.items()}
         metrics.update(grad_norm=float(norm), lr=lr,

@@ -1372,3 +1372,110 @@ def test_one_rank_nccl_shard_bit_equal(cuda_device):
         assert run() == ref
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_split_denoise_bit_equal(cuda_device):
+    """``SDXLAdapter.shard`` on a one-rank NCCL mesh splits the denoise
+    (every conv's halo, GroupNorm sum, K / V gather and the rows and CFG
+    gathers one-rank NCCL calls inside the captured eval): the debug
+    adapter's text-to-image and edit images bit-equal to the unsplit
+    run's, with K1 on the self-attention."""
+    import torch.distributed as dist
+
+    from seedx_tpu_torch.inference.runtime import SeedXRuntime
+    from seedx_tpu_torch.ops import flash_attention as fa
+    from seedx_tpu_torch.parallel import create_mesh
+
+    rt = SeedXRuntime.debug(device=cuda_device, with_adapter=True)
+    ad = rt.adapter
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    embeds = torch.randn((1, 256, 64), generator=g, device=cuda_device)
+    cond = torch.rand((1, 64, 64, 3), generator=g, device=cuda_device) * 2 - 1
+
+    def run():
+        return [ad.generate(embeds, from_vit=True, num_inference_steps=3),
+                ad.generate(embeds, latent_image=cond, from_vit=True,
+                            num_inference_steps=3)]
+
+    ref = run()
+    try:
+        ad.shard(create_mesh(1, 1, 1))
+        assert ad.graphs.enabled
+        before = fa.flash_fwd.launches
+        got = run()
+        assert fa.flash_fwd.launches > before
+        for a, b in zip(got, ref):
+            assert (a == b).all()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_train_step_bit_equal(cuda_device):
+    """A bf16 tiny agent's train steps (K1 / K4 / K5, LoRA dropout on) on a
+    one-rank NCCL mesh: losses, grad norms and every trainable leaf
+    bit-equal to the unsharded steps'."""
+    import torch.distributed as dist
+
+    from seedx_tpu_torch.models.agent import AgentConfig, ContinuousLVLM
+    from seedx_tpu_torch.models.layers import init_normal_
+    from seedx_tpu_torch.models.llama import llama_debug
+    from seedx_tpu_torch.ops import flash_attention as fa
+    from seedx_tpu_torch.parallel import create_mesh
+    from seedx_tpu_torch.parallel.mesh import place_params
+    from seedx_tpu_torch.train.trainer import (TrainConfig,
+                                               create_train_state,
+                                               make_train_step)
+
+    cfg = AgentConfig(llm=llama_debug(hidden_size=128, intermediate_size=256,
+                                      num_layers=2, num_heads=2,
+                                      num_kv_heads=2, lora_rank=8,
+                                      lora_dropout=0.1),
+                      vit_dim=64, resampler_heads=4, num_img_in_tokens=4,
+                      num_img_out_tokens=4)
+    b, s = 4, 128
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    ids = torch.randint(5, 30000, (b, s), generator=g, device=cuda_device)
+    attn = torch.ones((b, s), dtype=torch.bool, device=cuda_device)
+    attn[3, 100:] = False
+    gen = torch.zeros((b, s), dtype=torch.bool, device=cuda_device)
+    gen[2, 2:6] = gen[3, 5:9] = True
+    cmp_ = torch.zeros_like(gen)
+    cmp_[0, 1:5] = cmp_[1, 3:7] = True
+    batch = dict(input_ids=ids, attention_mask=attn,
+                 labels=torch.where(attn, ids, -100),
+                 image_embeds=torch.randn((b, 16, 64), generator=g,
+                                          device=cuda_device),
+                 embeds_gen_mask=torch.tensor([False, False, True, True],
+                                              device=cuda_device),
+                 embeds_cmp_mask=torch.tensor([True, True, False, False],
+                                              device=cuda_device),
+                 ids_gen_mask=gen, ids_cmp_mask=cmp_,
+                 patch_positions=torch.full((b, 2), 0.5, device=cuda_device))
+    tcfg = TrainConfig(warmup_steps=0, max_steps=4, learning_rate=1e-3)
+
+    def run(mesh=None):
+        agent = init_normal_(ContinuousLVLM(cfg, cuda_device),
+                             torch.Generator(device=cuda_device).manual_seed(1))
+        if mesh is not None:
+            place_params(agent, mesh)
+        st = create_train_state(agent, tcfg)
+        step = make_train_step(agent, tcfg)
+        out = []
+        for i in range(2):
+            m = step(st, batch, torch.Generator(
+                device=cuda_device).manual_seed(100 + i))
+            out.append({k: m[k] for k in ("total_loss", "grad_norm")})
+        return out, {n: p.detach().clone() for n, p in st.params.items()}
+
+    before = fa.flash_bwd_dq.launches
+    ref = run()
+    assert fa.flash_bwd_dq.launches > before
+    try:
+        got = run(create_mesh(1, 1, 1))
+    finally:
+        dist.destroy_process_group()
+    assert got[0] == ref[0]
+    for n, t in ref[1].items():
+        assert torch.equal(got[1][n], t), n

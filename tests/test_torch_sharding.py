@@ -73,8 +73,10 @@ def _flat(prefix, tree):
     return out
 
 
-def _start(scenario, world, root, inputs):
-    d = root / scenario
+def _start(scenario, world, root, inputs, name=None):
+    """Start ``world`` ranks of ``scenario`` in ``root/name`` (default: the
+    scenario's name)."""
+    d = root / (name or scenario)
     d.mkdir()
     np.savez(d / "in.npz", **inputs)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

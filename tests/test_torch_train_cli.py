@@ -7,7 +7,8 @@ datapipes, on the debug models (``SEEDX_DEBUG=1``) on the CPU.
   * every YAML under ``configs/`` resolves to a target of the port
     (``seedx_tpu.`` read as ``seedx_tpu_torch.``), the mesh layouts of
     ``configs/parallel/`` to the port's ``create_mesh``;
-  * ``--parallel`` raises: training on a mesh is not ported yet;
+  * ``--parallel`` with each repo mesh YAML trains on gloo ranks, as the
+    unsharded port does over the same global batches;
   * the first step's loss equals the JAX package's train step loss on the
     same batch and weights to 1e-3 relative (the loss tolerance of
     tests/test_torch_train.py; LoRA dropout off in the agent YAML, since
@@ -31,6 +32,7 @@ from seedx_tpu.models.llama import llama_debug as jllama_debug
 from seedx_tpu_torch import config as tconfig
 from seedx_tpu_torch.parallel.mesh import create_mesh
 from seedx_tpu_torch.train import train_sft
+from seedx_tpu_torch.train import trainer as ttrainer
 
 from torch_data_fixtures import REPO, data_yamls
 from torch_train_fixtures import BATCH_KEYS, jax_tree
@@ -43,6 +45,8 @@ CONFIGS = {k: os.path.join(REPO, "configs", v) for k, v in (
     ("visual_encoder", "visual_encoder/qwen_vitg_448.yaml"),
     ("agent_model", "clm_models/agent_seed_x.yaml"))}
 LOSS_REL = 1e-3
+PARALLEL_REL = 5e-3
+UPDATE_REL = 5e-2
 
 
 @pytest.fixture
@@ -126,13 +130,82 @@ def test_every_repo_yaml_resolves_to_the_port():
     assert ident(x) is x and ident.encode_image_embeds(x) is x
 
 
-def test_parallel_flag_raises(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="multi-device training on a mesh .* is not "
-                             "ported yet"):
-        train_sft.main(_argv("unused.yaml", tmp_path, "--parallel",
-                             os.path.join(REPO, "configs/parallel/"
-                                          "fsdp.yaml")))
+@pytest.mark.parametrize("layout", ["fsdp.yaml", "fsdp_tensor.yaml"])
+def test_parallel_flag_trains(debug_env, yamls, tmp_path, layout):
+    """``--parallel`` with each repo mesh YAML, on 2 gloo ranks of
+    ``tests/test_torch_shard_worker.py`` (fsdp 2; fsdp 1 x tensor 2): 2
+    steps over the caption datapipe of ``sft_comprehension_gen.yaml`` (2
+    shards, one a batch coordinate; tensor peers read the same), LoRA
+    dropout off.  The first rank alone logs and writes the checkpoints;
+    the logged losses and grad norm match the unsharded port's over the
+    ranks' batches
+    joined into the global ones to ``PARALLEL_REL`` (the debug models
+    compute in bf16, and at tensor 2 each row-parallel partial product is
+    rounded to bf16 before the fp32 sum: 1.7e-3 seen; the same steps in
+    fp32 agree to 1e-5, tests/test_torch_train_mesh.py), and each
+    trainable leaf's change over the 2 steps matches the unsharded one's
+    to ``UPDATE_REL`` of its norm (AdamW normalises each element's
+    gradient, so an element whose bf16 gradient is near 0 may move by up
+    to the learning rate either way: 3% of the embedding table's update
+    norm at tensor 2, under 0.2% elsewhere)."""
+    from test_torch_sharding import _join, _start
+
+    with open(yamls["comprehension_gen"]) as f:
+        data = yaml.safe_load(f)
+    data.update(datapipes=data["datapipes"][1:], sample_weights=[1.0])
+    data_yaml = tmp_path / "captions.yaml"
+    data_yaml.write_text(yaml.safe_dump(data))
+    agent_yaml = tmp_path / "agent.yaml"
+    with open(CONFIGS["agent_model"]) as f:
+        cfg = yaml.safe_load(f)
+    cfg["llm"]["lora_dropout"] = 0.0
+    agent_yaml.write_text(yaml.safe_dump(cfg))
+    out = tmp_path / "run"
+    argv = _argv(str(data_yaml), out, "--max_steps", "2", "--save_steps",
+                 "1", "--parallel",
+                 os.path.join(REPO, "configs/parallel", layout),
+                 agent_model=str(agent_yaml))
+    ranks = _join(_start("cli", 2, tmp_path, {"argv": np.array(
+        json.dumps(argv))}, "ranks"))
+    assert [int(r["step"]) for r in ranks] == [2, 2]
+    assert sorted(os.listdir(out / "checkpoints")) == ["checkpoint-1",
+                                                       "checkpoint-2"]
+    (row,) = _metrics(out)
+    coords = [int(r["batch_index"]) for r in ranks]
+    assert coords == ([0, 1] if layout == "fsdp.yaml" else [0, 0])
+
+    # the unsharded port over the global batches, from the same weights
+    agent = tconfig.instantiate_from_file(str(agent_yaml), device="cpu")
+    vit = tconfig.instantiate_from_file(CONFIGS["visual_encoder"],
+                                        device="cpu")
+    with torch.no_grad():
+        for prefix, m in (("agent", agent), ("vit", vit)):
+            m.load_state_dict({k: torch.from_numpy(ranks[0][f"{prefix}/{k}"])
+                               .to(v.dtype) for k, v in
+                               m.state_dict().items()})
+    train_cfg = ttrainer.TrainConfig(max_steps=2, warmup_steps=0)
+    st = ttrainer.create_train_state(agent, train_cfg)
+    step = ttrainer.make_train_step(agent, train_cfg)
+    firsts = [r for i, r in enumerate(ranks) if coords.index(coords[i]) == i]
+    metrics = []
+    for i in range(2):
+        keys = [k[len(f"batch{i}/"):] for k in ranks[0]
+                if k.startswith(f"batch{i}/")]
+        batch = {k: np.concatenate([r[f"batch{i}/{k}"] for r in firsts])
+                 for k in keys}
+        dev = train_sft._to_device(batch, torch.device("cpu"))
+        dev["image_embeds"] = train_sft._encode(
+            vit, dev.pop("images"), dev.get("patch_positions"), False)
+        metrics.append(step(st, dev))
+    for k in ("total_loss", "lm_loss", "rec_loss", "grad_norm"):
+        assert abs(row[k] - metrics[0][k]) <= PARALLEL_REL * abs(
+            metrics[0][k]), (k, row[k], metrics[0][k])
+    for n, p in st.params.items():
+        init = ranks[0][f"agent/{n}"]
+        want = p.detach().numpy() - init
+        got = ranks[0][f"leaf/{n}"] - init          # kept by the first rank
+        assert np.linalg.norm(got - want) <= UPDATE_REL * max(
+            np.linalg.norm(want), 1e-30), n
 
 
 def test_first_step_loss_matches_jax(debug_env, yamls, tmp_path,
