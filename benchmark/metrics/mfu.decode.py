@@ -1,0 +1,14 @@
+"""The decode step's share of the card's peak: the least time the
+model operations of every decode chunk need (projections at the int8
+peak, LM head and attention at bf16), divided by the time of the decode
+chunk spans.  Layer: the whole step.  Moves tpot_p95_ms."""
+
+from benchmark.roofline import counts
+
+
+def read(r):
+    chunks = r.spans.of("decode_chunk")
+    t = r.spans.seconds("decode_chunk")
+    least = sum(counts.decode_least_s(r.config, c["tokens"],
+                                      c["kv_positions"]) for c in chunks)
+    return 100.0 * least / t if least > 0 and t > 0 else None
