@@ -60,6 +60,7 @@ from seedx_tpu_torch.models.generation import (GenerationConfig,
                                                _trim_and_spans, build_result,
                                                constrain_image_tokens)
 from seedx_tpu_torch.models.llama import init_kv_cache, init_paged_kv_pool
+from seedx_tpu_torch.utils import profiling
 from seedx_tpu_torch.utils.graphs import Program
 
 
@@ -194,15 +195,32 @@ def run_chunk(program, state, k: int, noise: Optional[SampleNoise] = None,
     host read: the steps in which some row was running (those the eager
     loop's early exit would have run).  With ``noise``, the chunk's draws
     from ``generator`` are made before it and those of its no-op steps
-    given back after."""
-    state["steps"].zero_()
-    if noise is not None:
-        noise.draw(generator, k)
-    for _ in range(k):
-        program()
-    ran = int(state["steps"])
-    if noise is not None:
-        noise.give_back(ran)
+    given back after.
+
+    The chunk is an ``engine.chunk`` span with its device time (its
+    closing event recorded after the last replay, before the host read):
+    ``kind`` (the program's), ``replayed`` (k), ``ran``, ``tokens`` (the
+    row-steps that emitted a token) and ``kv_positions`` (the KV positions
+    those steps read, a row's window growing by one a step), the last two
+    read right after the host read of ``ran``."""
+    with profiling.annotate("engine.chunk", device=True) as span:
+        if span:
+            n0, pos0 = state["n"].clone(), state["pos"].clone()
+        state["steps"].zero_()
+        if noise is not None:
+            noise.draw(generator, k)
+        for _ in range(k):
+            program()
+        span.end_device()
+        ran = int(state["steps"])
+        if noise is not None:
+            noise.give_back(ran)
+        if span:
+            d = (state["n"] - n0).clamp(min=0)
+            span["tokens"], span["kv_positions"] = torch.stack(
+                [d.sum(), (d * pos0 + d * (d + 1) // 2).sum()]).tolist()
+            span["kind"] = program.kind
+            span["replayed"], span["ran"] = k, ran
     return ran
 
 
@@ -392,6 +410,9 @@ class ContinuousEngine:
         self._mixed_chunks = 0
         self._mixed_steps = 0
         self._programs: Dict[str, Any] = {}
+        # request id -> ns of its submission, kept while recording (the
+        # request.queued spans)
+        self._queued_at: Dict[int, int] = {}
 
         cfg = self.model.cfg.llm
         dev = next(self.model.buffers()).device
@@ -546,6 +567,8 @@ class ContinuousEngine:
                     f"request needs {n_t} KV tiles but the pool has "
                     f"{self._pool_tiles - 1}; raise pool_tokens")
         self._pending.append((rid, request, budget))
+        if profiling.enabled():
+            self._queued_at[rid] = profiling.now()
         return rid
 
     # ---- internals -------------------------------------------------------
@@ -580,57 +603,87 @@ class ContinuousEngine:
 
     def _prefill_group(self, requests, bucket):
         """One prefill for every request of a prompt bucket; prompts are
-        right-padded (every slot row starts its cache at 0)."""
-        b = len(requests)
-        dev = self.device
-        pad_id = self.gen_cfg.pad_token_id
-        ids_padded = np.full((b, bucket), pad_id, np.int64)
-        cmp_padded = np.zeros((b, bucket), bool)
-        p_lens = np.ones((b,), np.int64)
-        any_cmp = False
-        img_parts, ecm_parts, pp_parts = [], [], []
-        for i, r in enumerate(requests):
-            ids = r["input_ids"]
-            p = len(ids)
-            ids_padded[i, :p] = np.asarray(ids, np.int64)
-            p_lens[i] = p
-            cm = r.get("ids_cmp_mask")
-            if cm is not None:
-                cmp_padded[i, :p] = np.asarray(cm, bool)
-                any_cmp = True
-            if r.get("image_embeds") is not None:
-                img_parts.append(torch.as_tensor(r["image_embeds"],
-                                                 device=dev))
-                ecm_parts.append(np.asarray(r["embeds_cmp_mask"], bool))
-                pp_parts.append(r.get("patch_positions"))
-        image_embeds = torch.cat(img_parts) if img_parts else None
-        ecm = (torch.as_tensor(np.concatenate(ecm_parts), device=dev)
-               if ecm_parts else None)
-        ppos = None
-        if img_parts and any(p is not None for p in pp_parts):
-            # requests without patch positions get the thumbnail's center
-            ppos = torch.cat([
-                torch.as_tensor(p, dtype=torch.float32, device=dev)
-                if p is not None
-                else torch.full((img.shape[0], 2), 0.5, device=dev)
-                for p, img in zip(pp_parts, img_parts)])
-        with torch.no_grad():
-            embeds = self.model.embed_with_images(
-                torch.as_tensor(ids_padded, device=dev), image_embeds,
-                torch.as_tensor(cmp_padded, device=dev) if any_cmp else None,
-                ecm, ppos)
-        return _prefill(self.model, embeds,
-                        torch.as_tensor(p_lens, device=dev), bucket)
+        right-padded (every slot row starts its cache at 0).  An
+        ``engine.prefill_group`` span: ``b``, ``bucket``, ``p_lens`` and
+        ``images`` (image embeddings spliced)."""
+        with profiling.annotate("engine.prefill_group") as span:
+            if span:
+                span["b"], span["bucket"] = len(requests), bucket
+                span["p_lens"] = [len(r["input_ids"]) for r in requests]
+                span["images"] = sum(int(r["image_embeds"].shape[0])
+                                     for r in requests
+                                     if r.get("image_embeds") is not None)
+            b = len(requests)
+            dev = self.device
+            pad_id = self.gen_cfg.pad_token_id
+            ids_padded = np.full((b, bucket), pad_id, np.int64)
+            cmp_padded = np.zeros((b, bucket), bool)
+            p_lens = np.ones((b,), np.int64)
+            any_cmp = False
+            img_parts, ecm_parts, pp_parts = [], [], []
+            for i, r in enumerate(requests):
+                ids = r["input_ids"]
+                p = len(ids)
+                ids_padded[i, :p] = np.asarray(ids, np.int64)
+                p_lens[i] = p
+                cm = r.get("ids_cmp_mask")
+                if cm is not None:
+                    cmp_padded[i, :p] = np.asarray(cm, bool)
+                    any_cmp = True
+                if r.get("image_embeds") is not None:
+                    img_parts.append(torch.as_tensor(r["image_embeds"],
+                                                     device=dev))
+                    ecm_parts.append(np.asarray(r["embeds_cmp_mask"], bool))
+                    pp_parts.append(r.get("patch_positions"))
+            image_embeds = torch.cat(img_parts) if img_parts else None
+            ecm = (torch.as_tensor(np.concatenate(ecm_parts), device=dev)
+                   if ecm_parts else None)
+            ppos = None
+            if img_parts and any(p is not None for p in pp_parts):
+                # requests without patch positions get the thumbnail's
+                # center
+                ppos = torch.cat([
+                    torch.as_tensor(p, dtype=torch.float32, device=dev)
+                    if p is not None
+                    else torch.full((img.shape[0], 2), 0.5, device=dev)
+                    for p, img in zip(pp_parts, img_parts)])
+            with torch.no_grad():
+                embeds = self.model.embed_with_images(
+                    torch.as_tensor(ids_padded, device=dev), image_embeds,
+                    torch.as_tensor(cmp_padded, device=dev) if any_cmp
+                    else None, ecm, ppos)
+            return _prefill(self.model, embeds,
+                            torch.as_tensor(p_lens, device=dev), bucket)
 
     def _tiles_needed(self, request, budget) -> int:
         return -(-(len(request["input_ids"]) + budget) // self.page)
 
     def _admit_pending(self):
-        free = [i for i, r in enumerate(self._slot_req) if r is None]
-        if not free or not self._pending:
-            return
-        take, self._pending = (self._pending[:len(free)],
-                               self._pending[len(free):])
+        """Admit what the free slots (and, paged, the page pool) can take:
+        an ``engine.admit`` span (``admitted``).  A request taken ends its
+        ``request.queued`` span (``p_len``, ``budget``)."""
+        with profiling.annotate("engine.admit") as span:
+            free = [i for i, r in enumerate(self._slot_req) if r is None]
+            take = self._take_pending(len(free))
+            span["admitted"] = len(take)
+            if self._queued_at:
+                for rid, request, budget in take:
+                    t0 = self._queued_at.pop(rid, None)
+                    if t0 is not None:
+                        with profiling.annotate(
+                                "request.queued", rid=rid, start=t0,
+                                p_len=len(request["input_ids"]),
+                                budget=budget):
+                            pass
+            self._admit_taken(take, free)
+
+    def _take_pending(self, n_free: int) -> list:
+        """Take up to ``n_free`` pending requests in order (paged: those
+        the page pool can hold; the rest wait)."""
+        if not n_free or not self._pending:
+            return []
+        take, self._pending = (self._pending[:n_free],
+                               self._pending[n_free:])
         if self.paged:
             # best-effort FCFS: defer requests the page pool can't hold yet
             # (their pages free as running slots harvest)
@@ -644,6 +697,11 @@ class ContinuousEngine:
                     deferred.append(item)
             self._pending = deferred + self._pending
             take = admitted
+        return take
+
+    def _admit_taken(self, take: list, free: List[int]) -> None:
+        """Put each taken request into a free slot: a prompt-buffer write
+        (fused), or a bucket prefill of each bucket's requests."""
         if self.fused:
             # admission is a prompt-buffer write; the mixed chunks prefill
             for rid, request, budget in take:
@@ -688,11 +746,19 @@ class ContinuousEngine:
         return ids
 
     def _harvest(self):
+        """Collect the results of the rows that stopped: an
+        ``engine.harvest`` span (``harvested``)."""
+        with profiling.annotate("engine.harvest") as span:
+            span["harvested"] = self._collect()
+
+    def _collect(self) -> int:
+        """Build the stopped rows' results and free their slots; returns
+        the number collected."""
         running = self.state["running"].cpu().numpy()
         done_rows = [i for i, rid in enumerate(self._slot_req)
                      if rid is not None and not running[i]]
         if not done_rows:
-            return
+            return 0
         n = self.state["n"].cpu().numpy()
         # a copy: on the CPU .numpy() would alias the live state, which the
         # slot's next request overwrites
@@ -730,6 +796,7 @@ class ContinuousEngine:
             # issuing (masked-garbage) KV writes every chunk, and its freed
             # pages may go to a live request before this slot is re-admitted
             self.state["tables"][done_rows] = 0
+        return len(done_rows)
 
     # ---- driving ---------------------------------------------------------
 
@@ -752,22 +819,29 @@ class ContinuousEngine:
         return out
 
     def step(self) -> int:
-        """Admit -> one decode chunk -> harvest.  Returns #results ready."""
-        self._admit_pending()
-        if any(r is not None for r in self._slot_req):
-            if self.fused and any(self._prefill_remaining):
-                # a slot is mid-prompt: the mixed (prefill + decode) chunk
-                n = run_chunk(self.program("mixed"), self.state,
-                              self.chunk_steps, self._noise, self._generator)
-                self._replay_prefill(n)
-                self._mixed_steps += n
-                self._mixed_chunks += 1
-            else:
-                self._steps += run_chunk(self.program("decode"), self.state,
-                                         self.chunk_steps, self._noise,
-                                         self._generator)
-            self._chunks += 1
-        self._harvest()
+        """Admit -> one decode chunk -> harvest.  Returns #results ready.
+        An ``engine.step`` span (``pending``, ``active``: at entry)."""
+        with profiling.annotate("engine.step") as span:
+            if span:
+                span["pending"] = len(self._pending)
+                span["active"] = sum(r is not None for r in self._slot_req)
+            self._admit_pending()
+            if any(r is not None for r in self._slot_req):
+                if self.fused and any(self._prefill_remaining):
+                    # a slot is mid-prompt: the mixed (prefill + decode)
+                    # chunk
+                    n = run_chunk(self.program("mixed"), self.state,
+                                  self.chunk_steps, self._noise,
+                                  self._generator)
+                    self._replay_prefill(n)
+                    self._mixed_steps += n
+                    self._mixed_chunks += 1
+                else:
+                    self._steps += run_chunk(
+                        self.program("decode"), self.state,
+                        self.chunk_steps, self._noise, self._generator)
+                self._chunks += 1
+            self._harvest()
         return len(self._results)
 
     def program(self, kind: str):
@@ -787,7 +861,7 @@ class ContinuousEngine:
                                self._packed, self._noise)
             else:
                 raise ValueError(f"no {kind!r} program in this engine")
-            prog = Program(fn, self.device, self.model.graphs)
+            prog = Program(fn, self.device, self.model.graphs, kind=kind)
             self._programs[kind] = prog
         return prog
 

@@ -58,6 +58,7 @@ from seedx_tpu_torch.models.sdxl.unet import (UNet2DCondition, UNetConfig,
 from seedx_tpu_torch.models.sdxl.vae import (VAEConfig, VAEDecoder,
                                              VAEEncoder, sample_moments)
 from seedx_tpu_torch.models.vit import vit_downsample
+from seedx_tpu_torch.utils import profiling
 from seedx_tpu_torch.utils.graphs import Graphs
 from seedx_tpu_torch.utils.quantize import quantize_unet_params
 
@@ -277,7 +278,11 @@ class SDXLAdapter:
         ``timings``, when given, receives host seconds, each closed by a
         device synchronize: "conditioning" (negative ViT pass and
         ResamplerXL), "vae_encode" (edit variant with a condition image),
-        "denoise" and "vae_decode"."""
+        "denoise" and "vae_decode".  The call is an ``sdxl.generate`` span
+        over ``sdxl.conditioning``, ``sdxl.denoise`` (from the noise to the
+        final latents, the edit variant's VAE encode included),
+        ``sdxl.vae_decode`` and ``sdxl.to_host`` spans, each with ``b`` and
+        ``steps``."""
         cfg = self.cfg.sampler
         steps = num_inference_steps or cfg.num_inference_steps
         g = guidance_scale if guidance_scale is not None else cfg.guidance_scale
@@ -287,37 +292,46 @@ class SDXLAdapter:
         b, dev = image_embeds.shape[0], self.device
         clock = PhaseClock(dev, timings)
 
-        prompt, neg_prompt, pooled, neg_pooled = self.get_conditioning(
-            image_embeds, negative_embeds, from_vit=from_vit)
-        clock.mark("conditioning")
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        latents = prepare_latents(gen, b, cfg, schedule)
-        time_ids = default_time_ids(cfg, b, dev)
+        def span(name):
+            return profiling.annotate(name, b=b, steps=steps)
 
-        if self.cfg.with_latent_image:
-            # 8-channel UNet: without a condition image the reference concats
-            # zeros (pipeline...py:909-910), so t2i also runs the edit path
-            if latent_image is not None:
-                image_latents = sample_moments(self.vae_encoder(
-                    torch.as_tensor(latent_image, device=dev)))
-                clock.mark("vae_encode")
-            else:
-                image_latents = torch.zeros_like(latents)
-            final = denoise_edit(
-                self.unet, schedule, latents, image_latents, prompt,
-                neg_prompt, pooled, neg_pooled, time_ids, guidance_scale=g,
-                image_guidance_scale=gi,
-                guidance_rescale=cfg.guidance_rescale, evals=self.evals,
-                graphs=self.graphs)
-        else:
-            final = denoise_text2image(
-                self.unet, schedule, latents, prompt, neg_prompt, pooled,
-                neg_pooled, time_ids, guidance_scale=g,
-                guidance_rescale=cfg.guidance_rescale, evals=self.evals,
-                graphs=self.graphs)
-        clock.mark("denoise")
-        images = decode_latents(self.vae_decoder, final,
-                                cfg.vae_scaling_factor)
-        clock.mark("vae_decode")
-        return images.cpu().numpy()
+        with span("sdxl.generate"):
+            with span("sdxl.conditioning"):
+                prompt, neg_prompt, pooled, neg_pooled = \
+                    self.get_conditioning(image_embeds, negative_embeds,
+                                          from_vit=from_vit)
+                clock.mark("conditioning")
+            with span("sdxl.denoise"):
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(seed)
+                latents = prepare_latents(gen, b, cfg, schedule)
+                time_ids = default_time_ids(cfg, b, dev)
+                if self.cfg.with_latent_image:
+                    # 8-channel UNet: without a condition image the
+                    # reference concats zeros (pipeline...py:909-910), so
+                    # t2i also runs the edit path
+                    if latent_image is not None:
+                        image_latents = sample_moments(self.vae_encoder(
+                            torch.as_tensor(latent_image, device=dev)))
+                        clock.mark("vae_encode")
+                    else:
+                        image_latents = torch.zeros_like(latents)
+                    final = denoise_edit(
+                        self.unet, schedule, latents, image_latents, prompt,
+                        neg_prompt, pooled, neg_pooled, time_ids,
+                        guidance_scale=g, image_guidance_scale=gi,
+                        guidance_rescale=cfg.guidance_rescale,
+                        evals=self.evals, graphs=self.graphs)
+                else:
+                    final = denoise_text2image(
+                        self.unet, schedule, latents, prompt, neg_prompt,
+                        pooled, neg_pooled, time_ids, guidance_scale=g,
+                        guidance_rescale=cfg.guidance_rescale,
+                        evals=self.evals, graphs=self.graphs)
+                clock.mark("denoise")
+            with span("sdxl.vae_decode"):
+                images = decode_latents(self.vae_decoder, final,
+                                        cfg.vae_scaling_factor)
+                clock.mark("vae_decode")
+            with span("sdxl.to_host"):
+                return images.cpu().numpy()

@@ -34,6 +34,7 @@ from seedx_tpu_torch.models.sdxl.scheduler import (EulerSchedule,
                                                    dpmpp_3m_step, euler_step,
                                                    scale_model_input)
 from seedx_tpu_torch.models.sdxl.unet import row_split
+from seedx_tpu_torch.utils import profiling
 from seedx_tpu_torch.utils.graphs import Graphs, Program
 
 
@@ -59,8 +60,9 @@ class SamplerConfig:
 def _solver_loop(schedule: EulerSchedule, latents: torch.Tensor,
                  eps_fn: Callable) -> torch.Tensor:
     """The denoise loop: ``eps_fn(lat, sigma, t)`` is the CFG-combined UNet
-    eval; the update around it follows ``schedule.solver`` (DPM-Solver++
-    carries the previous one or two x0 predictions)."""
+    eval, each call an ``sdxl.unet_eval`` span with its device time; the
+    update around it follows ``schedule.solver`` (DPM-Solver++ carries the
+    previous one or two x0 predictions)."""
     dev = latents.device
 
     def table(a):
@@ -74,7 +76,9 @@ def _solver_loop(schedule: EulerSchedule, latents: torch.Tensor,
     m2 = torch.zeros_like(m1)
     for i in range(schedule.num_steps):
         sigma, sigma_next = sigmas[i], sigmas[i + 1]
-        eps_cfg = eps_fn(latents, sigma, timesteps[i])
+        with profiling.annotate("sdxl.unet_eval", device=True) as span:
+            span["i"] = i
+            eps_cfg = eps_fn(latents, sigma, timesteps[i])
         if schedule.solver == "dpmpp_3m":
             latents, m1, m2 = dpmpp_3m_step(latents, m1, m2, eps_cfg, sigma,
                                             sigma_next, r0s[i], r1s[i],

@@ -92,8 +92,10 @@ class Program:
     None, or off the card, every call runs the step eagerly."""
 
     def __init__(self, fn: Callable[[], Any], device: torch.device,
-                 graphs: Optional["Graphs"]):
+                 graphs: Optional["Graphs"], kind: Optional[str] = None):
+        """``kind`` names the step in the spans around its replays."""
         self.fn, self.device, self.graphs = fn, torch.device(device), graphs
+        self.kind = kind
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
         self.per_replay: Dict[tuple, int] = {}

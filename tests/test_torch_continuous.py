@@ -21,6 +21,7 @@ from seedx_tpu.text.tokenizer import load_tokenizer as jload_tokenizer
 from seedx_tpu_torch.inference.continuous import ContinuousEngine
 from seedx_tpu_torch.inference.runtime import SeedXRuntime
 from seedx_tpu_torch.text.tokenizer import load_tokenizer
+from seedx_tpu_torch.utils import profiling
 from test_torch_slice import _tiny_int4_agents
 
 torch.set_num_threads(1)
@@ -155,3 +156,101 @@ def test_sampling_follows_its_seed(agents):
     assert runs[0] == runs[1]
     assert all(len(r) <= b for r, b in zip(runs[0], BUDGETS))
     assert runs[0] != _drain(rt_t)[0]        # not the greedy streams
+
+
+# ---------------------------------------------------------------------------
+# The engine's spans (utils/profiling.py)
+# ---------------------------------------------------------------------------
+
+def _recorded(rt, **kw):
+    """The four requests drained under ``profiling.recording()``:
+    (engine, ids, results, records)."""
+    profiling.clear()
+    eng = ContinuousEngine(rt, **{**ENGINE, **kw})
+    with profiling.recording():
+        ids = [eng.submit(r, max_new_tokens=b)
+               for r, b in zip(_requests(rt.tokenizer), BUDGETS)]
+        res = eng.run()
+    recs = profiling.records()
+    profiling.clear()
+    return eng, ids, res, recs
+
+
+def _named(recs, name):
+    return [r for r in recs if r["name"] == name]
+
+
+def test_each_request_is_queued_once(agents):
+    """Two slots for four requests: every request gets one queued span,
+    from its submission to the admission that took it, and the later two
+    wait for a slot to free."""
+    _, rt_t = agents
+    eng, ids, res, recs = _recorded(rt_t)
+    by_id = {r["id"]: r for r in recs}
+    queued = {r["rid"]: r for r in _named(recs, "request.queued")}
+    assert len(_named(recs, "request.queued")) == len(queued) == len(ids)
+    assert set(queued) == set(ids)
+    reqs = _requests(rt_t.tokenizer)
+    for rid, req, budget in zip(ids, reqs, BUDGETS):
+        q = queued[rid]
+        assert q["attrs"] == {"p_len": len(req["input_ids"]),
+                              "budget": budget}
+        assert q["t0"] <= q["t1"]
+        assert by_id[q["parent"]]["name"] == "engine.admit"
+    harvests = _named(recs, "engine.harvest")
+    first_done = min(h["t1"] for h in harvests if h["attrs"]["harvested"])
+    assert min(queued[i]["t1"] for i in ids[2:]) > first_done
+    assert sum(r["attrs"]["admitted"] for r in _named(recs, "engine.admit")) \
+        == sum(r["attrs"]["harvested"]
+               for r in _named(recs, "engine.harvest")) == len(ids)
+
+
+@pytest.mark.parametrize("kw", [{}, {"paged": True},
+                                {"fused_prefill": True, "prefill_width": 4}],
+                         ids=["dense", "paged", "fused"])
+def test_chunk_spans_count_the_steps_that_ran(agents, kw):
+    """Over the engine.chunk spans, the steps that ran add up to the
+    engine's own counters, by program kind, and the tokens to what it
+    generated."""
+    _, rt_t = agents
+    eng, _, _, recs = _recorded(rt_t, **kw)
+    st = eng.stats()
+    chunks = _named(recs, "engine.chunk")
+    ran = {kind: sum(c["attrs"]["ran"] for c in chunks
+                     if c["attrs"]["kind"] == kind)
+           for kind in ("decode", "mixed")}
+    assert ran == {"decode": st["decode_steps"], "mixed": st["mixed_steps"]}
+    assert st["decode_steps"] > 0
+    assert (st["mixed_steps"] > 0) == bool(kw.get("fused_prefill"))
+    assert sum(c["attrs"]["tokens"] for c in chunks) == \
+        st["generated_tokens"]
+    steps = _named(recs, "engine.step")
+    assert len(steps) >= st["chunks"]
+    by_id = {r["id"]: r for r in recs}
+    assert all(by_id[c["parent"]]["name"] == "engine.step" for c in chunks)
+
+
+def test_chunk_spans_count_every_replay(agents):
+    """``replayed`` is the chunk's k, whether or not a row ran: no-op
+    steps show as replayed minus ran."""
+    _, rt_t = agents
+    eng, _, _, recs = _recorded(rt_t)
+    chunks = _named(recs, "engine.chunk")
+    st = eng.stats()
+    assert len(chunks) == st["chunks"]
+    assert sum(c["attrs"]["replayed"] for c in chunks) == \
+        st["chunks"] * ENGINE["chunk_steps"]
+    assert all(0 < c["attrs"]["ran"] <= c["attrs"]["replayed"]
+               for c in chunks)
+    # one request of budget 3 in chunks of 4: its chunk's last step is a
+    # no-op
+    profiling.clear()
+    eng = ContinuousEngine(rt_t, **ENGINE)
+    with profiling.recording():
+        eng.submit(_requests(rt_t.tokenizer)[0], max_new_tokens=3)
+        eng.run()
+    (chunk,) = _named(profiling.records(), "engine.chunk")
+    profiling.clear()
+    assert chunk["attrs"]["replayed"] == 4
+    assert chunk["attrs"]["ran"] == eng.stats()["decode_steps"] <= 3
+

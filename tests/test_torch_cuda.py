@@ -965,6 +965,37 @@ def test_graphs_share_one_pool_and_renew_it(cuda_device):
 
 
 @pytest.mark.cuda
+def test_a_span_under_capture_records_no_event(cuda_device):
+    """A device span opened while the stream captures records no CUDA
+    event (the graph would hold it); the warm run's and the replay's are
+    timed."""
+    from seedx_tpu_torch.utils import graphs, profiling
+
+    x = torch.ones(1 << 22, device=cuda_device)
+    out = torch.zeros_like(x)
+
+    def step():
+        with profiling.annotate("inside", device=True):
+            out.copy_(x * 2)
+
+    prog = graphs.Program(step, cuda_device, graphs.Graphs())
+    profiling.clear()
+    with profiling.recording():
+        prog()                      # the warm run, then the capture
+        with profiling.annotate("replay", device=True):
+            prog()
+    recs = profiling.records()
+    profiling.clear()
+    inside = [r for r in recs if r["name"] == "inside"]
+    assert len(inside) == 2         # a replay runs no Python
+    assert inside[0]["device_ms"] > 0 and inside[1]["device_ms"] is None
+    (replay,) = [r for r in recs if r["name"] == "replay"]
+    assert replay["device_ms"] > 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 2)
+
+
+@pytest.mark.cuda
 def test_a_capture_that_fails_raises(cuda_device):
     """A step that reads the device from the host cannot be captured: the
     capture raises, and no eager path takes over."""

@@ -103,3 +103,40 @@ def test_denoise_edit_matches_jax_and_collapses(edit_unets):
     with torch.no_grad():
         manual = tpipe._solver_loop(schedule, lat_t, three_branch)
     _close(got.numpy(), manual.numpy(), F32_REL)
+
+
+def test_generate_spans_its_phases_and_each_unet_eval():
+    """Recorded, an image is one ``sdxl.generate`` span over its phases,
+    with one ``sdxl.unet_eval`` a step inside ``sdxl.denoise``; the image
+    and the ``timings`` keys are those of an unrecorded call."""
+    from seedx_tpu_torch.inference.runtime import SeedXRuntime
+    from seedx_tpu_torch.utils import profiling
+
+    ad = SeedXRuntime.debug(device="cpu", with_adapter=True).adapter
+    embeds = torch.from_numpy(_rng_inputs(40, (1, 256, 64))[0])
+    off: dict = {}
+    want = ad.generate(embeds, num_inference_steps=3, timings=off)
+    profiling.clear()
+    on: dict = {}
+    with profiling.recording():
+        got = ad.generate(embeds, num_inference_steps=3, timings=on)
+        ad.generate(embeds, num_inference_steps=2)
+    recs = profiling.records()
+    profiling.clear()
+    np.testing.assert_array_equal(got, want)
+    assert set(on) == set(off) == {"conditioning", "denoise", "vae_decode"}
+    images = [r for r in recs if r["name"] == "sdxl.generate"]
+    assert [r["attrs"] for r in images] == [{"b": 1, "steps": 3},
+                                            {"b": 1, "steps": 2}]
+    for image, steps in zip(images, (3, 2)):
+        phases = [r for r in recs if r["parent"] == image["id"]]
+        assert [r["name"] for r in phases] == [
+            "sdxl.conditioning", "sdxl.denoise", "sdxl.vae_decode",
+            "sdxl.to_host"]
+        (denoise,) = [r for r in phases if r["name"] == "sdxl.denoise"]
+        evals = [r for r in recs if r["name"] == "sdxl.unet_eval"
+                 and r["parent"] == denoise["id"]]
+        assert [r["attrs"]["i"] for r in evals] == list(range(steps))
+        assert all(denoise["t0"] <= r["t0"] <= r["t1"] <= denoise["t1"]
+                   for r in evals)
+    assert sum(r["name"] == "sdxl.unet_eval" for r in recs) == 5
