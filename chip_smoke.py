@@ -5,7 +5,7 @@ decoding and beam search, image out (the SDXL adapter: text to image,
 reconstruction, editing), SEED-X SFT through the ``train_sft`` entry
 point over the repo's YAMLs and files on disk, de-tokenizer (adapter)
 training at the SDXL width and a runtime loaded from release checkpoint
-files, and check its five CUDA kernels.
+files, and check its seven CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -13,12 +13,13 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
 1. environment: torch / CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
-2. build: the four kernel sources of ``seedx_tpu_torch/csrc`` (one nvcc
+2. build: the five kernel sources of ``seedx_tpu_torch/csrc`` (one nvcc
    each, started together, sm_90a);
 3. kernels: each against its plain PyTorch version at the shapes of the
    turn, of batched decode, of the fused step's stair (K3's multi-query
    mode) and of the attention backward (K4, K5; two runs bit-equal) of
-   the SFT step and of adapter training (the UNet's self-attention)
+   the SFT step and of adapter training (the UNet's self-attention), and
+   the UNet's and VAE's GroupNorm (+ SiLU) and LayerNorm at 1024^2
    (max abs / rel error against a stated tolerance; median of 10 timed
    runs after warm-up, CUDA events), beside its bound (the larger
    of bytes / 3.35 TB/s and operations / the tensor cores' peak for the
@@ -239,7 +240,9 @@ KERNELS = (("flash_fwd", "seedx_tpu_torch/csrc/flash_fwd.cu",
            ("int4_w4a8", "seedx_tpu_torch/csrc/int4_w4a8.cu",
             "seedx_tpu/ops/int4_matmul.py:49"),
            ("decode_attn", "seedx_tpu_torch/csrc/decode_attn.cu",
-            "seedx_tpu/ops/decode_attention.py:115"))
+            "seedx_tpu/ops/decode_attention.py:115"),
+           ("group_norm", "seedx_tpu_torch/csrc/norms.cu", "none"),
+           ("layer_norm", "seedx_tpu_torch/csrc/norms.cu", "none"))
 
 
 def log(msg: str) -> None:
@@ -292,10 +295,12 @@ def counters():
     from seedx_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
                                                      flash_bwd_dq, flash_fwd)
     from seedx_tpu_torch.ops.int4_matmul import int4_matmul
+    from seedx_tpu_torch.ops.norms import group_norm, layer_norm
 
     return {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
             "flash_bwd_dkv": flash_bwd_dkv, "int4_w4a8": int4_matmul,
-            "decode_attn": ragged_decode_attention}
+            "decode_attn": ragged_decode_attention,
+            "group_norm": group_norm, "layer_norm": layer_norm}
 
 
 def reset_counts() -> None:
@@ -829,6 +834,108 @@ def never_path(q, k, v, ks, vs, starts, ends):
                                  impl="plain")[:, 0]
 
 
+# the UNet's and VAE's norms at 1024^2, CFG 2: (name, kind, shape, groups,
+# eps, dtype, silu); GroupNorm at level 0 (resnet and Transformer2D), the
+# up blocks' widest concatenations and a VAE decoder level, LayerNorm at
+# the transformer blocks' two widths
+NORM_SHAPES = (
+    ("unet_resnet_l0", "group_norm", (2, 128, 128, 320), 32, 1e-5, "bf16",
+     True),
+    ("unet_attn_l0", "group_norm", (2, 128, 128, 320), 32, 1e-6, "bf16",
+     False),
+    ("unet_up_2560", "group_norm", (2, 32, 32, 2560), 32, 1e-5, "bf16",
+     True),
+    ("unet_up_1920", "group_norm", (2, 64, 64, 1920), 32, 1e-5, "bf16",
+     True),
+    ("vae_512", "group_norm", (1, 256, 256, 512), 32, 1e-6, "fp32", True),
+    ("unet_block_640", "layer_norm", (2, 4096, 640), None, 1e-5, "bf16",
+     False),
+    ("unet_block_1280", "layer_norm", (2, 1024, 1280), None, 1e-5, "bf16",
+     False))
+
+
+def check_norms(dev, g, flush, shapes=NORM_SHAPES):
+    """The GroupNorm (+ SiLU) and LayerNorm kernels against their plain
+    chains: the norm within one bf16 ULP (relative 2^-7) plus 1e-5 of the
+    output's scale, 1e-5 of it in fp32; with SiLU, within one ULP of
+    ``F.silu`` of the kernel's own norm (the same fp32 SiLU of the same
+    rounded value: a one-ULP difference in the norm can grow through SiLU);
+    timed (the kernel, and the plain chain with ``F.silu`` where the kernel
+    applies it) with the L2 flushed (the UNet's
+    activations come from the layer before, mostly out of L2), beside
+    their bound (input read once, output written once) and
+    ``F.group_norm`` / ``F.layer_norm`` (+ ``F.silu``) in x's type, a
+    yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    from seedx_tpu_torch.ops import norms
+
+    types = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    rows = []
+    for name, kind, shape, groups, eps, dt, silu in shapes:
+        dtype, c = types[dt], shape[-1]
+        x = (torch.randn(shape, generator=g, device=dev) * 1.5
+             + torch.randn(c, generator=g, device=dev)).to(dtype)
+        scale = 1.0 + 0.2 * torch.randn(c, generator=g, device=dev)
+        bias = 0.2 * torch.randn(c, generator=g, device=dev)
+        if kind == "group_norm":
+            def kernel():
+                return norms.group_norm(x, scale, bias, groups, eps,
+                                        silu=silu)
+
+            def plain():
+                y = norms.group_norm_fp32_stats(x, scale, bias, groups, eps)
+                return F.silu(y) if silu else y
+
+            xc = x.permute(0, 3, 1, 2)
+            sc, bi = scale.to(dtype), bias.to(dtype)
+
+            def library():
+                y = F.group_norm(xc, groups, sc, bi, eps)
+                return F.silu(y) if silu else y
+        else:
+            def kernel():
+                return norms.layer_norm(x, scale, bias, eps)
+
+            def plain():
+                return norms.layer_norm_fp32_stats(x, scale, bias, eps)
+
+            sc, bi = scale.to(dtype), bias.to(dtype)
+
+            def library():
+                return F.layer_norm(x, (c,), sc, bi, eps)
+        out = kernel()
+        if kind == "group_norm":
+            normed = norms.group_norm(x, scale, bias, groups, eps)
+            ref = norms.group_norm_fp32_stats(x, scale, bias, groups, eps)
+        else:
+            normed, ref = out, plain()
+        torch.cuda.synchronize()
+        diff = (normed.float() - ref.float()).abs()
+        mag = ref.float().abs().max().item()
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-6
+        ok = bool((diff <= 1e-5 * mag + rtol * ref.float().abs()).all())
+        if silu:
+            act = F.silu(normed).float()
+            ok = ok and bool(((out.float() - act).abs()
+                              <= rtol * act.abs()).all())
+        again = torch.equal(kernel(), out)
+        n_bytes = 2 * x.numel() * x.element_size() + 8 * c
+        bnd = bound(n_bytes, 0, "bf16")
+        ms = cuda_ms(kernel, flush)
+        r = row(kind, f"{name} {list(shape)} {dt}"
+                f"{f' G{groups}' if groups else ''} eps {eps:g}"
+                f"{' + silu' if silu else ''}", ok and again,
+                diff.max().item(), ms, cuda_ms(plain, flush), bnd,
+                cuda_ms(library, flush))
+        log(fmt_row(r, f" bit-equal rerun {again}; kernel / bound "
+                       f"{ms / bnd[0]:.2f}; plain / kernel "
+                       f"{r['plain_ms'] / ms:.2f}"))
+        rows.append(r)
+    return rows
+
+
 def check_kernels(dev):
     """Phase 3: each kernel against its plain version at the path shapes."""
     import torch
@@ -840,6 +947,7 @@ def check_kernels(dev):
     rows += check_decode(dev, g, flush)
     rows += check_stair(dev, g, flush)
     rows += check_stair_verify(dev, g, flush)
+    rows += check_norms(dev, g, flush)
     del flush
     return rows
 
@@ -2103,30 +2211,35 @@ def forced_image_prompts():
 
 
 class UNetWatch:
-    """While active: K1's launches in each CFG UNet eval of the denoise
-    loop (``pipeline.CFGEval``, a replay of its captured graph or an
-    eager eval; each must be ``flash_launches_per_eval``: the counters
-    count replays), each eval's eps std and finiteness, and whether the
-    VAE decoder's latents and images (before the clip) are finite, with
-    their shapes.  The statistics stay on the device until ``check``
-    reads them."""
+    """While active: K1's launches and the GroupNorm / LayerNorm kernel
+    calls in each CFG UNet eval of the denoise loop (``pipeline.CFGEval``,
+    a replay of its captured graph or an eager eval; each must be
+    ``flash_launches_per_eval`` and ``norm_launches_per_eval``: the
+    counters count replays), each eval's eps std and finiteness, and
+    whether the VAE decoder's latents and images (before the clip) are
+    finite, with their shapes.  The statistics stay on the device until
+    ``check`` reads them."""
 
     def __init__(self, adapter):
         import torch
 
         from seedx_tpu_torch.models.sdxl import pipeline
-        from seedx_tpu_torch.models.sdxl.unet import flash_launches_per_eval
+        from seedx_tpu_torch.models.sdxl.unet import (flash_launches_per_eval,
+                                                      norm_launches_per_eval)
 
-        self.want = flash_launches_per_eval(adapter.cfg.unet)
+        self.want = ((flash_launches_per_eval(adapter.cfg.unet),)
+                     + norm_launches_per_eval(adapter.cfg.unet))
         self.size = adapter.cfg.sampler.height
         self.per_eval, self.stds, self.finite, self.images = [], [], [], []
-        k1 = counters()["flash_fwd"]
+        ks = [counters()[k] for k in ("flash_fwd", "group_norm",
+                                       "layer_norm")]
         base = pipeline.CFGEval.__call__
 
         def call(ev, lat, sigma, t):
-            before = k1.launches
+            before = [k.launches for k in ks]
             eps = base(ev, lat, sigma, t)
-            self.per_eval.append(k1.launches - before)
+            self.per_eval.append(tuple(k.launches - b
+                                       for k, b in zip(ks, before)))
             self.stds.append(eps.float().std())
             self.finite.append(torch.isfinite(eps).all())
             return eps
@@ -2141,8 +2254,8 @@ class UNetWatch:
         self.handles = [adapter.vae_decoder.register_forward_hook(vae)]
 
     def check(self, label: str, steps: int, images=None) -> None:
-        """Remove the hooks; fail unless every eval launched K1
-        ``self.want`` times, ``steps`` evals ran, every latent, eps and
+        """Remove the hooks; fail unless every eval made ``self.want`` (K1,
+        GroupNorm, LayerNorm) calls, ``steps`` evals ran, every latent, eps and
         image was finite, and the images have shape [B, size, size, 3] at
         the sampler's size."""
         import torch
@@ -2151,9 +2264,9 @@ class UNetWatch:
         for h in self.handles:
             h.remove()
         if len(self.per_eval) != steps or set(self.per_eval) != {self.want}:
-            raise AssertionError(f"{label}: K1 launches per UNet eval "
-                                 f"{self.per_eval}, want {self.want} in "
-                                 f"each of {steps}")
+            raise AssertionError(f"{label}: (K1, GroupNorm, LayerNorm) "
+                                 f"calls per UNet eval {self.per_eval}, "
+                                 f"want {self.want} in each of {steps}")
         if not all(bool(f) for f in self.finite):
             raise AssertionError(f"{label}: a non-finite eps, latent or "
                                  f"image")
@@ -2162,7 +2275,8 @@ class UNetWatch:
             if (images.ndim != 4 or images.shape[1:] != (self.size,) * 2
                     + (3,) or not np.isfinite(images).all()):
                 raise AssertionError(f"{label}: images {images.shape}")
-        log(f"{label}: {steps} UNet evals, K1 {self.want} launches in each; "
+        log(f"{label}: {steps} UNet evals, K1 {self.want[0]} launches, "
+            f"GroupNorm {self.want[1]} and LayerNorm {self.want[2]} in each; "
             f"eps std per step " + " ".join(f"{x:.3f}" for x in stds)
             + f"; decoded {self.images}, finite before the clip")
 
@@ -3586,14 +3700,16 @@ def run_adapter_train(dev, smi: str):
     to_k / to_v and conv_in trainable (fp32 masters, AdamW), the rest of
     the UNet frozen bf16; ADAPTER_STEPS steps at batch ADAPTER_BATCH on
     one repeated draw of t and noise, each launching K1, K4 and K5 at all
-    70 self-attentions, the loss finite and lower after the first update,
-    the trainable leaves changed and the frozen ones bit-equal after.
-    Returns the steps' launches."""
+    70 self-attentions and the norm kernels at all 46 GroupNorms and 210
+    LayerNorms (their backward plain torch), the loss finite and lower
+    after the first update, the trainable leaves changed and the frozen
+    ones bit-equal after.  Returns the steps' launches."""
     import torch
 
     from seedx_tpu_torch.models.layers import init_normal_
     from seedx_tpu_torch.models.sdxl.pipeline import default_time_ids
-    from seedx_tpu_torch.models.sdxl.unet import flash_launches_per_eval
+    from seedx_tpu_torch.models.sdxl.unet import (flash_launches_per_eval,
+                                                  norm_launches_per_eval)
     from seedx_tpu_torch.models.vit import VisionTransformer, qwen_vitg_448
     from seedx_tpu_torch.train.train_adapter import (AdapterTrainConfig,
                                                      make_adapter_train_step)
@@ -3624,6 +3740,7 @@ def run_adapter_train(dev, smi: str):
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; set up "
         f"in {time.perf_counter() - t0:.1f} s")
     per = flash_launches_per_eval(adapter.cfg.unet)
+    norms = norm_launches_per_eval(adapter.cfg.unet)
     totals = {}
     losses = []
     for i in range(ADAPTER_STEPS):
@@ -3640,17 +3757,21 @@ def run_adapter_train(dev, smi: str):
         peak = torch.cuda.max_memory_allocated()
         got = (counts["flash_fwd"], counts["flash_bwd_dq"],
                counts["flash_bwd_dkv"])
+        got_norms = (counts["group_norm"], counts["layer_norm"])
         log(f"adapter train step {i}: total_loss {m['total_loss']:.5f} "
             f"grad_norm {m['grad_norm']:.4f} lr {m['lr']:.3e}; fwd+bwd "
             f"{m['fwd_bwd_ms']:.1f} ms, optimizer {m['opt_ms']:.1f} ms, "
             f"{m['fwd_bwd_ms'] + m['opt_ms']:.1f} ms a step; "
             f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
             f"flash_fwd {got[0]} flash_bwd_dq {got[1]} flash_bwd_dkv "
-            f"{got[2]} ({smi})")
-        if got != (per, per, per) or not (np.isfinite(m["total_loss"])
-                                          and np.isfinite(m["grad_norm"])):
+            f"{got[2]} group_norm {got_norms[0]} layer_norm {got_norms[1]} "
+            f"({smi})")
+        if (got != (per, per, per) or got_norms != norms
+                or not (np.isfinite(m["total_loss"])
+                        and np.isfinite(m["grad_norm"]))):
             raise AssertionError(f"adapter train step {i}: launches {got} "
-                                 f"(want {per} each), {m}")
+                                 f"(want {per} each), norms {got_norms} "
+                                 f"(want {norms}), {m}")
     if state.step != ADAPTER_STEPS:
         raise AssertionError(f"adapter train: {state.step} steps")
     if not losses[1] < losses[0]:
@@ -5567,9 +5688,11 @@ def build_kernels():
     from seedx_tpu_torch.ops import decode_attention as da
     from seedx_tpu_torch.ops import flash_attention as fa
     from seedx_tpu_torch.ops import int4_matmul as i4
+    from seedx_tpu_torch.ops import norms
 
     libs = {"flash_fwd": fa.library, "flash_bwd": fa.bwd_library,
-            "int4_w4a8": i4.library, "decode_attn": da.library}
+            "int4_w4a8": i4.library, "decode_attn": da.library,
+            "norms": norms.library}
     errors = {}
 
     def build(name):

@@ -25,7 +25,10 @@ fp32 per-output-channel scale applied to the output (``Dense8`` /
 ``Conv8``).  Self-attention goes through ``dot_product_attention(...,
 impl="auto")``, as in the JAX module: the flash kernel (K1) for a CUDA
 bf16 tensor, the plain path otherwise; cross-attention (64 context
-tokens) is plain.
+tokens) is plain.  GroupNorm (with the SiLU after it where one follows)
+and LayerNorm go through ``ops/norms.py``'s wrappers: their CUDA kernels
+(with a plain-torch backward) for a CUDA tensor, the plain fp32 versions
+for a CPU one.
 
 Row split (``RowSplit``, set by ``split_rows``; ``SDXLAdapter.shard``
 from the rules ``("height", "tensor")`` / ``("cfg_batch", "data")``):
@@ -57,8 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from seedx_tpu_torch.ops.attention import dot_product_attention
-from seedx_tpu_torch.ops.norms import (group_norm_fp32_stats,
-                                       layer_norm_fp32_stats)
+from seedx_tpu_torch.ops.norms import group_norm, layer_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,7 +179,8 @@ def master(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm over NHWC with fp32 statistics, input-dtype output."""
+    """GroupNorm over NHWC with fp32 statistics, input-dtype output; with
+    ``silu`` SiLU on that output (``ops.norms.group_norm``)."""
 
     def __init__(self, channels: int, num_groups: int, epsilon: float = 1e-5,
                  device=None):
@@ -186,16 +189,17 @@ class GroupNorm(nn.Module):
         self.register_buffer("scale", torch.ones(channels, device=device))
         self.register_buffer("bias", torch.zeros(channels, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         split = row_split(self)
-        return group_norm_fp32_stats(
+        return group_norm(
             x, self.scale, self.bias, self.num_groups, self.epsilon,
             None if split is None else split.sum,
-            1 if split is None else split.n)
+            1 if split is None else split.n, silu=silu)
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with fp32 statistics and affine, input-dtype output."""
+    """LayerNorm with fp32 statistics and affine, input-dtype output
+    (``ops.norms.layer_norm``)."""
 
     def __init__(self, dim: int, epsilon: float = 1e-5, device=None):
         super().__init__()
@@ -204,7 +208,7 @@ class LayerNorm(nn.Module):
         self.register_buffer("bias", torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm_fp32_stats(x, self.scale, self.bias, self.epsilon)
+        return layer_norm(x, self.scale, self.bias, self.epsilon)
 
 
 class Dense(nn.Module):
@@ -343,9 +347,9 @@ class ResnetBlock(nn.Module):
             self.conv_shortcut = Conv(in_channels, out_channels, (1, 1), **kw)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x, silu=True))
         h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h, silu=True))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
@@ -585,7 +589,7 @@ class UNet2DCondition(nn.Module):
             if i < n_blocks - 1:
                 x = getattr(self, f"up_{i}_upsample")(x)
 
-        out = self.conv_out(F.silu(self.conv_norm_out(x)))
+        out = self.conv_out(self.conv_norm_out(x, silu=True))
         return out if split is None else split.gather(out, 1)
 
 
@@ -596,3 +600,18 @@ def flash_launches_per_eval(cfg: UNetConfig) -> int:
     per_level = sum(d * (2 * cfg.layers_per_block + 1)
                     for d in cfg.transformer_layers)
     return per_level + cfg.transformer_layers[-1]
+
+
+def norm_launches_per_eval(cfg: UNetConfig) -> Tuple[int, int]:
+    """(GroupNorm, LayerNorm) calls of one UNet eval, one kernel call each
+    on the card: two GroupNorms a resnet (``layers_per_block`` a level
+    down, one more up, 2 in the mid block), one a Transformer2D and
+    ``conv_norm_out``; three LayerNorms a transformer block.  (46, 210)
+    for SDXL base."""
+    n = len(cfg.block_out_channels)
+    with_attn = sum(1 for d in cfg.transformer_layers if d)
+    resnets = n * (2 * cfg.layers_per_block + 1) + 2
+    transformers = with_attn * (2 * cfg.layers_per_block + 1) + (
+        1 if cfg.transformer_layers[-1] else 0)
+    return (2 * resnets + transformers + 1,
+            3 * flash_launches_per_eval(cfg))

@@ -25,7 +25,6 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from seedx_tpu_torch.models.sdxl.unet import (Conv, Dense, GroupNorm,
@@ -74,8 +73,8 @@ class VAEResnet(nn.Module):
                                        device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv2(self.norm2(h, silu=True))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
@@ -144,7 +143,7 @@ class VAEEncoder(nn.Module):
             if i < len(cfg.channels) - 1:
                 x = getattr(self, f"down_{i}_downsample")(x)
         x = self.mid_res_1(self.mid_attn(self.mid_res_0(x)))
-        x = self.conv_out(F.silu(self.norm_out(x)))
+        x = self.conv_out(self.norm_out(x, silu=True))
         return self.quant_conv(x)
 
 
@@ -184,7 +183,7 @@ class VAEDecoder(nn.Module):
                 x = getattr(self, f"up_{i}_res_{j}")(x)
             if i < len(cfg.channels) - 1:
                 x = upsample_conv(getattr(self, f"up_{i}_upsample"), x)
-        out = self.conv_out(F.silu(self.norm_out(x)))
+        out = self.conv_out(self.norm_out(x, silu=True))
         return out if split is None else split.gather(out, 1)
 
 

@@ -2,8 +2,10 @@
 card, at the shapes of the image-in comprehension turn, of batched decode,
 of the SFT train step and adapter training (the flash backward) and of the
 SDXL UNet (K1 in its self-attention, and the UNet with K1 against the
-plain attention; the adapter's diffusion loss and grads with K1 / K4 / K5
-against the CPU's plain path).
+plain attention; its GroupNorm (+ SiLU) and LayerNorm kernels at the
+eval's shapes, inside a captured eval and under autograd; the adapter's
+diffusion loss and
+grads with K1 / K4 / K5 against the CPU's plain path).
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  This file
 imports no JAX, so it runs on a machine that has none; the suite's
@@ -21,6 +23,7 @@ from seedx_tpu_torch.ops import attention as tattn
 from seedx_tpu_torch.ops import decode_attention as tdecode
 from seedx_tpu_torch.ops import flash_attention as tflash
 from seedx_tpu_torch.ops import int4_matmul as tint4
+from seedx_tpu_torch.ops import norms as tnorms
 from seedx_tpu_torch.utils import quantize as tquant
 from seedx_tpu_torch.utils.quantize import quantize_unet_params
 
@@ -699,6 +702,254 @@ def test_quantize_unet_on_card_matches_cpu(cuda_device):
                                atol=UNET_REL * eps[0].abs().max().item())
 
 
+
+# ---- GroupNorm (+ SiLU) and LayerNorm ----------------------------------------
+
+def _norm_inputs(dev, shape, dtype, seed=0):
+    """x with a per-channel offset (so E[x^2] - mean^2 cancels), and an
+    fp32 scale / bias of the UNet's kind."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device=dev) * 1.5
+         + torch.randn(c, generator=g, device=dev)).to(dtype)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=g, device=dev)
+    bias = 0.2 * torch.randn(c, generator=g, device=dev)
+    return x, scale, bias
+
+
+def _norm_close(out, ref):
+    """The kernels and the plain chains differ only in the order of their
+    fp32 sums.  bf16: within one ULP of the plain output (relative 2^-7),
+    plus 1e-5 of the output's scale where normed * scale and bias cancel to
+    a value far below it; fp32: within 1e-5 of the output's scale."""
+    mag = ref.float().abs().max().item()
+    rtol = 2.0 ** -7 if ref.dtype == torch.bfloat16 else 0.0
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=1e-5 * mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,eps,dtype", [
+    # the UNet's at 1024^2, CFG 2: level 0 resnets, the 2560 / 1920
+    # up-block concatenations, Transformer2D's eps 1e-6
+    ((2, 128, 128, 320), 32, 1e-5, torch.bfloat16),
+    ((2, 128, 128, 320), 32, 1e-6, torch.bfloat16),
+    ((2, 32, 32, 2560), 32, 1e-5, torch.bfloat16),
+    ((2, 64, 64, 1920), 32, 1e-5, torch.bfloat16),
+    ((2, 64, 64, 1920), 32, 1e-6, torch.bfloat16),
+    ((3, 32, 32, 1280), 32, 1e-6, torch.bfloat16),
+    # the fp32 VAE (eps 1e-6); ragged: positions off every chunk, 3
+    # channels a group, 8 vectors a thread's slots do not fill
+    ((1, 256, 256, 512), 32, 1e-6, torch.float32),
+    ((1, 64, 64, 2560), 32, 1e-6, torch.float32),
+    ((3, 7, 9, 96), 32, 1e-5, torch.bfloat16),
+    ((2, 5, 5, 24), 8, 1e-5, torch.float32)])
+def test_group_norm_kernel_matches_plain(cuda_device, shape, groups, eps,
+                                         dtype):
+    """The GroupNorm kernel against ``group_norm_fp32_stats`` (one ULP in
+    bf16, 1e-5 in fp32); with SiLU against ``F.silu`` of its own output
+    (one ULP: the same fp32 SiLU of the same rounded value); one count a
+    call; the same bits over repeated runs."""
+    import torch.nn.functional as F
+
+    x, scale, bias = _norm_inputs(cuda_device, shape, dtype)
+    ref = tnorms.group_norm_fp32_stats(x, scale, bias, groups, eps)
+    n = tnorms.group_norm.launches
+    out = tnorms.group_norm(x, scale, bias, groups, eps)
+    act = tnorms.group_norm(x, scale, bias, groups, eps, silu=True)
+    again = tnorms.group_norm(x, scale, bias, groups, eps, silu=True)
+    torch.cuda.synchronize()
+    assert tnorms.group_norm.launches - n == 3
+    _norm_close(out, ref)
+    torch.testing.assert_close(act.float(), F.silu(out).float(),
+                               rtol=2.0 ** -7 if dtype == torch.bfloat16
+                               else 1e-6, atol=0)
+    assert torch.equal(act, again)
+
+
+@pytest.mark.cuda
+def test_group_norm_kernel_reduce_between_passes(cuda_device):
+    """``reduce`` sees the [2, B, G] sums between the passes: a sum over
+    two identical ranks (x2) with ``parts`` 2 gives the unsplit output bit
+    for bit (exact power-of-two scalings), over one rank (identity) too,
+    and the doubled sums with one part do not."""
+    x, scale, bias = _norm_inputs(cuda_device, (2, 64, 64, 640),
+                                  torch.bfloat16)
+    seen = []
+
+    def double(sums):
+        seen.append(tuple(sums.shape))
+        return sums * 2
+
+    ref = tnorms.group_norm(x, scale, bias, 32)
+    one = tnorms.group_norm(x, scale, bias, 32, reduce=lambda s: s)
+    two = tnorms.group_norm(x, scale, bias, 32, reduce=double, parts=2)
+    wrong = tnorms.group_norm(x, scale, bias, 32, reduce=double)
+    torch.cuda.synchronize()
+    assert seen == [(2, 2, 32)] * 2
+    assert torch.equal(one, ref) and torch.equal(two, ref)
+    assert not torch.equal(wrong, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 4096, 640), torch.bfloat16), ((2, 1024, 1280), torch.bfloat16),
+    ((3, 77, 640), torch.bfloat16), ((2, 256, 320), torch.bfloat16),
+    ((5, 33, 1280), torch.float32), ((7, 3, 32), torch.bfloat16)])
+def test_layer_norm_kernel_matches_plain(cuda_device, shape, dtype):
+    """The LayerNorm kernel against ``layer_norm_fp32_stats`` at the
+    UNet's rows (4096 x 640 and 1024 x 1280 at CFG 2), ragged row counts
+    (231 rows: not a whole number of 4-row blocks), fp32 and the debug
+    width; one launch a call; the same bits over repeated runs."""
+    x, scale, bias = _norm_inputs(cuda_device, shape, dtype)
+    ref = tnorms.layer_norm_fp32_stats(x, scale, bias, 1e-5)
+    n = tnorms.layer_norm.launches
+    out = tnorms.layer_norm(x, scale, bias, 1e-5)
+    again = tnorms.layer_norm(x, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert tnorms.layer_norm.launches - n == 2
+    _norm_close(out, ref)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_captured_sdxl_eval_counts_its_norms(cuda_device, monkeypatch):
+    """A captured eval of the SDXL base-width UNet (CFG batch 2 at 16 x 16
+    latents) counts ``norm_launches_per_eval`` (46, 210) GroupNorm and
+    LayerNorm calls a replay, runs no plain norm, and replays the eager
+    eval bit for bit."""
+    from seedx_tpu_torch.utils import graphs
+
+    cfg = tunet.sdxl_base_unet()
+    unet = _unet(cfg, cuda_device)
+    args = _unet_args(cfg, 2, 16, cuda_device)
+
+    def plain(*a, **kw):
+        raise AssertionError("a plain norm ran on the card")
+
+    monkeypatch.setattr(tnorms, "group_norm_fp32_stats", plain)
+    monkeypatch.setattr(tnorms, "layer_norm_fp32_stats", plain)
+
+    with torch.no_grad():
+        eager = unet(*args)
+        program = graphs.Program(lambda: unet(*args), cuda_device,
+                                 graphs.Graphs())
+        program()
+        n = (tnorms.group_norm.launches, tnorms.layer_norm.launches)
+        out = program()
+    torch.cuda.synchronize()
+    per = (tnorms.group_norm.launches - n[0],
+           tnorms.layer_norm.launches - n[1])
+    assert per == tunet.norm_launches_per_eval(cfg) == (46, 210)
+    assert {k[0].__name__: v for k, v in program.per_replay.items()
+            if k[1] == "launches" and k[0].__name__.endswith("_norm")} == {
+                "group_norm": 46, "layer_norm": 210}
+    assert torch.equal(out, eager)
+    del unet, program
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,dtype,silu", [
+    ("group_norm", (2, 32, 32, 640), torch.bfloat16, False),
+    ("group_norm", (2, 32, 32, 640), torch.bfloat16, True),
+    ("group_norm", (2, 64, 64, 320), torch.bfloat16, True),
+    ("group_norm", (1, 64, 64, 512), torch.float32, True),
+    ("group_norm", (3, 7, 9, 96), torch.bfloat16, False),
+    ("layer_norm", (2, 1024, 1280), torch.bfloat16, False),
+    ("layer_norm", (2, 4096, 640), torch.bfloat16, False),
+    ("layer_norm", (5, 33, 1280), torch.float32, False)])
+def test_norm_kernel_grads_match_plain_autograd(cuda_device, kind, shape,
+                                                dtype, silu):
+    """The wrappers' autograd functions (the kernel forward, the
+    closed-form backward in plain torch) against autograd through
+    ``group_norm_fp32_stats`` (+ ``F.silu``) / ``layer_norm_fp32_stats``
+    on the card: dx, dscale and dbias within 1e-5 of each one's largest
+    for fp32 x; for bf16 x one ULP plus 1e-3 of it, dscale and dbias too
+    (fp32 sums of terms rounded to bf16, where the kernel's rounded norm,
+    under SiLU, may lie a ULP from the plain chain's: the two differ only
+    in the order of the statistics' sums)."""
+    import torch.nn.functional as F
+
+    x, scale, bias = _norm_inputs(cuda_device, shape, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    if kind == "group_norm":
+        def kernel(x, s, b):
+            return tnorms.group_norm(x, s, b, 32, 1e-6, silu=silu)
+
+        def plain(x, s, b):
+            y = tnorms.group_norm_fp32_stats(x, s, b, 32, 1e-6)
+            return F.silu(y) if silu else y
+    else:
+        def kernel(x, s, b):
+            return tnorms.layer_norm(x, s, b, 1e-5)
+
+        def plain(x, s, b):
+            return tnorms.layer_norm_fp32_stats(x, s, b, 1e-5)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, scale, bias)]
+        (fn(*leaves).float() * dy.float()).sum().backward()
+        return [t.grad for t in leaves]
+
+    counter = getattr(tnorms, kind)
+    n = counter.launches
+    got = grads(kernel)
+    torch.cuda.synchronize()
+    assert counter.launches - n == 1
+    bf16 = dtype == torch.bfloat16
+    for a, w in zip(got, grads(plain)):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        mag = w.float().abs().max().item()
+        torch.testing.assert_close(a.float(), w.float(),
+                                   rtol=2.0 ** -7 if bf16 else 0,
+                                   atol=(1e-3 if bf16 else 1e-5) * mag)
+
+
+@pytest.mark.cuda
+def test_unet_under_autograd_runs_the_norm_kernels(cuda_device,
+                                                   monkeypatch):
+    """With autograd recording (an input that requires grad) the debug
+    UNet launches each norm kernel once a norm, and its eps and gradients
+    match a run on the plain norms (within the UNet tolerance)."""
+    import torch.nn.functional as F
+
+    cfg = tunet.sdxl_debug_unet()
+    unet = _unet(cfg, cuda_device)
+    args = _unet_args(cfg, 2, 32, cuda_device)
+
+    def grads():
+        sample = args[0].clone().requires_grad_(True)
+        ctx = args[2].clone().requires_grad_(True)
+        eps = unet(sample, args[1], ctx, *args[3:])
+        eps.float().square().sum().backward()
+        return eps.detach(), sample.grad, ctx.grad
+
+    n = (tnorms.group_norm.launches, tnorms.layer_norm.launches)
+    got = grads()
+    torch.cuda.synchronize()
+    assert (tnorms.group_norm.launches - n[0],
+            tnorms.layer_norm.launches - n[1]) == \
+        tunet.norm_launches_per_eval(cfg)
+
+    def plain_gn(x, scale, bias, groups, eps=1e-5, reduce=None, parts=1,
+                 silu=False):
+        y = tnorms.group_norm_fp32_stats(x, scale, bias, groups, eps,
+                                         reduce, parts)
+        return F.silu(y) if silu else y
+
+    with monkeypatch.context() as m:
+        m.setattr(tunet, "group_norm", plain_gn)
+        m.setattr(tunet, "layer_norm", tnorms.layer_norm_fp32_stats)
+        want = grads()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=0,
+            atol=UNET_REL * b.float().abs().max().item())
+
+
 # ---- the agent's quantizers on the card ------------------------------------
 
 @pytest.mark.cuda
@@ -1233,7 +1484,8 @@ def test_adapter_loss_on_card_matches_cpu(cuda_device):
     leaf's own largest (the SFT trainer's bf16 tolerance), floored at 1e-3
     of the model's largest gradient, bf16 rounding's level, for a leaf
     whose gradient is near zero; one K1, K4 and K5 launch a
-    self-attention."""
+    self-attention, and one GroupNorm / LayerNorm kernel call a norm (the
+    kernels' forward under autograd, their plain-torch backward)."""
     import dataclasses
 
     from seedx_tpu_torch.models import detokenizer as tdet
@@ -1265,6 +1517,7 @@ def test_adapter_loss_on_card_matches_cpu(cuda_device):
         state = init_state()
         n = (tflash.flash_fwd.launches, tflash.flash_bwd_dq.launches,
              tflash.flash_bwd_dkv.launches)
+        norms = (tnorms.group_norm.launches, tnorms.layer_norm.launches)
         loss = ttrain.adapter_loss(
             unet, res, {k: v.to(dev) for k, v in batch.items()}, t.to(dev),
             noise.to(dev), ttrain.make_sigma_tables(), tids)
@@ -1275,6 +1528,9 @@ def test_adapter_loss_on_card_matches_cpu(cuda_device):
             assert (tflash.flash_fwd.launches - n[0],
                     tflash.flash_bwd_dq.launches - n[1],
                     tflash.flash_bwd_dkv.launches - n[2]) == (per,) * 3
+            assert (tnorms.group_norm.launches - norms[0],
+                    tnorms.layer_norm.launches - norms[1]) == \
+                tunet.norm_launches_per_eval(ucfg)
         losses[dev.type] = float(loss.detach())
         grads[dev.type] = {k: p.grad.float().cpu()
                            for k, p in state.params.items()}
@@ -1411,7 +1667,8 @@ def test_one_rank_nccl_split_denoise_bit_equal(cuda_device):
     (every conv's halo, GroupNorm sum, K / V gather and the rows and CFG
     gathers one-rank NCCL calls inside the captured eval): the debug
     adapter's text-to-image and edit images bit-equal to the unsplit
-    run's, with K1 on the self-attention."""
+    run's, with K1 on the self-attention and the GroupNorm kernel (its
+    sums all-reduced between its passes)."""
     import torch.distributed as dist
 
     from seedx_tpu_torch.inference.runtime import SeedXRuntime
@@ -1433,9 +1690,10 @@ def test_one_rank_nccl_split_denoise_bit_equal(cuda_device):
     try:
         ad.shard(create_mesh(1, 1, 1))
         assert ad.graphs.enabled
-        before = fa.flash_fwd.launches
+        before = fa.flash_fwd.launches, tnorms.group_norm.launches
         got = run()
-        assert fa.flash_fwd.launches > before
+        assert fa.flash_fwd.launches > before[0]
+        assert tnorms.group_norm.launches > before[1]
         for a, b in zip(got, ref):
             assert (a == b).all()
     finally:

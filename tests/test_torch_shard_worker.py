@@ -234,7 +234,6 @@ def denoise(rank, inp):
                      parts=1):
             return real_gn(x, scale, bias, groups, eps)
 
-        from seedx_tpu_torch.models.sdxl import unet as tunet
         try:
             MeshGroups.halo = zero_halo
             out["t2i_zero_halo"] = ad.generate(embeds, from_vit=True,
@@ -242,11 +241,11 @@ def denoise(rank, inp):
         finally:
             MeshGroups.halo = real_halo
         try:
-            tunet.group_norm_fp32_stats = local_gn
+            norms.group_norm_fp32_stats = local_gn
             out["t2i_local_gn"] = ad.generate(embeds, from_vit=True,
                                               num_inference_steps=steps)
         finally:
-            tunet.group_norm_fp32_stats = real_gn
+            norms.group_norm_fp32_stats = real_gn
     return out
 
 
