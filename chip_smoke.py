@@ -5,7 +5,7 @@ decoding and beam search, image out (the SDXL adapter: text to image,
 reconstruction, editing), SEED-X SFT through the ``train_sft`` entry
 point over the repo's YAMLs and files on disk, de-tokenizer (adapter)
 training at the SDXL width and a runtime loaded from release checkpoint
-files, and check its seven CUDA kernels.
+files, and check its eight CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -13,14 +13,16 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
 1. environment: torch / CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
-2. build: the five kernel sources of ``seedx_tpu_torch/csrc`` (one nvcc
+2. build: the six kernel sources of ``seedx_tpu_torch/csrc`` (one nvcc
    each, started together, sm_90a);
 3. kernels: each against its plain PyTorch version at the shapes of the
    turn, of batched decode, of the fused step's stair (K3's multi-query
    mode) and of the attention backward (K4, K5; two runs bit-equal) of
    the SFT step and of adapter training (the UNet's self-attention), and
-   the UNet's and VAE's GroupNorm (+ SiLU) and LayerNorm at 1024^2
-   (max abs / rel error against a stated tolerance; median of 10 timed
+   the UNet's and VAE's GroupNorm (+ SiLU) and LayerNorm at 1024^2, and
+   K6 at DeepSeek-V2-Lite's expert widths (a 32-slot decode step's rows,
+   a 2048- and a 4096-token prefill's; ``torch._grouped_mm`` as the
+   library yardstick) (max abs / rel error against a stated tolerance; median of 10 timed
    runs after warm-up, CUDA events), beside its bound (the larger
    of bytes / 3.35 TB/s and operations / the tensor cores' peak for the
    input type) and, where one exists, the time of the PyTorch call
@@ -55,7 +57,13 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    logged; a torch.profiler window over one decode chunk at 1 and at 8
    live slots and over one fused mixed chunk at 8, captured and eager
    (device busy share, K3's device ms), and ``SeedXServer`` (warmed up)
-   answering 4 concurrent HTTP requests on 127.0.0.1;
+   answering 4 concurrent HTTP requests on 127.0.0.1; and, once the
+   phase-4 runtime is freed (after phase 10), the same 16 requests
+   through ``ContinuousEngine`` on a runtime of their own whose agent has
+   DeepSeek-V2-Lite as its LLM at its published sizes (bf16, a bf16
+   latent KV cache; ``run_moe_serving``), captured and then eager: the
+   token streams and hidden states bit-equal, and K6 launched twice a MoE
+   layer for every step run and every prefill group;
 6. chat: three turns (an image in the first) through a ``ChatSession``
    with the KV prefix cache and one without (the cache must be reused),
    a cached session forced along the uncached replies (its logits held to
@@ -242,7 +250,8 @@ KERNELS = (("flash_fwd", "seedx_tpu_torch/csrc/flash_fwd.cu",
            ("decode_attn", "seedx_tpu_torch/csrc/decode_attn.cu",
             "seedx_tpu/ops/decode_attention.py:115"),
            ("group_norm", "seedx_tpu_torch/csrc/norms.cu", "none"),
-           ("layer_norm", "seedx_tpu_torch/csrc/norms.cu", "none"))
+           ("layer_norm", "seedx_tpu_torch/csrc/norms.cu", "none"),
+           ("moe_gemm", "seedx_tpu_torch/csrc/moe_gemm.cu", "none"))
 
 
 def log(msg: str) -> None:
@@ -295,12 +304,14 @@ def counters():
     from seedx_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
                                                      flash_bwd_dq, flash_fwd)
     from seedx_tpu_torch.ops.int4_matmul import int4_matmul
+    from seedx_tpu_torch.ops.moe import moe_gemm
     from seedx_tpu_torch.ops.norms import group_norm, layer_norm
 
     return {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
             "flash_bwd_dkv": flash_bwd_dkv, "int4_w4a8": int4_matmul,
             "decode_attn": ragged_decode_attention,
-            "group_norm": group_norm, "layer_norm": layer_norm}
+            "group_norm": group_norm, "layer_norm": layer_norm,
+            "moe_gemm": moe_gemm}
 
 
 def reset_counts() -> None:
@@ -936,6 +947,99 @@ def check_norms(dev, g, flush, shapes=NORM_SHAPES):
     return rows
 
 
+# K6 at DeepSeek-V2-Lite's expert widths (64 experts, hidden 2048, width
+# 1408): (name, routed rows, gated): a decode step of 32 slots x top-6, a
+# 2048-token and a 4096-token prefill, gate / up (SwiGLU epilogue) and down
+MOE_SHAPES = (("decode_gate_up", 192, True), ("decode_down", 192, False),
+              ("prefill2048_gate_up", 12288, True),
+              ("prefill2048_down", 12288, False),
+              ("prefill4096_gate_up", 24576, True),
+              ("prefill4096_down", 24576, False))
+
+
+def check_moe(dev, g, flush, shapes=MOE_SHAPES):
+    """K6 against moe_gemm_plain (the per-expert fp32 matmul loop, TF32
+    off): within one bf16 ULP of the largest value for the gated (bf16)
+    output, 1e-5 of it for the fp32 one; rows spread at random over the
+    experts
+    (at 192 rows some get none, and read no weight); timed with the L2
+    flushed beside its bound (each active expert's weights read once, the
+    rows in and out once) and ``torch._grouped_mm`` on the same rows, a
+    library yardstick only (the main path never calls it)."""
+    import torch
+
+    from seedx_tpu_torch.ops import moe
+
+    e, d, f = 64, 2048, 1408
+    rows_out = []
+    for name, rows, gated in shapes:
+        k_in, n_out = (d, f) if gated else (f, d)
+        pick = torch.randint(0, e, (rows,), generator=g, device=dev)
+        counts = torch.bincount(pick, minlength=e)
+        offsets = torch.nn.functional.pad(torch.cumsum(counts, 0),
+                                          (1, 0)).to(torch.int32)
+        x = torch.randn((rows, k_in), generator=g, device=dev).to(
+            torch.bfloat16)
+        w = (torch.randn((e, k_in, n_out), generator=g, device=dev)
+             * 0.02).to(torch.bfloat16)
+        w2 = ((torch.randn((e, k_in, n_out), generator=g, device=dev)
+               * 0.02).to(torch.bfloat16) if gated else None)
+
+        def kernel():
+            return moe.moe_gemm(x, w, offsets, w2)
+
+        def plain():
+            return moe.moe_gemm_plain(x, w, offsets, w2)
+
+        out = kernel()
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            ref = plain()
+            plain_ms = cuda_ms(plain, flush, warmup=1, iters=3)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        mag = ref.float().abs().max().item()
+        ok = err <= (2.0 ** -7 if gated else 1e-5) * mag
+        again = torch.equal(kernel(), out)
+        active = int((counts > 0).sum())
+        nb = 2 if gated else 1
+        n_bytes = (active * nb * k_in * n_out * 2
+                   + rows * (k_in * 2 + n_out * (2 if gated else 4)))
+        bnd = bound(n_bytes, 2.0 * nb * rows * k_in * n_out, "bf16")
+        ms = cuda_ms(kernel, flush)
+        lib_ms = None
+        grouped = getattr(torch, "_grouped_mm", None)
+        if grouped is not None:
+            ends = offsets[1:].contiguous()
+            # column-major experts, the layout the library takes
+            wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)
+            wt2 = (w2.transpose(-2, -1).contiguous().transpose(-2, -1)
+                   if gated else None)
+
+            def library():
+                y = grouped(x, wt, offs=ends)
+                if gated:
+                    y = torch.nn.functional.silu(y) * grouped(x, wt2,
+                                                              offs=ends)
+                return y
+
+            try:
+                lib_ms = cuda_ms(library, flush)
+            except (RuntimeError, TypeError) as exc:
+                log(f"torch._grouped_mm refused {name}: "
+                    f"{str(exc).splitlines()[0][:160]}")
+        r = row("moe_gemm", f"{name} R{rows} [{k_in}->{n_out}] E{e} "
+                f"active {active}", ok and again, err, ms, plain_ms, bnd,
+                lib_ms)
+        log(fmt_row(r, f" bit-equal rerun {again}; kernel / bound "
+                       f"{ms / bnd[0]:.2f}"))
+        rows_out.append(r)
+    return rows_out
+
+
 def check_kernels(dev):
     """Phase 3: each kernel against its plain version at the path shapes."""
     import torch
@@ -948,6 +1052,7 @@ def check_kernels(dev):
     rows += check_stair(dev, g, flush)
     rows += check_stair_verify(dev, g, flush)
     rows += check_norms(dev, g, flush)
+    rows += check_moe(dev, g, flush)
     del flush
     return rows
 
@@ -1728,6 +1833,134 @@ def run_serving(rt):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; server stats "
         f"{json.dumps(stats)}")
     return totals, requests, budgets, limit
+
+
+def dsv2_lite_llm():
+    """DeepSeek-V2-Lite's LLM at its published sizes (deepseek-ai/
+    DeepSeek-V2-Lite config.json), bf16."""
+    from seedx_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(
+        vocab_size=102400, hidden_size=2048, intermediate_size=10944,
+        num_layers=27, num_heads=16, num_kv_heads=16, rope_theta=10000.0,
+        rms_eps=1e-6, max_position_embeddings=163840, kv_lora_rank=512,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+        n_routed_experts=64, num_experts_per_tok=6, moe_intermediate_size=1408,
+        n_shared_experts=2, first_k_dense_replace=1, routed_scaling_factor=1.0,
+        yarn_factor=40.0, yarn_original_max_position=4096, yarn_beta_fast=32,
+        yarn_beta_slow=1, yarn_mscale=0.707, yarn_mscale_all_dim=0.707)
+
+
+def run_moe_serving(dev):
+    """Phase 5's 16 requests through ``ContinuousEngine`` on ViT-bigG and
+    an agent with DeepSeek-V2-Lite as its LLM (random weights from seed
+    0), captured (the main path) and then eager: token streams and hidden
+    states bit-equal, and K6 launched twice in each MoE layer of every
+    step run (replays and warm runs) and of every prefill group.  Returns
+    the captured run's launches."""
+    import torch
+
+    from seedx_tpu_torch.inference import continuous
+    from seedx_tpu_torch.inference.runtime import SeedXRuntime
+    from seedx_tpu_torch.models.agent import AgentConfig
+    from seedx_tpu_torch.models.vit import qwen_vitg_448
+
+    t0 = time.perf_counter()
+    llm = dsv2_lite_llm()
+    rt = SeedXRuntime.random(
+        qwen_vitg_448(), AgentConfig(llm=llm, vit_dim=4096,
+                                     resampler_heads=32, num_img_in_tokens=64,
+                                     num_img_out_tokens=64),
+        seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"built ViT-bigG/14-448 + DeepSeek-V2-Lite agent (bf16) on the "
+        f"card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    # the tokenizer has no entry for the LLM's rows past its multimodal
+    # vocabulary: a result's text leaves those ids out
+    tok = rt.tokenizer
+    decode, limit = tok.decode, tok.vocab.vocab_size
+    tok.decode = lambda ids, skip_special_tokens=False: decode(
+        [int(t) for t in ids if int(t) < limit], skip_special_tokens)
+    requests, budgets = serving_inputs(rt)[3:]
+    per_pass = 2 * (llm.num_layers - llm.dense_layers)
+    active = rt.agent.llm.layers.experts_active
+    steps = [0]
+    base_chunk = continuous.run_chunk
+
+    def counted_chunk(program, state, k, *a, **kw):
+        steps[0] += k
+        return base_chunk(program, state, k, *a, **kw)
+
+    totals, streams, hidden = {}, {}, {}
+    continuous.run_chunk = counted_chunk
+    try:
+        for mode in ("graphs", "eager"):
+            name = f"serving continuous DeepSeek-V2-Lite ({mode})"
+            rt.graphs.enabled = mode == "graphs"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            eng = continuous.ContinuousEngine(rt, **ENGINE)
+            groups = [0]
+            group = eng._prefill_group
+
+            def counted_group(reqs, bucket, group=group, groups=groups):
+                groups[0] += 1
+                return group(reqs, bucket)
+
+            eng._prefill_group = counted_group
+            kept = keep_hidden(eng)
+            steps[0] = 0
+            a0 = int(active)
+            reset_counts()
+            t1 = time.perf_counter()
+            ids = [eng.submit(r, max_new_tokens=b)
+                   for r, b in zip(requests, budgets)]
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = path_counts(name, ("moe_gemm",))
+            add_counts(totals if mode == "graphs" else CHECKS, counts)
+            want = per_pass * (steps[0] + groups[0])
+            if counts["moe_gemm"] != want:
+                raise AssertionError(
+                    f"{name}: K6 launched {counts['moe_gemm']} times, want "
+                    f"{per_pass} x ({steps[0]} steps + {groups[0]} prefill "
+                    f"groups) = {want}")
+            got = [list(res[i]["tokens"]) for i in ids]
+            for s_, b in zip(got, budgets):
+                check_tokens(s_, llm.vocab_size, b)
+            streams[mode] = got
+            hidden[mode] = [kept[i] for i in ids]
+            n_act = int(active) - a0
+            log(f"{name}: {len(ids)} requests, {sum(map(len, got))} tokens "
+                f"in {wall:.2f} s, {steps[0]} steps run in "
+                f"{eng.stats()['chunks']} chunks, {groups[0]} prefill "
+                f"groups; K6 {counts['moe_gemm']} launches ({per_pass} a "
+                f"pass); {n_act} (layer, pass) expert activations, "
+                f"{n_act / (per_pass // 2 * (steps[0] + groups[0])):.1f} "
+                f"experts a MoE layer a pass; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if mode == "graphs":
+                log_programs(name, eng._programs.values())
+            del eng
+    finally:
+        continuous.run_chunk = base_chunk
+        rt.graphs.enabled = True
+    same = (streams["graphs"] == streams["eager"],
+            all(torch.equal(a, b) for a, b in zip(hidden["graphs"],
+                                                   hidden["eager"])))
+    if not all(same):
+        raise AssertionError(f"serving continuous DeepSeek-V2-Lite: the "
+                             f"captured run differs from the eager one "
+                             f"(streams, hidden equal: {same})")
+    log(f"serving continuous DeepSeek-V2-Lite: captured and eager token "
+        f"streams and hidden states bit-equal for all {len(requests)} "
+        f"requests")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
 
 
 def fused_logits_check(rt, requests, budgets, streams, ref) -> float:
@@ -5688,11 +5921,11 @@ def build_kernels():
     from seedx_tpu_torch.ops import decode_attention as da
     from seedx_tpu_torch.ops import flash_attention as fa
     from seedx_tpu_torch.ops import int4_matmul as i4
-    from seedx_tpu_torch.ops import norms
+    from seedx_tpu_torch.ops import moe, norms
 
     libs = {"flash_fwd": fa.library, "flash_bwd": fa.bwd_library,
             "int4_w4a8": i4.library, "decode_attn": da.library,
-            "norms": norms.library}
+            "norms": norms.library, "moe_gemm": moe.library}
     errors = {}
 
     def build(name):
@@ -5769,6 +6002,7 @@ def main() -> int:
     del rt
     gc.collect()
     torch.cuda.empty_cache()
+    add_counts(launches, run_moe_serving(dev))
     add_counts(launches, run_train(dev))
     add_counts(launches, run_mesh_train(smi))
     add_counts(launches, run_adapter_train(dev, smi))

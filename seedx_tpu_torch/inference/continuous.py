@@ -68,17 +68,17 @@ from seedx_tpu_torch.utils.graphs import Program
 def _prefill(model, embeds, p_lens, bucket: int):
     """Right-padded prompts [b, bucket, D] -> (mini_cache [L, b, bucket,
     ...], last_logits [b, V] fp32, last_hidden [b, D]): one forward for
-    every admitted request of a bucket."""
+    every admitted request of a bucket, the LM head on each prompt's last
+    row only."""
     b = embeds.shape[0]
     dev = embeds.device
     cache = init_kv_cache(model.cfg.llm, b, bucket, device=dev,
                           kv_heads=model.llm.kv_heads)
     positions = torch.arange(bucket, device=dev).repeat(b, 1)
     kv_valid = torch.arange(bucket, device=dev)[None, :] < p_lens[:, None]
-    logits, hidden, _ = model.llm_step(embeds, positions, kv_valid, cache, 0)
-    rows = torch.arange(b, device=dev)
-    last = p_lens.long() - 1
-    return cache, logits[rows, last].float(), hidden[rows, last]
+    logits, hidden, _ = model.llm_step(embeds, positions, kv_valid, cache, 0,
+                                       last=p_lens - 1)
+    return cache, logits[:, 0].float(), hidden[:, 0]
 
 
 def _arm(state, row: int, p_len: int, last_logits, last_hidden,
@@ -202,10 +202,16 @@ def run_chunk(program, state, k: int, noise: Optional[SampleNoise] = None,
     ``kind`` (the program's), ``replayed`` (k), ``ran``, ``tokens`` (the
     row-steps that emitted a token) and ``kv_positions`` (the KV positions
     those steps read, a row's window growing by one a step), the last two
-    read right after the host read of ``ran``."""
+    read right after the host read of ``ran``; with sparse experts
+    ``experts_active`` (the (layer, step) expert activations with rows over
+    the replayed steps: the device counter's growth, resolved when the
+    records are read)."""
+    active = state.get("experts_active")
     with profiling.annotate("engine.chunk", device=True) as span:
         if span:
             n0, pos0 = state["n"].clone(), state["pos"].clone()
+            if active is not None:
+                a0 = active.clone()
         state["steps"].zero_()
         if noise is not None:
             noise.draw(generator, k)
@@ -221,6 +227,8 @@ def run_chunk(program, state, k: int, noise: Optional[SampleNoise] = None,
                 [d.sum(), (d * pos0 + d * (d + 1) // 2).sum()]).tolist()
             span["kind"] = program.kind
             span["replayed"], span["ran"] = k, ran
+            if active is not None:
+                span["experts_active"] = active - a0
     return ran
 
 
@@ -387,6 +395,10 @@ class ContinuousEngine:
         JAX package.  It composes with ``paged``.  ``packed`` picks the
         mixed step's layout: True packed, False windowed, None (default)
         packed for an int4 agent and windowed otherwise."""
+        llm = rt.agent.cfg.llm
+        if (llm.mla or llm.moe) and (paged or fused_prefill):
+            raise ValueError("latent attention / sparse experts: no paged "
+                             "KV and no fused prefill")
         self.rt = rt
         self.model = rt.agent
         self.vocab = rt.tokenizer.vocab
@@ -475,6 +487,9 @@ class ContinuousEngine:
                                       dtype=cfg.dtype, device=dev),
             "steps": torch.zeros((), **i64),
         }
+        if cfg.moe:
+            # the model's counter (a buffer the decode step adds to)
+            self.state["experts_active"] = rt.agent.llm.layers.experts_active
         if paged:
             self.state["tables"] = torch.zeros(
                 (slots, s_max // page_size), dtype=torch.int32, device=dev)

@@ -131,17 +131,17 @@ class ContinuousLVLM(nn.Module):
     def llm_step(self, inputs_embeds, positions, kv_valid=None, cache=None,
                  cache_index=0, block_tables=None, write_widths=None,
                  tok_row=None, tok_slot=None, packed_window=0,
-                 write_mask=None):
+                 write_mask=None, last=None):
         """One LLM forward (prefill, decode or the fused step): (logits,
         hidden, cache).  ``cache_index`` may be a [B] tensor of per-row
         positions, ``block_tables`` a paged pool's tables,
         ``write_widths`` / ``tok_row`` / ``tok_slot`` / ``packed_window``
         select the continuous engine's fused step and ``write_mask`` masks
-        a one-token step's cache writes (see LlamaForCausalLM; reference
-        agent.py:160-170)."""
+        a one-token step's cache writes and ``last`` keeps one position a
+        row (see LlamaForCausalLM; reference agent.py:160-170)."""
         return self.llm(inputs_embeds, positions, kv_valid, cache,
                         cache_index, block_tables, write_widths, tok_row,
-                        tok_slot, packed_window, write_mask)
+                        tok_slot, packed_window, write_mask, last)
 
     def decode_image_feats(self, hidden_states: torch.Tensor) -> torch.Tensor:
         """Output resampler over generated spans [num_imgs, n_out, hidden]

@@ -35,6 +35,29 @@ first cell past its row's real writes), never onto a clamped cell a real
 token may own; a one-token step's ``write_mask`` [B] writes a masked
 row's cell back as it was (a predicated step that must change nothing).
 
+DeepSeek-V2 (``LlamaConfig.mla`` / ``.moe``; reference: DeepSeek's
+``modeling_deepseek.py``, the JAX package has neither) adds two kinds to
+the one layer loop.  Latent attention (MLA): q is ``[nope | rope]`` per
+head; one ``kv_a_proj`` gives the ``kv_lora_rank`` latent c (RMS-normed)
+and a single-head ``k_pe``, both roped parts after a de-interleave with
+YaRN frequencies.  The cache holds the latent ``[c | k_pe]``, one tensor
+[L, B, S, kv_lora_rank + rope] (``init_kv_cache``).  A multi-row step
+(prefill) expands the cached latent through ``kv_b_proj`` into per-head
+``k_nope`` and v and attends with q / k 192 wide and v 128, through the
+plain path (``dot_product_attention``'s ``"auto"`` sends what K1 cannot
+take there), a few rows a call; a one-token step runs the absorbed form
+over the whole static cache under ``kv_valid``: q_nope through W_UK (a
+view of ``kv_b_proj``) into the latent space, scores against the cached
+``[c | k_pe]``, the latent output back through W_UV.  Sparse experts
+(MoE): the first ``first_k_dense_replace`` layers keep the dense SwiGLU
+(stack ``gate_proj`` / ``up_proj`` / ``down_proj``), the rest route each
+token to ``num_experts_per_tok`` of ``n_routed_experts`` experts
+(``ops/moe.py``, K6) and add the shared experts' SwiGLU (stack
+``shared_*``); in a step that is not per-row, the tokens whose own cells
+``kv_valid`` leaves out (a right-padded prefill's pads) route to no
+expert.  Refused for either: quantized weights or KV, LoRA / IA3,
+paged KV, the fused step, training and a mesh (each with a ValueError).
+
 Training (``LlamaForCausalLM.forward_train``, ``causal_lm_loss``) runs the
 cache-less forward with per-layer recomputation (``remat``, the JAX
 package's ``nn.remat``) on a bf16 / fp32 base; its causal attention goes
@@ -71,8 +94,11 @@ from torch.utils.checkpoint import checkpoint
 from seedx_tpu_torch.models.layers import (LoRADense, PDense, RMSNorm, leaf,
                                            tensor_size)
 from seedx_tpu_torch.ops.attention import dot_product_attention
+from seedx_tpu_torch.ops.attention import NEG_INF
 from seedx_tpu_torch.ops.decode_attention import ragged_decode_attention
-from seedx_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from seedx_tpu_torch.ops.moe import moe_experts
+from seedx_tpu_torch.ops.rope import (apply_rope, deinterleave, rope_cos_sin,
+                                      yarn_inv_freq, yarn_mscale)
 
 KVCache = Tuple[torch.Tensor, ...]
 IGNORE_INDEX = -100   # label value excluded from the LM loss (HF convention)
@@ -112,10 +138,100 @@ class LlamaConfig:
     # at 2, 5 and 10; 32336 = 8*4042 at 8.  Pad logits are masked to -1e9.
     vocab_pad_to: int = 0
     dtype: torch.dtype = torch.bfloat16
+    # DeepSeek-V2 latent attention (kv_lora_rank 0: the LLaMA attention)
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # DeepSeek-V2 sparse experts (n_routed_experts 0: every layer dense):
+    # the first first_k_dense_replace layers dense (intermediate_size),
+    # the rest top-num_experts_per_tok routed experts of width
+    # moe_intermediate_size plus n_shared_experts of the same width as
+    # one SwiGLU
+    n_routed_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    n_shared_experts: int = 0
+    first_k_dense_replace: int = 0
+    routed_scaling_factor: float = 1.0
+    # YaRN rope scaling (factor 0: plain RoPE)
+    yarn_factor: float = 0.0
+    yarn_original_max_position: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
+    def __post_init__(self):
+        if not (self.mla or self.moe):
+            return
+        kinds = " / ".join(k for k, on in (("latent attention", self.mla),
+                                           ("sparse experts", self.moe))
+                           if on)
+        if self.quantization != "none" or self.kv_quantization != "none":
+            raise ValueError(f"{kinds}: bf16 / fp32 weights and KV only "
+                             f"(quantization={self.quantization!r}, "
+                             f"kv_quantization={self.kv_quantization!r})")
+        if self.lora_rank or self.ia3:
+            raise ValueError(f"{kinds}: no LoRA or IA3 adapters")
+        if self.moe and not (0 < self.num_experts_per_tok
+                             <= self.n_routed_experts
+                             and self.moe_intermediate_size > 0
+                             and 0 <= self.first_k_dense_replace
+                             <= self.num_layers):
+            raise ValueError("sparse experts: need 0 < num_experts_per_tok "
+                             "<= n_routed_experts, moe_intermediate_size and "
+                             "first_k_dense_replace <= num_layers")
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def moe(self) -> bool:
+        return self.n_routed_experts > 0
+
+    @property
+    def dense_layers(self) -> int:
+        """Layers with the dense MLP (the first; every layer without
+        experts)."""
+        return self.first_k_dense_replace if self.moe else self.num_layers
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of an MLA cache row: ``[c | k_pe]``."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def rope_dim(self) -> int:
+        return self.qk_rope_head_dim if self.mla else self.head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        """q.k scale: (q head dim)^-0.5, times YaRN's mscale(factor,
+        mscale_all_dim)^2 (DeepseekV2Attention)."""
+        d = (self.qk_nope_head_dim + self.qk_rope_head_dim if self.mla
+             else self.head_dim)
+        m = (yarn_mscale(self.yarn_factor, self.yarn_mscale_all_dim)
+             if self.yarn_factor and self.yarn_mscale_all_dim else 1.0)
+        return d ** -0.5 * m * m
+
+    def rope_tables(self, positions: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """cos / sin [..., rope_dim] for ``positions`` (YaRN where set)."""
+        if not self.yarn_factor:
+            return rope_cos_sin(positions, self.rope_dim, self.rope_theta)
+        inv = yarn_inv_freq(self.rope_dim, self.rope_theta, self.yarn_factor,
+                            self.yarn_original_max_position,
+                            self.yarn_beta_fast, self.yarn_beta_slow,
+                            positions.device)
+        m = (yarn_mscale(self.yarn_factor, self.yarn_mscale)
+             / yarn_mscale(self.yarn_factor, self.yarn_mscale_all_dim))
+        return rope_cos_sin(positions, self.rope_dim, inv_freq=inv, mscale=m)
 
     @property
     def padded_vocab_size(self) -> int:
@@ -138,11 +254,16 @@ def llama_debug(**overrides) -> LlamaConfig:
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
                   device=None, kv_heads: Optional[int] = None) -> KVCache:
     """(k, v) [L, B, S, Hkv*D] in ``dtype``; with int8 KV, int8 codes plus
-    per-(position, head) scales [L, B, S, Hkv] in ``dtype``.  The JAX
+    per-(position, head) scales [L, B, S, Hkv] in ``dtype``; with latent
+    attention one tensor, the latent [L, B, S, kv_lora_rank + rope].  The JAX
     package pads the scale lanes to 128 for TPU DMA; here they stay
     compact.  ``kv_heads``: the heads a rank holds (``LlamaForCausalLM.
     kv_heads``; default all)."""
     dtype = dtype or cfg.dtype
+    if cfg.mla:
+        # the latent [c | k_pe] of every position, one tensor
+        return (torch.zeros((cfg.num_layers, batch, max_len, cfg.latent_dim),
+                            dtype=dtype, device=device),)
     hkv = kv_heads or cfg.num_kv_heads
     flat = (cfg.num_layers, batch, max_len, hkv * cfg.head_dim)
     if cfg.kv_quantization == "int8":
@@ -161,6 +282,8 @@ def init_paged_kv_pool(cfg: LlamaConfig, pool_tokens: int, dtype=None,
     per-slot batch axis, [L, pool_tokens, Hkv*D] (+ scales [L, pool_tokens,
     Hkv]).  Rows are handed out in fixed-size pages through block tables
     (inference/continuous.py paged mode)."""
+    if cfg.mla:
+        raise ValueError("latent attention has no paged KV pool")
     dtype = dtype or cfg.dtype
     hkv = kv_heads or cfg.num_kv_heads
     flat = (cfg.num_layers, pool_tokens, hkv * cfg.head_dim)
@@ -204,22 +327,54 @@ class LlamaLayers(nn.Module):
         ia3 = ({"k_proj": "out", "v_proj": "out", "down_proj": "in"}
                if cfg.ia3 else {})
 
-        def dense(name, n_in, n_out):
+        def dense(name, n_in, n_out, layers=L):
             return LoRADense(n_in, n_out, lora_rank=cfg.lora_rank,
                              lora_alpha=cfg.lora_alpha,
                              lora_dropout=cfg.lora_dropout,
                              quantize=cfg.quantization, ia3=ia3.get(name),
-                             dtype=dt, layers=L, device=device)
+                             dtype=dt, layers=layers, device=device)
 
         self.input_layernorm = RMSNorm(d, cfg.rms_eps, dt, L, device)
-        self.q_proj = dense("q_proj", d, hq)
-        self.k_proj = dense("k_proj", d, hkv)
-        self.v_proj = dense("v_proj", d, hkv)
-        self.o_proj = dense("o_proj", hq, d)
+        if cfg.mla:
+            h, r = cfg.num_heads, cfg.kv_lora_rank
+            self.q_proj = dense("q_proj", d, h * (cfg.qk_nope_head_dim
+                                                  + cfg.qk_rope_head_dim))
+            self.kv_a_proj = dense("kv_a_proj", d, cfg.latent_dim)
+            self.kv_a_layernorm = RMSNorm(r, cfg.rms_eps, dt, L, device)
+            self.kv_b_proj = dense("kv_b_proj", r, h * (cfg.qk_nope_head_dim
+                                                        + cfg.v_head_dim))
+            self.o_proj = dense("o_proj", h * cfg.v_head_dim, d)
+        else:
+            self.q_proj = dense("q_proj", d, hq)
+            self.k_proj = dense("k_proj", d, hkv)
+            self.v_proj = dense("v_proj", d, hkv)
+            self.o_proj = dense("o_proj", hq, d)
         self.post_attention_layernorm = RMSNorm(d, cfg.rms_eps, dt, L, device)
-        self.gate_proj = dense("gate_proj", d, cfg.intermediate_size)
-        self.up_proj = dense("up_proj", d, cfg.intermediate_size)
-        self.down_proj = dense("down_proj", cfg.intermediate_size, d)
+        nd = cfg.dense_layers
+        if nd:
+            f = cfg.intermediate_size
+            self.gate_proj = dense("gate_proj", d, f, nd)
+            self.up_proj = dense("up_proj", d, f, nd)
+            self.down_proj = dense("down_proj", f, d, nd)
+        if cfg.moe:
+            nm, e, f = (L - nd, cfg.n_routed_experts,
+                        cfg.moe_intermediate_size)
+            self.router = PDense(d, e, use_bias=False, dtype=dt, layers=nm,
+                                 device=device)
+            self.experts = Experts(nm, e, d, f, dt, device)
+            fs = f * cfg.n_shared_experts
+            if fs:
+                self.shared_gate_proj = PDense(d, fs, use_bias=False,
+                                               dtype=dt, layers=nm,
+                                               device=device)
+                self.shared_up_proj = PDense(d, fs, use_bias=False, dtype=dt,
+                                             layers=nm, device=device)
+                self.shared_down_proj = PDense(fs, d, use_bias=False,
+                                               dtype=dt, layers=nm,
+                                               device=device)
+            # (layer, step) expert activations with rows: K6 adds to it
+            self.register_buffer("experts_active", torch.zeros(
+                (), dtype=torch.int64, device=device), persistent=False)
 
     def tp_plan(self, tensor: int) -> dict:
         """Roles over ``tensor`` (see the module docstring)."""
@@ -241,16 +396,42 @@ class LlamaLayers(nn.Module):
 
     def block(self, li: int, x, cache: Optional[KVCache], cos, sin,
               kv_valid, cache_index, step: Optional["_Step"] = None,
-              drop: Optional[torch.Generator] = None) -> torch.Tensor:
+              drop: Optional[torch.Generator] = None,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One decoder layer (reference LlamaBlock, llama.py:180-309):
         x [B, S, hidden] (the packed fused step: [1, P, hidden]); with a
         cache, ``step`` says where layer ``li``'s new k/v rows go and how
         the queries attend (see ``_Step``).  ``drop`` (training) draws the
-        LoRA dropout masks of the seven projections in order."""
-        cfg = self.cfg
+        LoRA dropout masks of the seven projections in order.  ``keep``
+        [B, S] bool (sparse experts): the real tokens, the rest routed to
+        no expert."""
         b, s, _ = x.shape
-        (nq, nh), hd = self.heads(), cfg.head_dim
         h = self.input_layernorm(x, li)
+        if self.cfg.mla:
+            attn = self._latent_attention(li, h, cache, cos, sin, kv_valid,
+                                          cache_index, step)
+        else:
+            attn = self._attention(li, h, cache, cos, sin, kv_valid,
+                                   cache_index, step, drop)
+        x = x + self.o_proj(attn.reshape(b, s, -1), li, drop)
+        h = self.post_attention_layernorm(x, li)
+        if li >= self.cfg.dense_layers:
+            return x + self._experts(li - self.cfg.dense_layers, h, keep)
+        gate = self.gate_proj(h, li, drop)
+        up = self.up_proj(h, li, drop)
+        act = F.silu(gate) * up
+        if self.gate_proj.tp == "col" and self.down_proj.tp != "row":
+            act = self.down_proj._par.all_gather(act, -1, "tensor")
+        return x + self.down_proj(act, li, drop)
+
+    def _attention(self, li: int, h, cache: Optional[KVCache], cos, sin,
+                   kv_valid, cache_index, step: Optional["_Step"],
+                   drop: Optional[torch.Generator]) -> torch.Tensor:
+        """The LLaMA attention of layer ``li`` over h [B, S, hidden]: the
+        heads' outputs [B, S, heads, head_dim]."""
+        cfg = self.cfg
+        b, s, _ = h.shape
+        (nq, nh), hd = self.heads(), cfg.head_dim
         q = self.q_proj(h, li, drop).reshape(b, s, nq, hd)
         k = self.k_proj(h, li, drop).reshape(b, s, nh, hd)
         v = self.v_proj(h, li, drop).reshape(b, s, nh, hd)
@@ -298,15 +479,112 @@ class LlamaLayers(nn.Module):
                         q, kk, vv, kv_valid=kv_valid, causal=s > 1,
                         q_offset=cache_index if s > 1 else None,
                         impl="plain" if s == 1 else cfg.attention_impl)
+        return attn
 
-        x = x + self.o_proj(attn.reshape(b, s, nq * hd), li, drop)
-        h = self.post_attention_layernorm(x, li)
-        gate = self.gate_proj(h, li, drop)
-        up = self.up_proj(h, li, drop)
-        act = F.silu(gate) * up
-        if self.gate_proj.tp == "col" and self.down_proj.tp != "row":
-            act = self.down_proj._par.all_gather(act, -1, "tensor")
-        return x + self.down_proj(act, li, drop)
+    def _latent_attention(self, li: int, h, cache: Optional[KVCache], cos,
+                          sin, kv_valid, cache_index,
+                          step: Optional["_Step"]) -> torch.Tensor:
+        """DeepSeek-V2's latent attention of layer ``li`` over h [B, S,
+        hidden] (see the module docstring): [B, S, heads, v_head_dim]."""
+        cfg = self.cfg
+        b, s, _ = h.shape
+        nh, dn, r = cfg.num_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
+        q = self.q_proj(h, li).reshape(b, s, nh, -1)
+        q_pe = apply_rope(deinterleave(q[..., dn:]), cos, sin)
+        kv = self.kv_a_proj(h, li)
+        k_pe = apply_rope(deinterleave(kv[..., None, r:]), cos, sin)
+        latent = torch.cat([self.kv_a_layernorm(kv[..., :r], li),
+                            k_pe[:, :, 0]], dim=-1)           # [B, S, r + dr]
+        if cache is None:
+            return self._expanded(li, torch.cat([q[..., :dn], q_pe], -1),
+                                  latent, kv_valid, None)
+        buf = cache[0][li]
+        step.store(buf, latent)
+        if s == 1:
+            return self._absorbed(li, q[:, 0, :, :dn], q_pe[:, 0], buf,
+                                  kv_valid)
+        # a multi-row step at a scalar offset (prefill, the forced <img>
+        # chunk): the cached window up to its last row, expanded
+        end = cache_index + s
+        return self._expanded(li, torch.cat([q[..., :dn], q_pe], -1),
+                              buf[:, :end], None if kv_valid is None
+                              else kv_valid[:, :end], cache_index)
+
+    def _expanded(self, li: int, q, latent, kv_valid, q_offset
+                  ) -> torch.Tensor:
+        """Attention with per-head k = [c W_UK | k_pe] and v = c W_UV
+        expanded from the latent [B, S, r + dr]; q [B, s, H, dn + dr].  A
+        few batch rows a call: a 4096-token row's fp32 scores take 1 GiB."""
+        cfg = self.cfg
+        b, n = latent.shape[:2]
+        nh, dn, dv = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+        r = cfg.kv_lora_rank
+        kv = self.kv_b_proj(latent[..., :r], li).reshape(b, n, nh, dn + dv)
+        k = torch.cat([kv[..., :dn], latent[:, :, None, r:].expand(
+            b, n, nh, cfg.qk_rope_head_dim)], dim=-1)
+        v = kv[..., dn:]
+        per = max(1, (1 << 30) // (4 * nh * q.shape[1] * n))
+        return torch.cat([dot_product_attention(
+            q[i:i + per], k[i:i + per], v[i:i + per],
+            kv_valid=None if kv_valid is None else kv_valid[i:i + per],
+            causal=True, q_offset=q_offset, scale=cfg.softmax_scale,
+            impl=cfg.attention_impl) for i in range(0, b, per)])
+
+    def _absorbed(self, li: int, q_nope, q_pe, buf, kv_valid
+                  ) -> torch.Tensor:
+        """One query a row, q_nope [B, H, dn] and q_pe [B, H, dr], against
+        the cached latent buf [B, S, r + dr] under ``kv_valid`` [B, S]:
+        W_UK and W_UV are views of ``kv_b_proj``'s kernel.  Scores in bf16
+        products with fp32 accumulation, softmax in fp32.  Returns [B, 1,
+        H, dv]."""
+        cfg = self.cfg
+        nh, dn, r = cfg.num_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
+        w = self.kv_b_proj.dense_kernel(li).reshape(r, nh, -1)
+        w_uk, w_uv = w[..., :dn], w[..., dn:]            # [r, H, dn / dv]
+        q_lat = torch.bmm(q_nope.transpose(0, 1), w_uk.permute(1, 2, 0))
+        q_all = torch.cat([q_lat, q_pe.transpose(0, 1).to(q_lat.dtype)],
+                          dim=-1).transpose(0, 1)         # [B, H, r + dr]
+        scores = torch.bmm(q_all, buf.transpose(1, 2)).float()
+        scores = torch.where(kv_valid[:, None, :],
+                             scores * cfg.softmax_scale, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(buf.dtype)
+        o_lat = torch.bmm(probs, buf[..., :r])            # [B, H, r]
+        out = torch.bmm(o_lat.transpose(0, 1), w_uv.permute(1, 0, 2))
+        return out.transpose(0, 1)[:, None]
+
+    def _experts(self, m: int, h: torch.Tensor,
+                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sparse-expert MLP of MoE layer ``m``: the routed experts (fp32
+        sum; tokens outside ``keep`` get none) plus the shared experts'
+        SwiGLU, rounded once."""
+        cfg = self.cfg
+        b, s, d = h.shape
+        x = h.reshape(-1, d)
+        ex = self.experts
+        y = moe_experts(x, leaf(self.router, "kernel", m),
+                        ex.gate_proj[m], ex.up_proj[m], ex.down_proj[m],
+                        cfg.num_experts_per_tok, cfg.routed_scaling_factor,
+                        self.experts_active,
+                        None if keep is None else keep.reshape(-1))
+        if cfg.n_shared_experts:
+            act = F.silu(self.shared_gate_proj(x, m)) \
+                * self.shared_up_proj(x, m)
+            y = y + self.shared_down_proj(act, m).float()
+        return y.to(h.dtype).reshape(b, s, d)
+
+
+class Experts(nn.Module):
+    """The routed experts of every MoE layer: ``gate_proj`` / ``up_proj``
+    [L, E, hidden, f] and ``down_proj`` [L, E, f, hidden], each expert's
+    kernel in the [in, out] layout."""
+
+    def __init__(self, layers: int, experts: int, d: int, f: int, dtype,
+                 device=None):
+        super().__init__()
+        for name, shape in (("gate_proj", (d, f)), ("up_proj", (d, f)),
+                            ("down_proj", (f, d))):
+            self.register_buffer(name, torch.zeros(
+                (layers, experts) + shape, dtype=dtype, device=device))
 
 
 @dataclasses.dataclass
@@ -462,9 +740,12 @@ class LlamaForCausalLM(nn.Module):
                 tok_row: Optional[torch.Tensor] = None,
                 tok_slot: Optional[torch.Tensor] = None,
                 packed_window: int = 0,
-                write_mask: Optional[torch.Tensor] = None):
+                write_mask: Optional[torch.Tensor] = None,
+                last: Optional[torch.Tensor] = None):
         """Returns (logits, last hidden state, cache); the cache tensors are
-        updated in place.  ``cache_index`` is an int, or a [B] tensor of
+        updated in place.  ``last`` [B] keeps only row b's position
+        ``last[b]`` past the layers (logits and hidden [B, 1, ...]: a
+        prefill's next-token rows, without the LM head over the prompt).  ``cache_index`` is an int, or a [B] tensor of
         per-row write positions for a one-token or fused step;
         ``block_tables`` [B, S // page] makes ``cache`` a paged pool
         (per-row steps with a kv window only).  ``write_widths`` [B] makes
@@ -496,6 +777,9 @@ class LlamaForCausalLM(nn.Module):
                              "per-row cache_index")
         if not per_row:
             cache_index = int(cache_index)
+        if cfg.mla and (fused or block_tables is not None):
+            raise ValueError("latent attention: no fused step and no paged "
+                             "KV")
         page = 0
         if block_tables is not None:
             if (cfg.quantization != "int4" or cfg.decode_attention == "never"
@@ -511,11 +795,19 @@ class LlamaForCausalLM(nn.Module):
                               page, write_widths, tok_row, tok_slot,
                               packed_window, b, s, inputs_embeds.is_cuda,
                               write_mask)
+        keep = None
+        if cfg.moe and kv_valid is not None and not per_row:
+            # a padded batch's real tokens: the cells they write (all of
+            # kv_valid without a cache)
+            keep = (kv_valid if cache is None
+                    else kv_valid[:, cache_index:cache_index + s])
         x = inputs_embeds.to(cfg.dtype)
-        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = cfg.rope_tables(positions)
         for li in range(cfg.num_layers):
             x = self.layers.block(li, x, cache, cos, sin, kv_valid,
-                                  cache_index, step)
+                                  cache_index, step, keep=keep)
+        if last is not None:
+            x = x[torch.arange(b, device=x.device), last.long()][:, None]
         hidden = self.norm(x)
         logits = self.head(hidden)
         if packed:
@@ -537,6 +829,9 @@ class LlamaForCausalLM(nn.Module):
         projections have no backward (neither has the JAX package's int4
         kernel)."""
         cfg = self.cfg
+        if cfg.mla or cfg.moe:
+            raise ValueError("latent attention / sparse experts: no "
+                             "training")
         if cfg.quantization != "none":
             raise ValueError(f"training needs quantization='none' (a bf16 "
                              f"or fp32 base), got {cfg.quantization!r}")
@@ -573,7 +868,7 @@ class LlamaForCausalLM(nn.Module):
         """The write and attention plan of one forward (see ``_Step``)."""
         cfg = self.cfg
         dev = cache[0].device
-        kernel = kv_valid is not None and (
+        kernel = not cfg.mla and kv_valid is not None and (
             block_tables is not None or cfg.decode_attention == "force"
             or (cfg.decode_attention == "auto" and on_cuda))
         if write_widths is None and not torch.is_tensor(cache_index):

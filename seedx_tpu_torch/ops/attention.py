@@ -8,8 +8,10 @@ Layout everywhere: ``[batch, seq, heads, head_dim]``.
     ``"xla"`` path).
   * ``"flash"`` - ``ops/flash_attention.flash_attention``: the CUDA kernel
     for a CUDA tensor, its plain version for a CPU tensor.
-  * ``"auto"``  - flash for a CUDA bf16 tensor with q_len > 1, no bias and a
-    scalar ``q_offset`` (or q_len == kv_len); plain otherwise.  Decode
+  * ``"auto"``  - flash for a CUDA bf16 tensor with q_len > 1, no bias, a
+    scalar ``q_offset`` (or q_len == kv_len) and a shape K1 takes (one
+    head dim for q, k and v, at most 128); plain otherwise (DeepSeek-V2's
+    latent attention prefill: q / k 192 wide, v 128).  Decode
     (q_len 1) stays plain, as it does in the JAX package at batch 1.  The
     JAX package's ``q_len >= 128`` floor is a TPU tile choice and is
     dropped: the kernel masks ragged sequence edges itself, so the 65-token
@@ -72,10 +74,10 @@ def plain_attention(q, k, v, bias, scale):
     return out.to(q.dtype)
 
 
-def _use_flash(q, kv_len, bias, q_offset) -> bool:
+def _use_flash(q, v, kv_len, bias, q_offset) -> bool:
     q_len = q.shape[1]
     return (q.is_cuda and q.dtype == torch.bfloat16 and bias is None
-            and q_len > 1
+            and q_len > 1 and v.shape[-1] == q.shape[-1] <= 128
             and (q_len == kv_len or q_offset is not None)
             and not (torch.is_tensor(q_offset) and q_offset.dim() == 1))
 
@@ -97,7 +99,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl not in ("auto", "plain", "flash"):
         raise ValueError(f"impl must be auto|plain|flash, got {impl!r}")
     use_flash = impl == "flash" or (
-        impl == "auto" and _use_flash(q, kv_len, bias, q_offset))
+        impl == "auto" and _use_flash(q, v, kv_len, bias, q_offset))
     if use_flash:
         from seedx_tpu_torch.ops.flash_attention import flash_attention
 

@@ -51,10 +51,11 @@ def _counted():
     from seedx_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
                                                      flash_bwd_dq, flash_fwd)
     from seedx_tpu_torch.ops.int4_matmul import int4_matmul
+    from seedx_tpu_torch.ops.moe import moe_gemm
     from seedx_tpu_torch.ops.norms import group_norm, layer_norm
 
     return (int4_matmul, ragged_decode_attention, flash_fwd, flash_bwd_dq,
-            flash_bwd_dkv, group_norm, layer_norm)
+            flash_bwd_dkv, group_norm, layer_norm, moe_gemm)
 
 
 def launch_counts() -> Dict[tuple, int]:

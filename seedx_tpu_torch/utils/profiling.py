@@ -201,6 +201,12 @@ class Span:
         return self._ms
 
     def as_dict(self) -> Dict[str, Any]:
+        """The record; an attribute set as a device tensor (a counter's
+        growth, taken without a synchronize at the site) is read here,
+        once."""
+        for k, v in self.attrs.items():
+            if torch.is_tensor(v):
+                self.attrs[k] = v.item()
         return {"name": self.name, "id": self.id, "parent": self.parent,
                 "rid": self.rid, "t0": self.t0, "t1": self.t1,
                 "device_ms": self.device_ms(), "attrs": dict(self.attrs)}

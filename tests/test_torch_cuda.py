@@ -1768,3 +1768,115 @@ def test_one_rank_nccl_train_step_bit_equal(cuda_device):
     assert got[0] == ref[0]
     for n, t in ref[1].items():
         assert torch.equal(got[1][n], t), n
+
+
+def _expert_rows(rows: int, experts: int, zeros, g, device):
+    """int32 offsets [E + 1] of ``rows`` rows spread at random over the
+    experts, the experts in ``zeros`` given none."""
+    live = [e for e in range(experts) if e not in zeros]
+    pick = torch.randint(0, len(live), (rows,), generator=g, device=device)
+    counts = torch.bincount(torch.tensor(live, device=device)[pick],
+                            minlength=experts)
+    return torch.nn.functional.pad(torch.cumsum(counts, 0), (1, 0)).to(
+        torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [192, 24576])
+@pytest.mark.parametrize("gated", [True, False])
+def test_moe_gemm_kernel_matches_plain(cuda_device, rows, gated):
+    """K6 at DeepSeek-V2-Lite's expert widths, at a decode step's rows
+    (32 slots x top-6: the 16-row tile) and a 4096-token prefill's (the
+    128-row tile), three experts given no rows: against moe_gemm_plain
+    (fp32 matmuls, TF32 off), and a rerun bit-equal (no float atomics)."""
+    from seedx_tpu_torch.ops import moe as tmoe
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(rows + gated)
+    e, d, f = 64, 2048, 1408
+    k_in, n_out = (d, f) if gated else (f, d)
+    offsets = _expert_rows(rows, e, {3, 17, 40}, g, cuda_device)
+    x = torch.randn((rows, k_in), generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    w = (torch.randn((e, k_in, n_out), generator=g, device=cuda_device)
+         * 0.02).to(torch.bfloat16)
+    w2 = ((torch.randn((e, k_in, n_out), generator=g, device=cuda_device)
+           * 0.02).to(torch.bfloat16) if gated else None)
+    active = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    before = tmoe.moe_gemm.launches
+    got = tmoe.moe_gemm(x, w, offsets, w2, active)
+    again = tmoe.moe_gemm(x, w, offsets, w2)
+    torch.cuda.synchronize()
+    assert tmoe.moe_gemm.launches == before + 2
+    counts = offsets[1:] - offsets[:-1]
+    assert int(counts[[3, 17, 40]].sum()) == 0
+    assert int(active) == int((counts > 0).sum())
+    assert torch.equal(got, again)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = tmoe.moe_gemm_plain(x, w, offsets, w2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert got.dtype == want.dtype
+    # fp32 sums in another order (and the epilogue's exp against F.silu's);
+    # a gated output rounds once to bf16, which that may flip by one ULP
+    # (2^-7 of the largest value)
+    tol = 2 ** -7 if gated else 1e-5
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_captured_moe_mla_decode_step_equals_eager(cuda_device):
+    """A small DeepSeek-V2 agent (latent attention, 8 experts top-2 at
+    K6-sized widths) served by ContinuousEngine: the captured decode
+    chunks give the eager run's tokens and logits, and replays count
+    K6's launches and the expert activations."""
+    import types
+
+    from seedx_tpu_torch.inference.continuous import ContinuousEngine
+    from seedx_tpu_torch.models.agent import AgentConfig, ContinuousLVLM
+    from seedx_tpu_torch.models.llama import LlamaConfig
+    from seedx_tpu_torch.ops import moe as tmoe
+    from seedx_tpu_torch.text.tokenizer import load_tokenizer
+
+    llm = LlamaConfig(vocab_size=32330, hidden_size=256, intermediate_size=512,
+                      num_layers=3, num_heads=4, num_kv_heads=4,
+                      kv_lora_rank=128, qk_nope_head_dim=64,
+                      qk_rope_head_dim=32, v_head_dim=64, n_routed_experts=8,
+                      num_experts_per_tok=2, moe_intermediate_size=128,
+                      n_shared_experts=1, first_k_dense_replace=1,
+                      yarn_factor=40.0, yarn_mscale=0.707,
+                      yarn_mscale_all_dim=0.707, rms_eps=1e-6)
+    cfg = AgentConfig(llm=llm, num_img_in_tokens=4, num_img_out_tokens=4,
+                      vit_dim=64, resampler_heads=4, vit_down=False)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(8)
+    agent = init_normal_(ContinuousLVLM(cfg, cuda_device).eval(), g)
+    with torch.no_grad():
+        agent.llm.layers.router.kernel.normal_(0.0, 0.5, generator=g)
+    rt = types.SimpleNamespace(agent=agent, agent_cfg=cfg,
+                               tokenizer=load_tokenizer())
+    tok = rt.tokenizer
+    reqs = [{"input_ids": [tok.bos_token_id] + tok.encode(t)}
+            for t in ("hello world", "a b c d e f g", "the cat")]
+    runs = []
+    for enabled in (True, False):
+        agent.graphs.enabled = enabled
+        eng = ContinuousEngine(rt, slots=4, max_new_tokens=10, chunk_steps=4,
+                               prompt_buckets=(32,))
+        eng.warmup()
+        ids = [eng.submit(r) for r in reqs]
+        k6, act = tmoe.moe_gemm.launches, int(agent.llm.layers.experts_active)
+        res = eng.run()
+        runs.append(([list(res[i]["tokens"]) for i in ids],
+                     eng.state["prev_logits"].clone(),
+                     tmoe.moe_gemm.launches - k6,
+                     int(agent.llm.layers.experts_active) - act, eng))
+    (tok_c, lg_c, k6_c, act_c, eng_c), (tok_e, lg_e, k6_e, act_e, _) = runs
+    assert eng_c.program("decode").graph is not None
+    assert tok_c == tok_e
+    torch.testing.assert_close(lg_c, lg_e, rtol=0, atol=1e-4)
+    # the same steps ran: the same launches and activations counted
+    assert k6_c == k6_e > 0 and act_c == act_e > 0
