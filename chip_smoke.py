@@ -251,7 +251,9 @@ KERNELS = (("flash_fwd", "seedx_tpu_torch/csrc/flash_fwd.cu",
             "seedx_tpu/ops/decode_attention.py:115"),
            ("group_norm", "seedx_tpu_torch/csrc/norms.cu", "none"),
            ("layer_norm", "seedx_tpu_torch/csrc/norms.cu", "none"),
-           ("moe_gemm", "seedx_tpu_torch/csrc/moe_gemm.cu", "none"))
+           ("moe_gemm", "seedx_tpu_torch/csrc/moe_gemm.cu", "none"),
+           ("bias_residual", "seedx_tpu_torch/csrc/epilogue.cu", "none"),
+           ("bias_geglu", "seedx_tpu_torch/csrc/epilogue.cu", "none"))
 
 
 def log(msg: str) -> None:
@@ -292,6 +294,41 @@ def cuda_ms(fn, flush=None, warmup: int = 3, iters: int = 10) -> float:
     return statistics.median(times)
 
 
+def stream_ms(calls, reps: int = 4, iters: int = 5) -> float:
+    """Device ms a call in a stream of back-to-back launches, as a captured
+    eval launches its kernels: ``calls`` (each on inputs of its own, more
+    than the 50 MB L2 holds together, so each finds its inputs cold)
+    captured ``reps`` times over in one CUDA graph, the median of
+    ``iters`` replays' CUDA-event time over the launches.  A single
+    launch's time (``cuda_ms``) carries a fixed few microseconds of
+    launch and event overhead, most of a kernel of a few MB."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+    graph.replay()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / (reps * len(calls)))
+    del graph
+    return statistics.median(times)
+
+
 def bound(n_bytes: float, n_ops: float, kind: str):
     """(least ms the card could take, what bounds it)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -301,6 +338,7 @@ def bound(n_bytes: float, n_ops: float, kind: str):
 
 def counters():
     from seedx_tpu_torch.ops.decode_attention import ragged_decode_attention
+    from seedx_tpu_torch.ops.epilogue import bias_geglu, bias_residual
     from seedx_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
                                                      flash_bwd_dq, flash_fwd)
     from seedx_tpu_torch.ops.int4_matmul import int4_matmul
@@ -311,7 +349,8 @@ def counters():
             "flash_bwd_dkv": flash_bwd_dkv, "int4_w4a8": int4_matmul,
             "decode_attn": ragged_decode_attention,
             "group_norm": group_norm, "layer_norm": layer_norm,
-            "moe_gemm": moe_gemm}
+            "moe_gemm": moe_gemm, "bias_residual": bias_residual,
+            "bias_geglu": bias_geglu}
 
 
 def reset_counts() -> None:
@@ -947,6 +986,108 @@ def check_norms(dev, g, flush, shapes=NORM_SHAPES):
     return rows
 
 
+# the UNet's Dense epilogues at 1024^2, CFG 2, and the VAE decoder's:
+# (name, kind, rows, columns in, dtype, residual, int8 scale); to_out /
+# ff_out at level 2 (2048 x 1280) and level 1 (8192 x 640), the int8
+# UNet's, GEGLU's projection at both levels (2F in, F out), the VAE mid
+# attention's to_out (fp32)
+EPILOGUE_SHAPES = (
+    ("to_out_l2", "bias_residual", 2048, 1280, "bf16", True, False),
+    ("to_out_l1", "bias_residual", 8192, 640, "bf16", True, False),
+    ("to_out_l2_int8", "bias_residual", 2048, 1280, "bf16", True, True),
+    ("geglu_l2", "bias_geglu", 2048, 10240, "bf16", False, False),
+    ("geglu_l1", "bias_geglu", 8192, 5120, "bf16", False, False),
+    ("vae_to_out", "bias_residual", 16384, 512, "fp32", True, False))
+
+
+def ulps_apart(a, b):
+    """How many representable values of a's type (bf16 or fp32) lie
+    between a and b, elementwise: sign-magnitude bits made ordered."""
+    import torch
+
+    it, top = ((torch.int16, 1 << 15) if a.dtype == torch.bfloat16
+               else (torch.int32, 1 << 31))
+
+    def ordered(t):
+        i = t.contiguous().view(it).long()
+        return torch.where(i < 0, -(i + top), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def check_epilogue(dev, g, flush, shapes=EPILOGUE_SHAPES):
+    """The Dense epilogue kernels against their plain chains (the ones the
+    UNet ran before them): ``bias_residual`` bit for bit, ``bias_geglu``
+    within one ULP of its type (GELU's erff); a rerun gives the same bits.
+    Timed with the L2 flushed (y comes from the GEMM before, the residual
+    from earlier in the block), beside their bound (the inputs read once,
+    the output written once) and the plain chain; and the calls an SDXL
+    base eval makes of each (``epilogue_launches_per_eval``, which the
+    image-out phase holds the replays to).  A kernel of a few MB is
+    mostly fixed cost in a single launch's time, and the flush of the
+    other rows (a zeroed buffer) leaves up to 50 MB of dirty lines in L2
+    that its reads write back; so each is timed again in a stream of
+    launches over eight input sets (``stream_ms``), as the captured eval
+    runs it."""
+    import torch
+
+    from seedx_tpu_torch.models.sdxl.unet import (epilogue_launches_per_eval,
+                                                  sdxl_base_unet)
+    from seedx_tpu_torch.ops import epilogue
+
+    per_eval = dict(zip(("bias_residual", "bias_geglu"),
+                        epilogue_launches_per_eval(sdxl_base_unet())))
+    types = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    rows_out = []
+    for name, kind, rows, n, dt, res, scaled in shapes:
+        dtype = types[dt]
+
+        def inputs():
+            return ((torch.randn((rows, n), generator=g, device=dev) * 2
+                     ).to(dtype),
+                    (0.3 * torch.randn(n, generator=g, device=dev)).to(dtype),
+                    (torch.randn((rows, n), generator=g, device=dev).to(dtype)
+                     if res else None),
+                    ((0.02 * torch.rand(n, generator=g, device=dev) + 1e-3
+                      ).to(dtype) if scaled else None))
+
+        def call(fn, y, bias, resid, scale):
+            if kind == "bias_residual":
+                return lambda: fn(y, bias, resid, scale)
+            return lambda: fn(y, bias, scale)
+
+        y, bias, resid, scale = inputs()
+        kernel = call(getattr(epilogue, kind), y, bias, resid, scale)
+        plain = call(getattr(epilogue, kind + "_plain"), y, bias, resid,
+                     scale)
+        n_out = n if kind == "bias_residual" else n // 2
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        apart = ulps_apart(out, ref).max().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = apart == 0 if kind == "bias_residual" else apart <= 1
+        again = torch.equal(kernel(), out)
+        item = y.element_size()
+        n_bytes = (rows * n * item * (2 if res else 1) + rows * n_out * item
+                   + n * item * (2 if scaled else 1))
+        bnd = bound(n_bytes, 0, "bf16")
+        ms = cuda_ms(kernel, flush)
+        sets = [call(getattr(epilogue, kind), *inputs()) for _ in range(7)]
+        streamed = stream_ms([kernel] + sets)
+        del sets
+        r = row(kind, f"{name} [{rows},{n}] {dt}"
+                f"{' + residual' if res else ''}"
+                f"{' * scale' if scaled else ''}", ok and again, err, ms,
+                cuda_ms(plain, flush), bnd)
+        log(fmt_row(r, f" ({apart} ULP) bit-equal rerun {again}; bound / "
+                       f"kernel {100 * bnd[0] / ms:.1f}%; in a stream "
+                       f"{streamed:.4f} ms, {100 * bnd[0] / streamed:.1f}%; "
+                       f"plain / kernel {r['plain_ms'] / ms:.2f}; "
+                       f"{per_eval[kind]} calls an SDXL base eval"))
+        rows_out.append(r)
+    return rows_out
+
+
 # K6 at DeepSeek-V2-Lite's expert widths (64 experts, hidden 2048, width
 # 1408): (name, routed rows, gated): a decode step of 32 slots x top-6, a
 # 2048-token and a 4096-token prefill, gate / up (SwiGLU epilogue) and down
@@ -1052,6 +1193,7 @@ def check_kernels(dev):
     rows += check_stair(dev, g, flush)
     rows += check_stair_verify(dev, g, flush)
     rows += check_norms(dev, g, flush)
+    rows += check_epilogue(dev, g, flush)
     rows += check_moe(dev, g, flush)
     del flush
     return rows
@@ -2444,28 +2586,31 @@ def forced_image_prompts():
 
 
 class UNetWatch:
-    """While active: K1's launches and the GroupNorm / LayerNorm kernel
-    calls in each CFG UNet eval of the denoise loop (``pipeline.CFGEval``,
-    a replay of its captured graph or an eager eval; each must be
-    ``flash_launches_per_eval`` and ``norm_launches_per_eval``: the
-    counters count replays), each eval's eps std and finiteness, and
-    whether the VAE decoder's latents and images (before the clip) are
-    finite, with their shapes.  The statistics stay on the device until
-    ``check`` reads them."""
+    """While active: K1's launches and the GroupNorm / LayerNorm and
+    Dense epilogue kernel calls in each CFG UNet eval of the denoise loop
+    (``pipeline.CFGEval``, a replay of its captured graph or an eager eval;
+    each must be ``flash_launches_per_eval``, ``norm_launches_per_eval``
+    and ``epilogue_launches_per_eval``: the counters count replays), each
+    eval's eps std and finiteness, and whether the VAE decoder's latents
+    and images (before the clip) are finite, with their shapes.  The
+    statistics stay on the device until ``check`` reads them."""
 
     def __init__(self, adapter):
         import torch
 
         from seedx_tpu_torch.models.sdxl import pipeline
-        from seedx_tpu_torch.models.sdxl.unet import (flash_launches_per_eval,
-                                                      norm_launches_per_eval)
+        from seedx_tpu_torch.models.sdxl.unet import (
+            epilogue_launches_per_eval, flash_launches_per_eval,
+            norm_launches_per_eval)
 
         self.want = ((flash_launches_per_eval(adapter.cfg.unet),)
-                     + norm_launches_per_eval(adapter.cfg.unet))
+                     + norm_launches_per_eval(adapter.cfg.unet)
+                     + epilogue_launches_per_eval(adapter.cfg.unet))
         self.size = adapter.cfg.sampler.height
         self.per_eval, self.stds, self.finite, self.images = [], [], [], []
         ks = [counters()[k] for k in ("flash_fwd", "group_norm",
-                                       "layer_norm")]
+                                       "layer_norm", "bias_residual",
+                                       "bias_geglu")]
         base = pipeline.CFGEval.__call__
 
         def call(ev, lat, sigma, t):
@@ -2488,18 +2633,19 @@ class UNetWatch:
 
     def check(self, label: str, steps: int, images=None) -> None:
         """Remove the hooks; fail unless every eval made ``self.want`` (K1,
-        GroupNorm, LayerNorm) calls, ``steps`` evals ran, every latent, eps and
-        image was finite, and the images have shape [B, size, size, 3] at
-        the sampler's size."""
+        GroupNorm, LayerNorm, bias_residual, bias_geglu) calls, ``steps``
+        evals ran, every latent, eps and image was finite, and the images
+        have shape [B, size, size, 3] at the sampler's size."""
         import torch
 
         self.restore()
         for h in self.handles:
             h.remove()
         if len(self.per_eval) != steps or set(self.per_eval) != {self.want}:
-            raise AssertionError(f"{label}: (K1, GroupNorm, LayerNorm) "
-                                 f"calls per UNet eval {self.per_eval}, "
-                                 f"want {self.want} in each of {steps}")
+            raise AssertionError(f"{label}: (K1, GroupNorm, LayerNorm, "
+                                 f"bias_residual, bias_geglu) calls per "
+                                 f"UNet eval {self.per_eval}, want "
+                                 f"{self.want} in each of {steps}")
         if not all(bool(f) for f in self.finite):
             raise AssertionError(f"{label}: a non-finite eps, latent or "
                                  f"image")
@@ -2509,7 +2655,9 @@ class UNetWatch:
                     + (3,) or not np.isfinite(images).all()):
                 raise AssertionError(f"{label}: images {images.shape}")
         log(f"{label}: {steps} UNet evals, K1 {self.want[0]} launches, "
-            f"GroupNorm {self.want[1]} and LayerNorm {self.want[2]} in each; "
+            f"GroupNorm {self.want[1]}, LayerNorm {self.want[2]}, "
+            f"bias_residual {self.want[3]} and bias_geglu {self.want[4]} in "
+            f"each; "
             f"eps std per step " + " ".join(f"{x:.3f}" for x in stds)
             + f"; decoded {self.images}, finite before the clip")
 
@@ -5921,11 +6069,12 @@ def build_kernels():
     from seedx_tpu_torch.ops import decode_attention as da
     from seedx_tpu_torch.ops import flash_attention as fa
     from seedx_tpu_torch.ops import int4_matmul as i4
-    from seedx_tpu_torch.ops import moe, norms
+    from seedx_tpu_torch.ops import epilogue, moe, norms
 
     libs = {"flash_fwd": fa.library, "flash_bwd": fa.bwd_library,
             "int4_w4a8": i4.library, "decode_attn": da.library,
-            "norms": norms.library, "moe_gemm": moe.library}
+            "norms": norms.library, "moe_gemm": moe.library,
+            "epilogue": epilogue.library}
     errors = {}
 
     def build(name):

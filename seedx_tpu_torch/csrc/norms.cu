@@ -55,55 +55,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec16.cuh"
+
 namespace {
 
 constexpr int kUnroll = 4;          // positions a GroupNorm thread loads at once
 constexpr int kMaxThreads = 256;    // a GroupNorm block
 constexpr int kLnWarps = 4;         // rows a LayerNorm block
-
-// 16 bytes of T as floats, and back
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void unpack(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 v = __bfloat1622float2(h[k]);
-      f[2 * k] = v.x;
-      f[2 * k + 1] = v.y;
-    }
-  }
-  __device__ static uint4 pack(const float* f) {
-    uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
-    return u;
-  }
-  __device__ static float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
-
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ static void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-  __device__ static uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-  __device__ static float round(float v) { return v; }
-};
 
 // ((x - mean) * rstd) * scale + bias, each step rounded as the plain chain's
 __device__ __forceinline__ float affine(float x, float mean, float rstd,

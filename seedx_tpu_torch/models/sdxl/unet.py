@@ -28,7 +28,10 @@ bf16 tensor, the plain path otherwise; cross-attention (64 context
 tokens) is plain.  GroupNorm (with the SiLU after it where one follows)
 and LayerNorm go through ``ops/norms.py``'s wrappers: their CUDA kernels
 (with a plain-torch backward) for a CUDA tensor, the plain fp32 versions
-for a CPU one.
+for a CPU one.  Likewise each Dense's epilogue after its GEMM (bias, the
+int8 scale, and the residual that ``to_out``, ``ff_out`` and ``proj_out``
+are handed; GEGLU's bias and gate) goes through ``ops/epilogue.py``: one
+kernel pass for a CUDA tensor, the plain chain for a CPU one.
 
 Row split (``RowSplit``, set by ``split_rows``; ``SDXLAdapter.shard``
 from the rules ``("height", "tensor")`` / ``("cfg_batch", "data")``):
@@ -60,6 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from seedx_tpu_torch.ops.attention import dot_product_attention
+from seedx_tpu_torch.ops.epilogue import bias_geglu, bias_residual
 from seedx_tpu_torch.ops.norms import group_norm, layer_norm
 
 
@@ -235,14 +239,27 @@ class Dense(nn.Module):
             self.register_buffer("bias", torch.zeros(features, dtype=dtype,
                                                      device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def gemm(self, x: torch.Tensor):
+        """(x @ kernel in the compute dtype, the per-output scale the int8
+        path applies to it or None): the GEMM before the epilogue."""
         x = x.to(self.dtype)
         if self.quantize == "int8":
-            y = (x @ self.kernel_q.to(self.dtype)) \
-                * self.kernel_scale.to(self.dtype)
-        else:
-            y = x @ master(self.kernel, self.dtype)
-        return y + master(self.bias, self.dtype) if self.use_bias else y
+            return (x @ self.kernel_q.to(self.dtype),
+                    self.kernel_scale.to(self.dtype))
+        return x @ master(self.kernel, self.dtype), None
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``[residual +] (x @ kernel [* scale] + bias)``; the epilogue is
+        ``ops.epilogue.bias_residual``.  Without a bias (``to_q`` / ``to_k``
+        / ``to_v``) nothing follows the GEMM but the int8 scale."""
+        y, scale = self.gemm(x)
+        if self.use_bias:
+            return bias_residual(y, master(self.bias, self.dtype), residual,
+                                 scale)
+        if scale is not None:
+            y = y * scale
+        return y if residual is None else residual + y
 
 
 Padding = Union[int, Tuple[Tuple[int, int], Tuple[int, int]]]
@@ -367,7 +384,11 @@ class CrossAttention(nn.Module):
         self.to_v = Dense(context_dim, query_dim, use_bias=False, **kw)
         self.to_out = Dense(query_dim, query_dim, **kw)
 
-    def forward(self, x: torch.Tensor, context=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context=None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Attention of ``x`` (self) or over ``context`` (cross), through
+        ``to_out``, which adds ``residual`` (the block's stream) in its
+        epilogue."""
         def split(t):
             return t.reshape(*t.shape[:-1], self.heads, self.head_dim)
 
@@ -386,7 +407,7 @@ class CrossAttention(nn.Module):
         out = dot_product_attention(split(self.to_q(x)), split(k), split(v),
                                     impl="auto",
                                     q_offset=0 if context is None else None)
-        return self.to_out(out.reshape(*x.shape[:-1], -1))
+        return self.to_out(out.reshape(*x.shape[:-1], -1), residual)
 
 
 class GEGLU(nn.Module):
@@ -396,8 +417,10 @@ class GEGLU(nn.Module):
                           dtype=cfg.dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, gate = self.proj(x).chunk(2, dim=-1)
-        return h * F.gelu(gate)
+        """``h * gelu(gate)`` over the biased projection's halves: its GEMM,
+        then ``ops.epilogue.bias_geglu``."""
+        y, scale = self.proj.gemm(x)
+        return bias_geglu(y, master(self.proj.bias, self.proj.dtype), scale)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -413,9 +436,10 @@ class BasicTransformerBlock(nn.Module):
                             dtype=cfg.dtype, device=device)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff_out(self.ff_geglu(self.norm3(x)))
+        # each residual add is the epilogue of the Dense before it
+        x = self.attn1(self.norm1(x), residual=x)
+        x = self.attn2(self.norm2(x), context, residual=x)
+        return self.ff_out(self.ff_geglu(self.norm3(x)), residual=x)
 
 
 class Transformer2D(nn.Module):
@@ -438,7 +462,8 @@ class Transformer2D(nn.Module):
         hidden = self.proj_in(self.norm(x).reshape(b, h * w, c))
         for i in range(self.depth):
             hidden = getattr(self, f"block_{i}")(hidden, context)
-        return self.proj_out(hidden).reshape(b, h, w, c) + x
+        return self.proj_out(hidden, x.reshape(b, h * w, c)).reshape(
+            b, h, w, c)
 
 
 class Downsample(nn.Module):
@@ -608,10 +633,29 @@ def norm_launches_per_eval(cfg: UNetConfig) -> Tuple[int, int]:
     down, one more up, 2 in the mid block), one a Transformer2D and
     ``conv_norm_out``; three LayerNorms a transformer block.  (46, 210)
     for SDXL base."""
+    resnets, transformers = _resnets_transformers(cfg)
+    return (2 * resnets + transformers + 1,
+            3 * flash_launches_per_eval(cfg))
+
+
+def _resnets_transformers(cfg: UNetConfig) -> Tuple[int, int]:
+    """ResnetBlocks and Transformer2Ds of a UNet: ``layers_per_block`` a
+    level down, one more up, and the mid block's."""
     n = len(cfg.block_out_channels)
     with_attn = sum(1 for d in cfg.transformer_layers if d)
     resnets = n * (2 * cfg.layers_per_block + 1) + 2
     transformers = with_attn * (2 * cfg.layers_per_block + 1) + (
         1 if cfg.transformer_layers[-1] else 0)
-    return (2 * resnets + transformers + 1,
-            3 * flash_launches_per_eval(cfg))
+    return resnets, transformers
+
+
+def epilogue_launches_per_eval(cfg: UNetConfig) -> Tuple[int, int]:
+    """(bias_residual, bias_geglu) calls of one UNet eval, one kernel call
+    each on the card: every Dense with a bias but GEGLU's projection --
+    ``to_out`` twice and ``ff_out`` a transformer block, ``proj_in`` and
+    ``proj_out`` a Transformer2D, ``time_emb_proj`` a resnet, the four
+    time / added-condition embeddings -- and one GEGLU a transformer block.
+    (253, 70) for SDXL base."""
+    blocks = flash_launches_per_eval(cfg)
+    resnets, transformers = _resnets_transformers(cfg)
+    return 3 * blocks + 2 * transformers + resnets + 4, blocks

@@ -103,8 +103,9 @@ class VAEAttention(nn.Module):
         # tokens) 1 GiB an image, and the softmax another
         attn = torch.softmax(torch.einsum("bqc,bkc->bqk", q, k)
                              / math.sqrt(c), dim=-1)
-        out = self.to_out(torch.einsum("bqk,bkc->bqc", attn, v))
-        return x + out.reshape(b, h, w, c)
+        out = self.to_out(torch.einsum("bqk,bkc->bqc", attn, v),
+                          x.reshape(b, h * w, c))
+        return out.reshape(b, h, w, c)
 
 
 class VAEEncoder(nn.Module):

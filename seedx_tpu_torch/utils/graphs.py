@@ -48,6 +48,7 @@ CHECK_EVERY = 8
 
 def _counted():
     from seedx_tpu_torch.ops.decode_attention import ragged_decode_attention
+    from seedx_tpu_torch.ops.epilogue import bias_geglu, bias_residual
     from seedx_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
                                                      flash_bwd_dq, flash_fwd)
     from seedx_tpu_torch.ops.int4_matmul import int4_matmul
@@ -55,7 +56,8 @@ def _counted():
     from seedx_tpu_torch.ops.norms import group_norm, layer_norm
 
     return (int4_matmul, ragged_decode_attention, flash_fwd, flash_bwd_dq,
-            flash_bwd_dkv, group_norm, layer_norm, moe_gemm)
+            flash_bwd_dkv, group_norm, layer_norm, moe_gemm, bias_residual,
+            bias_geglu)
 
 
 def launch_counts() -> Dict[tuple, int]:

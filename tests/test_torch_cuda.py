@@ -2,8 +2,9 @@
 card, at the shapes of the image-in comprehension turn, of batched decode,
 of the SFT train step and adapter training (the flash backward) and of the
 SDXL UNet (K1 in its self-attention, and the UNet with K1 against the
-plain attention; its GroupNorm (+ SiLU) and LayerNorm kernels at the
-eval's shapes, inside a captured eval and under autograd; the adapter's
+plain attention; its GroupNorm (+ SiLU) and LayerNorm kernels and its
+Dense epilogue kernels at the eval's shapes, inside a captured eval and
+under autograd; the adapter's
 diffusion loss and
 grads with K1 / K4 / K5 against the CPU's plain path).
 
@@ -21,6 +22,7 @@ from seedx_tpu_torch.models.layers import init_normal_
 from seedx_tpu_torch.models.sdxl import unet as tunet
 from seedx_tpu_torch.ops import attention as tattn
 from seedx_tpu_torch.ops import decode_attention as tdecode
+from seedx_tpu_torch.ops import epilogue as tepi
 from seedx_tpu_torch.ops import flash_attention as tflash
 from seedx_tpu_torch.ops import int4_matmul as tint4
 from seedx_tpu_torch.ops import norms as tnorms
@@ -817,7 +819,9 @@ def test_layer_norm_kernel_matches_plain(cuda_device, shape, dtype):
 def test_captured_sdxl_eval_counts_its_norms(cuda_device, monkeypatch):
     """A captured eval of the SDXL base-width UNet (CFG batch 2 at 16 x 16
     latents) counts ``norm_launches_per_eval`` (46, 210) GroupNorm and
-    LayerNorm calls a replay, runs no plain norm, and replays the eager
+    LayerNorm calls and ``epilogue_launches_per_eval`` (253, 70)
+    bias_residual and bias_geglu calls a replay, as many as the eager eval
+    launches, runs no plain norm or epilogue chain, and replays the eager
     eval bit for bit."""
     from seedx_tpu_torch.utils import graphs
 
@@ -826,25 +830,34 @@ def test_captured_sdxl_eval_counts_its_norms(cuda_device, monkeypatch):
     args = _unet_args(cfg, 2, 16, cuda_device)
 
     def plain(*a, **kw):
-        raise AssertionError("a plain norm ran on the card")
+        raise AssertionError("a plain norm or epilogue ran on the card")
 
     monkeypatch.setattr(tnorms, "group_norm_fp32_stats", plain)
     monkeypatch.setattr(tnorms, "layer_norm_fp32_stats", plain)
+    monkeypatch.setattr(tepi, "bias_residual_plain", plain)
+    monkeypatch.setattr(tepi, "bias_geglu_plain", plain)
+    counters = (tnorms.group_norm, tnorms.layer_norm, tepi.bias_residual,
+                tepi.bias_geglu)
 
     with torch.no_grad():
+        n = [c.launches for c in counters]
         eager = unet(*args)
+        torch.cuda.synchronize()
+        eager_per = tuple(c.launches - k for c, k in zip(counters, n))
         program = graphs.Program(lambda: unet(*args), cuda_device,
                                  graphs.Graphs())
         program()
-        n = (tnorms.group_norm.launches, tnorms.layer_norm.launches)
+        n = [c.launches for c in counters]
         out = program()
     torch.cuda.synchronize()
-    per = (tnorms.group_norm.launches - n[0],
-           tnorms.layer_norm.launches - n[1])
-    assert per == tunet.norm_launches_per_eval(cfg) == (46, 210)
+    per = tuple(c.launches - k for c, k in zip(counters, n))
+    assert per[:2] == tunet.norm_launches_per_eval(cfg) == (46, 210)
+    assert per[2:] == tunet.epilogue_launches_per_eval(cfg) == (253, 70)
+    assert per == eager_per
     assert {k[0].__name__: v for k, v in program.per_replay.items()
-            if k[1] == "launches" and k[0].__name__.endswith("_norm")} == {
-                "group_norm": 46, "layer_norm": 210}
+            if k[1] == "launches" and k[0] in counters} == {
+                "group_norm": 46, "layer_norm": 210, "bias_residual": 253,
+                "bias_geglu": 70}
     assert torch.equal(out, eager)
     del unet, program
 
@@ -943,6 +956,180 @@ def test_unet_under_autograd_runs_the_norm_kernels(cuda_device,
     with monkeypatch.context() as m:
         m.setattr(tunet, "group_norm", plain_gn)
         m.setattr(tunet, "layer_norm", tnorms.layer_norm_fp32_stats)
+        want = grads()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=0,
+            atol=UNET_REL * b.float().abs().max().item())
+
+
+# ---- the Dense epilogues (bias, scale, residual; bias + GEGLU) -------------
+
+def _ep_inputs(dev, rows, n, dtype, seed=0):
+    """(y, bias, residual, scale) of the UNet's kind: y and the residual of
+    unit scale, a small bias, an int8 path's per-column scale."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return ((torch.randn((rows, n), generator=g, device=dev) * 2).to(dtype),
+            (0.3 * torch.randn(n, generator=g, device=dev)).to(dtype),
+            torch.randn((rows, n), generator=g, device=dev).to(dtype),
+            (0.02 * torch.rand(n, generator=g, device=dev) + 1e-3).to(dtype))
+
+
+def _ulps_apart(a, b):
+    """Representable values of a's type between a and b, elementwise."""
+    it, top = ((torch.int16, 1 << 15) if a.dtype == torch.bfloat16
+               else (torch.int32, 1 << 31))
+
+    def ordered(t):
+        i = t.contiguous().view(it).long()
+        return torch.where(i < 0, -(i + top), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,rows,n,dtype,res,scaled", [
+    # the UNet's at 1024^2, CFG 2: to_out / ff_out / proj_out at level 2
+    # and level 1, the int8 UNet's, GEGLU's projection at both levels
+    ("bias_residual", 2048, 1280, torch.bfloat16, True, False),
+    ("bias_residual", 8192, 640, torch.bfloat16, True, False),
+    ("bias_residual", 2048, 1280, torch.bfloat16, True, True),
+    ("bias_residual", 2048, 1280, torch.bfloat16, False, False),
+    ("bias_geglu", 2048, 10240, torch.bfloat16, False, False),
+    ("bias_geglu", 8192, 5120, torch.bfloat16, False, False),
+    ("bias_geglu", 2048, 10240, torch.bfloat16, False, True),
+    # the VAE's mid attention (fp32), the time embeddings' two rows;
+    # ragged: rows off every block, a width off the 32-vector strip
+    ("bias_residual", 16384, 512, torch.float32, True, False),
+    ("bias_residual", 2, 1280, torch.bfloat16, False, False),
+    ("bias_residual", 231, 1280, torch.bfloat16, True, True),
+    ("bias_residual", 77, 800, torch.bfloat16, True, False),
+    ("bias_geglu", 231, 2560, torch.bfloat16, False, False),
+    ("bias_geglu", 33, 64, torch.float32, False, True)])
+def test_epilogue_kernel_matches_plain(cuda_device, kind, rows, n, dtype,
+                                       res, scaled):
+    """The epilogue kernels against their plain chains: ``bias_residual``
+    bit for bit (it rounds where the chain rounds), ``bias_geglu`` within
+    one ULP of its type (GELU's erff may contract differently from
+    PyTorch's build); one count a call; the same bits over a rerun."""
+    y, bias, resid, scale = _ep_inputs(cuda_device, rows, n, dtype)
+    resid = resid if res else None
+    scale = scale if scaled else None
+    counter = getattr(tepi, kind)
+    k = counter.launches
+    if kind == "bias_residual":
+        out = tepi.bias_residual(y, bias, resid, scale)
+        again = tepi.bias_residual(y, bias, resid, scale)
+        ref = tepi.bias_residual_plain(y, bias, resid, scale)
+    else:
+        out = tepi.bias_geglu(y, bias, scale)
+        again = tepi.bias_geglu(y, bias, scale)
+        ref = tepi.bias_geglu_plain(y, bias, scale)
+    torch.cuda.synchronize()
+    assert counter.launches - k == 2
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if kind == "bias_residual":
+        assert torch.equal(out, ref)
+    else:
+        assert _ulps_apart(out, ref).max().item() <= 1
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bias_residual", "bias_geglu"])
+def test_epilogue_kernel_refuses_a_ragged_vector(cuda_device, kind):
+    """A width that is not a whole number of 16-byte vectors raises on the
+    card, before any launch; nothing falls back to the plain chain."""
+    y, bias, resid, _ = _ep_inputs(cuda_device, 16, 2 * 1284,
+                                   torch.bfloat16)
+    k = getattr(tepi, kind).launches
+    with pytest.raises(ValueError):
+        if kind == "bias_residual":
+            tepi.bias_residual(y[:, :1284], bias[:1284], resid[:, :1284])
+        else:
+            tepi.bias_geglu(y, bias)
+    assert getattr(tepi, kind).launches == k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,rows,n,dtype,res,scaled", [
+    ("bias_residual", 2048, 1280, torch.bfloat16, True, False),
+    ("bias_residual", 8192, 640, torch.bfloat16, True, True),
+    ("bias_residual", 300, 512, torch.float32, True, True),
+    ("bias_geglu", 2048, 2560, torch.bfloat16, False, False),
+    ("bias_geglu", 512, 10240, torch.bfloat16, False, True),
+    ("bias_geglu", 300, 1024, torch.float32, False, True)])
+def test_epilogue_kernel_grads_match_plain_autograd(cuda_device, kind, rows,
+                                                    n, dtype, res, scaled):
+    """The wrappers' autograd functions (the kernel forward, the
+    closed-form backward in plain torch) against autograd through the
+    plain chains on the card: the gradients of y, the bias, the residual
+    and the scale within 1e-5 of each one's largest for fp32, for bf16
+    one ULP plus 1e-3 of it (bf16 sums over rows in another order)."""
+    y, bias, resid, scale = _ep_inputs(cuda_device, rows, n, dtype)
+    leaves = [y, bias] + ([resid] if res else []) + ([scale] if scaled
+                                                      else [])
+    n_out = n if kind == "bias_residual" else n // 2
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    dy = torch.randn((rows, n_out), generator=g, device=cuda_device).to(
+        dtype)
+
+    def call(fn):
+        def run(*t):
+            y, bias, rest = t[0], t[1], list(t[2:])
+            r = rest.pop(0) if res else None
+            s = rest.pop(0) if scaled else None
+            return (fn(y, bias, r, s) if kind == "bias_residual"
+                    else fn(y, bias, s))
+        return run
+
+    def grads(fn):
+        ts = [t.detach().clone().requires_grad_(True) for t in leaves]
+        (fn(*ts).float() * dy.float()).sum().backward()
+        return [t.grad for t in ts]
+
+    counter = getattr(tepi, kind)
+    k = counter.launches
+    got = grads(call(getattr(tepi, kind)))
+    torch.cuda.synchronize()
+    assert counter.launches - k == 1
+    want = grads(call(getattr(tepi, kind + "_plain")))
+    bf16 = dtype == torch.bfloat16
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        mag = w.float().abs().max().item()
+        torch.testing.assert_close(a.float(), w.float(),
+                                   rtol=2.0 ** -7 if bf16 else 0,
+                                   atol=(1e-3 if bf16 else 1e-5) * mag)
+
+
+@pytest.mark.cuda
+def test_unet_under_autograd_runs_the_epilogue_kernels(cuda_device,
+                                                       monkeypatch):
+    """With autograd recording the debug UNet launches each epilogue
+    kernel ``epilogue_launches_per_eval`` times, and its eps and gradients
+    match a run on the plain chains (within the UNet tolerance, as adapter
+    training's)."""
+    cfg = tunet.sdxl_debug_unet()
+    unet = _unet(cfg, cuda_device)
+    args = _unet_args(cfg, 2, 32, cuda_device)
+
+    def grads():
+        sample = args[0].clone().requires_grad_(True)
+        ctx = args[2].clone().requires_grad_(True)
+        eps = unet(sample, args[1], ctx, *args[3:])
+        eps.float().square().sum().backward()
+        return eps.detach(), sample.grad, ctx.grad
+
+    n = (tepi.bias_residual.launches, tepi.bias_geglu.launches)
+    got = grads()
+    torch.cuda.synchronize()
+    assert (tepi.bias_residual.launches - n[0],
+            tepi.bias_geglu.launches - n[1]) == \
+        tunet.epilogue_launches_per_eval(cfg)
+    with monkeypatch.context() as m:
+        m.setattr(tunet, "bias_residual", tepi.bias_residual_plain)
+        m.setattr(tunet, "bias_geglu", tepi.bias_geglu_plain)
         want = grads()
     for a, b in zip(got, want):
         torch.testing.assert_close(
