@@ -45,19 +45,17 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    loop's UNet evals and the engines' steps in the phases below;
 5. serving on the same runtime: a ``ServingEngine`` flush of 8 requests,
    ``ContinuousEngine`` with 8 slots over 16 requests, dense, paged, fused
-   dense, fused paged (packed) and fused windowed paged, each run with
-   its step programs captured and then again eager (token streams and
-   hidden states bit-equal; paged streams must equal dense ones, fused
-   paged fused dense); then the non-fused dense engine's tokens are forced
-   (``Teacher``, eager) through the fused engine, packed and windowed
-   (dense and paged), and through the batched loop: each fused run's
-   logits must lie within ``LOGIT_FACTOR`` times the batched loop's
-   difference from the engine, windowed paged must equal windowed dense,
-   and where the greedy fused and non-fused streams part the gap is
-   logged; a torch.profiler window over one decode chunk at 1 and at 8
-   live slots and over one fused mixed chunk at 8, captured and eager
-   (device busy share, K3's device ms), and ``SeedXServer`` (warmed up)
-   answering 4 concurrent HTTP requests on 127.0.0.1; and, once the
+   dense and fused paged, each run with its step programs captured and
+   then again eager (token streams and hidden states bit-equal; paged
+   streams must equal dense ones, fused paged fused dense); then the
+   non-fused dense engine's tokens are forced (``Teacher``, eager)
+   through the fused engine and through the batched loop: the fused
+   run's logits must lie within ``LOGIT_FACTOR`` times the batched loop's
+   difference from the engine, and where the greedy fused and non-fused
+   streams part the gap is logged; a torch.profiler window over one
+   decode chunk at 1 and at 8 live slots and over one fused mixed chunk
+   at 8, captured and eager (device busy share, K3's device ms), and
+   ``SeedXServer`` (warmed up) answering 4 concurrent HTTP requests on 127.0.0.1; and, once the
    phase-4 runtime is freed (after phase 10), the same 16 requests
    through ``ContinuousEngine`` on a runtime of their own whose agent has
    DeepSeek-V2-Lite as its LLM at its published sizes (bf16, a bf16
@@ -337,50 +335,34 @@ def bound(n_bytes: float, n_ops: float, kind: str):
 
 
 def counters():
-    from seedx_tpu_torch.ops.decode_attention import ragged_decode_attention
-    from seedx_tpu_torch.ops.epilogue import bias_geglu, bias_residual
-    from seedx_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
-                                                     flash_bwd_dq, flash_fwd)
-    from seedx_tpu_torch.ops.int4_matmul import int4_matmul
-    from seedx_tpu_torch.ops.moe import moe_gemm
-    from seedx_tpu_torch.ops.norms import group_norm, layer_norm
+    """The kernels' launch counters (the registry ``ops/_build.launches``),
+    each kernel module imported so that every kernel's are registered."""
+    from seedx_tpu_torch.ops import (decode_attention, epilogue,  # noqa: F401
+                                     flash_attention, int4_matmul, moe,
+                                     norms)
+    from seedx_tpu_torch.ops._build import launches
 
-    return {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
-            "flash_bwd_dkv": flash_bwd_dkv, "int4_w4a8": int4_matmul,
-            "decode_attn": ragged_decode_attention,
-            "group_norm": group_norm, "layer_norm": layer_norm,
-            "moe_gemm": moe_gemm, "bias_residual": bias_residual,
-            "bias_geglu": bias_geglu}
+    return launches
 
 
 def reset_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
-    k3 = counters()["decode_attn"]
-    k3.mode_launches = {m: 0 for m in k3.mode_launches}
-    k2 = counters()["int4_w4a8"]
-    k2.tile_launches = {t: 0 for t in k2.tile_launches}
-    k2.band_launches = {b: 0 for b in k2.band_launches}
+    registry = counters()
+    for name in registry:
+        registry[name] = 0
 
 
 def read_counts():
-    """Each kernel's launches since the last reset, K3's by mode
-    ("decode_attn one_query": a 3-D q; "decode_attn multi_query": the
-    stair) and K2's by row tile ("int4_w4a8 m16") and by row band
-    ("int4_w4a8 rows 2-16")."""
-    counts = {name: fn.launches for name, fn in counters().items()}
-    for mode, n in counters()["decode_attn"].mode_launches.items():
-        counts[f"decode_attn {mode}"] = n
-    for tile, n in counters()["int4_w4a8"].tile_launches.items():
-        counts[f"int4_w4a8 {tile}"] = n
-    for band, n in counters()["int4_w4a8"].band_launches.items():
-        counts[f"int4_w4a8 rows {band}"] = n
-    return counts
+    """Each kernel's launches since the last reset, by the registry's
+    names: K3's also by mode ("decode_attn one_query": a 3-D q;
+    "decode_attn multi_query": the stair) and K2's by row tile
+    ("int4_w4a8 m16") and by row band ("int4_w4a8 rows 2-16")."""
+    return dict(counters())
 
 
 def k3_modes():
     """K3's launches since the last reset, by mode."""
-    return dict(counters()["decode_attn"].mode_launches)
+    return {m: counters()[f"decode_attn {m}"]
+            for m in ("one_query", "multi_query")}
 
 
 def row(kernel, shape, ok, err, ms, plain_ms, bnd, library_ms=None):
@@ -1832,9 +1814,7 @@ def run_serving(rt):
     streams, eager_streams = {}, {}
     variants = (("dense", {}), ("paged", {"paged": True}),
                 ("fused dense", FUSED),
-                ("fused paged", dict(FUSED, paged=True)),
-                ("fused windowed paged", dict(FUSED, packed=False,
-                                              paged=True)))
+                ("fused paged", dict(FUSED, paged=True)))
     continuous.run_chunk = timed_chunk
     try:
         for variant, kw in variants:
@@ -2107,36 +2087,30 @@ def run_moe_serving(dev):
 
 def fused_logits_check(rt, requests, budgets, streams, ref) -> float:
     """The fused step at full depth, held by its logits: the non-fused
-    dense engine's tokens are forced through the fused engine (packed;
-    windowed, dense and paged) and through the batched loop, whose
-    difference from the non-fused engine is the noise floor.  Returns the
+    dense engine's tokens are forced through the fused dense engine and
+    through the batched loop, whose difference from the non-fused engine
+    is the noise floor.  Returns the
     limit (``LOGIT_FACTOR`` x the noise floor); logs the greedy partings
     of fused and non-fused dense with their gap in the fused logits."""
     import torch
 
     seqs = {i: forcing_sequence(s, rt.tokenizer)
             for i, s in enumerate(streams["dense"])}
-    runs = {}
-    for name, kw in (("fused packed dense", FUSED),
-                     ("fused windowed dense", dict(FUSED, packed=False)),
-                     ("fused windowed paged",
-                      dict(FUSED, packed=False, paged=True))):
-        torch.cuda.empty_cache()
-        runs[name] = forced_engine(rt, requests, budgets, seqs,
-                                   f"forced {name}", **kw)
+    torch.cuda.empty_cache()
+    fused = forced_engine(rt, requests, budgets, seqs,
+                          "forced fused packed dense", **FUSED)
     noise = logit_diff(ref, forced_batched(rt, requests, seqs), seqs)
     limit = LOGIT_FACTOR * noise
     log(f"logits, 40 layers, teacher-forced along the non-fused dense "
         f"engine's {sum(map(len, seqs.values()))} tokens: noise floor (the "
         f"batched loop vs the engine) max |diff| {noise:.5g}; limit "
         f"{LOGIT_FACTOR:g} x that = {limit:.5g}")
-    for name, t in runs.items():
-        d = logit_diff(ref, t, seqs)
-        log(f"logits, 40 layers: {name} vs non-fused dense max |diff| "
-            f"{d:.5g} ({d / max(noise, 1e-30):.3g} x the noise floor)")
-        if not d <= limit:
-            raise AssertionError(f"{name}: logits differ from the non-fused "
-                                 f"engine's by {d:.5g} > {limit:.5g}")
+    d = logit_diff(ref, fused, seqs)
+    log(f"logits, 40 layers: fused packed dense vs non-fused dense max "
+        f"|diff| {d:.5g} ({d / max(noise, 1e-30):.3g} x the noise floor)")
+    if not d <= limit:
+        raise AssertionError(f"fused packed dense: logits differ from the "
+                             f"non-fused engine's by {d:.5g} > {limit:.5g}")
     # the limit must catch a broken stair: the fused step's stair shifted
     # by one key, so each query attends one key too few or one too many
     for shift in (-1, 1):
@@ -2151,14 +2125,6 @@ def fused_logits_check(rt, requests, budgets, streams, ref) -> float:
         if not d > limit:
             raise AssertionError(f"the logit limit {limit:.5g} misses a "
                                  f"stair shifted by {shift:+d} ({d:.5g})")
-    wd, wp = runs["fused windowed dense"], runs["fused windowed paged"]
-    if not all(torch.equal(wd.along(k, len(s)), wp.along(k, len(s)))
-               for k, s in seqs.items()):
-        raise AssertionError("fused windowed paged logits differ from "
-                             "fused windowed dense")
-    log("logits, 40 layers: fused windowed paged equal fused windowed "
-        "dense bit for bit")
-    fused = runs["fused packed dense"]
     parts = [tie_check(f"fused vs dense request {i}",
                        streams["fused dense"][i], streams["dense"][i],
                        fused.along(i, len(seqs[i])), enforce=False)
@@ -2608,15 +2574,15 @@ class UNetWatch:
                      + epilogue_launches_per_eval(adapter.cfg.unet))
         self.size = adapter.cfg.sampler.height
         self.per_eval, self.stds, self.finite, self.images = [], [], [], []
-        ks = [counters()[k] for k in ("flash_fwd", "group_norm",
-                                       "layer_norm", "bias_residual",
-                                       "bias_geglu")]
+        ks = ("flash_fwd", "group_norm", "layer_norm", "bias_residual",
+              "bias_geglu")
+        registry = counters()
         base = pipeline.CFGEval.__call__
 
         def call(ev, lat, sigma, t):
-            before = [k.launches for k in ks]
+            before = [registry[k] for k in ks]
             eps = base(ev, lat, sigma, t)
-            self.per_eval.append(tuple(k.launches - b
+            self.per_eval.append(tuple(registry[k] - b
                                        for k, b in zip(ks, before)))
             self.stds.append(eps.float().std())
             self.finite.append(torch.isfinite(eps).all())
@@ -5249,7 +5215,7 @@ def check_ia3_k2(dev, g) -> None:
             with torch.no_grad():
                 out = d(x, 0)
             torch.cuda.synchronize()
-            n_k2 = counters()["int4_w4a8"].launches
+            n_k2 = counters()["int4_w4a8"]
             add_counts(CHECKS, read_counts())
             base = layers.int4_matmul_auto
             layers.int4_matmul_auto = plain_auto
@@ -5307,7 +5273,7 @@ def check_seq_cls(dev, g) -> None:
     finally:
         llama_mod.dot_product_attention = real
     torch.cuda.synchronize()
-    n_k1 = counters()["flash_fwd"].launches
+    n_k1 = counters()["flash_fwd"]
     add_counts(CHECKS, read_counts())
     log(f"sharded: sequence classification 2 x 5120 wide, B4 right-padded "
         f"{lengths} at S {s}: logits {tuple(out.shape)}, K1 launches {n_k1}; "
@@ -6110,6 +6076,8 @@ def build_kernels():
 def main() -> int:
     import torch
 
+    from seedx_tpu_torch.ops import int4_matmul as i4
+
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     if not torch.cuda.is_available():
@@ -6164,7 +6132,7 @@ def main() -> int:
         f"{json.dumps(launches)}")
     log("main path: K2 calls by row band: " + ", ".join(
         f"rows {b} {launches[f'int4_w4a8 rows {b}']}"
-        for b in counters()["int4_w4a8"].band_launches))
+        for b in i4.BANDS))
     log(f"check runs (the eager twins; teacher-forced engines, batched "
         f"loop and chat; the {PARITY_LAYERS}-layer parity agent and "
         f"gradient check; the UNet's K1-against-plain eval): launches "
@@ -6185,8 +6153,7 @@ def main() -> int:
                                                      "multi_query")}}
                if name == "decode_attn" else {}),
             **({"launches_by_tile": {
-                t: launches[f"{name} {t}"]
-                for t in counters()[name].tile_launches}}
+                f"m{t}": launches[f"{name} m{t}"] for t in i4.ROW_TILES}}
                if name == "int4_w4a8" else {}),
             "max_abs_err": max(r["err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),

@@ -24,13 +24,12 @@ default, as in the JAX package): admission only writes the request's
 prompt embeddings into a per-slot buffer, and while any slot is
 mid-prompt the chunk runs *mixed* steps in which decoding rows emit one
 token and prefilling rows consume up to ``prefill_width`` prompt tokens,
-their KV written at per-row offsets (``models/llama.py`` fused step; the
-ragged kernel's multi-query "stair" mode on the card).  With an int4
-agent the step is by default *packed*: P = slots + prefill_width real
-tokens, the prompt chunk shared greedily in row order across the
-prefilling rows; otherwise (or with ``packed=False``) every row gets a
-``prefill_width``-slot window.  The host keeps
-an exact replay of the prompt tokens each slot still has to prefill.
+their KV written at per-row offsets (``models/llama.py`` packed fused
+step; the ragged kernel's multi-query "stair" mode on the card).  A
+mixed step carries P = slots + prefill_width real tokens: the decoding
+rows' tokens, then a ``prefill_width``-token prompt chunk shared
+greedily in row order across the prefilling rows.  The host keeps an
+exact replay of the prompt tokens each slot still has to prefill.
 
 Each chunk is ``chunk_steps`` replays of one step program
 (``decode_step`` or ``mixed_step``, in place on the engine's state
@@ -258,16 +257,14 @@ def _admit_fused(state, row: int, embeds, p_len: int, last_token: int,
 
 @torch.no_grad()
 def mixed_step(model, state, gen_cfg: GenerationConfig, vocab, s_max: int,
-               w: int, packed: bool,
-               noise: Optional[SampleNoise] = None) -> None:
+               w: int, noise: Optional[SampleNoise] = None) -> None:
     """One mixed step of every slot, in place on ``state`` (the body of
-    the reference ``_mixed_chunk``): decoding rows emit one token,
-    prefilling rows consume prompt-buffer tokens; a row whose prompt
-    completes at step i samples from step i + 1 on.  ``packed`` carries
-    P = slots + w real tokens a step (decoding rows' tokens, then a
-    w-token prompt chunk shared greedily in row order); else each row
-    gets a w-slot window.  A step with no running row is a no-op (every
-    write is dropped to a dump cell)."""
+    the reference ``_mixed_chunk`` on its packed layout): decoding rows
+    emit one token, prefilling rows consume prompt-buffer tokens; a row
+    whose prompt completes at step i samples from step i + 1 on.  The
+    step carries P = slots + w real tokens (decoding rows' tokens, then a
+    w-token prompt chunk shared greedily in row order).  A step with no
+    running row is a no-op (every write is dropped to a dump cell)."""
     b, t = state["out_tokens"].shape
     n_img = gen_cfg.num_img_gen_tokens
     dev = state["pos"].device
@@ -300,59 +297,37 @@ def mixed_step(model, state, gen_cfg: GenerationConfig, vocab, s_max: int,
 
     pos = state["pos"]
     left = state["p_len"] - state["p_pos"]
-    if packed:
-        # the prompt chunk: w tokens shared greedily in row order (the
-        # host's _prefill_remaining replays this rule exactly)
-        need = torch.where(prefilling, torch.clamp(left, max=w), 0)
-        cum = torch.cumsum(need, 0)
-        alloc = torch.minimum(torch.clamp(w - (cum - need), min=0), need)
-        w_valid = torch.where(decoding, 1, alloc)
-        acum = torch.cumsum(alloc, 0)
-        # prompt token o belongs to the first row whose acum exceeds o
-        r_j = torch.searchsorted(acum, off, right=True)
-        valid_p = off < acum[-1]
-        r_c = torch.clamp(r_j, max=b - 1)
-        slot_p = off - (acum[r_c] - alloc[r_c])
-        emb_p = state["prompt_embeds"][r_c, state["p_pos"][r_c] + slot_p]
-        embeds = torch.cat([model.embed_ids(token).to(emb_p.dtype),
-                            emb_p])                          # [P, D]
-        tok_row = torch.cat([torch.where(decoding, rows, b),
-                             torch.where(valid_p, r_j, b)])
-        tok_slot = torch.cat([torch.zeros_like(rows), slot_p])
-        positions = pos[torch.clamp(tok_row, max=b - 1)] + tok_slot
-        kv_valid = span[None, :] <= (pos + w_valid - 1)[:, None]
-        logits, hidden, _ = model.llm_step(
-            embeds, positions, kv_valid, state["cache"], pos,
-            block_tables=state.get("tables"), write_widths=w_valid,
-            tok_row=tok_row, tok_slot=tok_slot, packed_window=w)
-        # each row's LAST token: a decoding row's sole token sits at
-        # packed index row, a prefilling row's chunk ends at
-        # b + acum - 1; rows given no token gather what `active` masks
-        last = torch.clamp(torch.where(decoding, rows, b + acum - 1), 0,
-                           b + w - 1)
-        last_logits, last_hidden = logits[last], hidden[last]
-        active = decoding | (prefilling & (alloc > 0))
-    else:
-        # [b, w] window: the prompt slice for prefilling rows, the
-        # sampled token in slot 0 (the rest garbage) for decoding rows
-        prompt_win = state["prompt_embeds"][rows[:, None],
-                                            state["p_pos"][:, None] + off]
-        tok_win = torch.nn.functional.pad(
-            model.embed_ids(token[:, None]).to(prompt_win.dtype),
-            (0, 0, 0, w - 1))
-        embeds = torch.where(prefilling[:, None, None], prompt_win,
-                             tok_win)
-        w_valid = torch.where(prefilling, torch.clamp(left, max=w),
-                              decoding.long())
-        positions = pos[:, None] + off
-        kv_valid = span[None, :] <= (pos + w_valid - 1)[:, None]
-        logits, hidden, _ = model.llm_step(
-            embeds, positions, kv_valid, state["cache"], pos,
-            block_tables=state.get("tables"), write_widths=w_valid)
-        last = torch.clamp(w_valid - 1, min=0)
-        last_logits, last_hidden = logits[rows, last], hidden[rows, last]
-        active = prefilling | decoding
-
+    # the prompt chunk: w tokens shared greedily in row order (the
+    # host's _prefill_remaining replays this rule exactly)
+    need = torch.where(prefilling, torch.clamp(left, max=w), 0)
+    cum = torch.cumsum(need, 0)
+    alloc = torch.minimum(torch.clamp(w - (cum - need), min=0), need)
+    w_valid = torch.where(decoding, 1, alloc)
+    acum = torch.cumsum(alloc, 0)
+    # prompt token o belongs to the first row whose acum exceeds o
+    r_j = torch.searchsorted(acum, off, right=True)
+    valid_p = off < acum[-1]
+    r_c = torch.clamp(r_j, max=b - 1)
+    slot_p = off - (acum[r_c] - alloc[r_c])
+    emb_p = state["prompt_embeds"][r_c, state["p_pos"][r_c] + slot_p]
+    embeds = torch.cat([model.embed_ids(token).to(emb_p.dtype),
+                        emb_p])                          # [P, D]
+    tok_row = torch.cat([torch.where(decoding, rows, b),
+                         torch.where(valid_p, r_j, b)])
+    tok_slot = torch.cat([torch.zeros_like(rows), slot_p])
+    positions = pos[torch.clamp(tok_row, max=b - 1)] + tok_slot
+    kv_valid = span[None, :] <= (pos + w_valid - 1)[:, None]
+    logits, hidden, _ = model.llm_step(
+        embeds, positions, kv_valid, state["cache"], pos,
+        block_tables=state.get("tables"), write_widths=w_valid,
+        tok_row=tok_row, tok_slot=tok_slot, packed_window=w)
+    # each row's LAST token: a decoding row's sole token sits at
+    # packed index row, a prefilling row's chunk ends at
+    # b + acum - 1; rows given no token gather what `active` masks
+    last = torch.clamp(torch.where(decoding, rows, b + acum - 1), 0,
+                       b + w - 1)
+    last_logits, last_hidden = logits[last], hidden[last]
+    active = decoding | (prefilling & (alloc > 0))
     keep = active[:, None]
     _commit(state, running.any(), n=n_new, running=still, pos=pos + w_valid,
             p_pos=state["p_pos"] + torch.where(prefilling, w_valid, 0),
@@ -382,7 +357,7 @@ class ContinuousEngine:
                  top_p: float = 0.5, seed: int = 0,
                  paged: bool = False, page_size: int = 128,
                  pool_tokens: int = 0, fused_prefill: bool = False,
-                 prefill_width: int = 8, packed: Optional[bool] = None):
+                 prefill_width: int = 8):
         """``paged=True`` replaces the dense per-slot KV reservation
         (slots x (max bucket + max_new_tokens) rows) with a shared pool of
         ``page_size``-row pages and per-slot block tables; ``pool_tokens``
@@ -392,9 +367,7 @@ class ContinuousEngine:
         ``fused_prefill`` interleaves prompt prefill into the decode chunks,
         ``prefill_width`` prompt tokens a step (see the module docstring),
         instead of a bucket prefill on admission; off by default, as in the
-        JAX package.  It composes with ``paged``.  ``packed`` picks the
-        mixed step's layout: True packed, False windowed, None (default)
-        packed for an int4 agent and windowed otherwise."""
+        JAX package.  It composes with ``paged``."""
         llm = rt.agent.cfg.llm
         if (llm.mla or llm.moe) and (paged or fused_prefill):
             raise ValueError("latent attention / sparse experts: no paged "
@@ -441,11 +414,6 @@ class ContinuousEngine:
         self.paged = paged
         self.fused = fused_prefill
         self.prefill_width = prefill_width
-        # by default the packed fused layout for an int4 agent (the JAX
-        # engine's _packed gate: its stacked int4 loop is this port's only
-        # loop)
-        self._packed = (cfg.quantization == "int4" if packed is None
-                        else packed)
         # host mirror of each slot's prompt tokens still to prefill (exact:
         # step() replays the device's allocation rule)
         self._prefill_remaining = [0] * slots
@@ -873,7 +841,7 @@ class ContinuousEngine:
                 def fn():
                     mixed_step(self.model, self.state, self.gen_cfg,
                                self.vocab, self._s_max, self.prefill_width,
-                               self._packed, self._noise)
+                               self._noise)
             else:
                 raise ValueError(f"no {kind!r} program in this engine")
             prog = Program(fn, self.device, self.model.graphs, kind=kind)
@@ -883,15 +851,13 @@ class ContinuousEngine:
     def _replay_prefill(self, steps: int) -> None:
         """The device's prompt consumption over ``steps`` mixed steps,
         replayed on the host (reference ``step()``, continuous.py:890-920):
-        packed, each step shares ``prefill_width`` tokens across the
-        prefilling slots in row order; windowed, each prefilling slot takes
-        up to ``prefill_width``."""
-        w = self.prefill_width
+        each step shares ``prefill_width`` tokens across the prefilling
+        slots in row order."""
         rem = self._prefill_remaining
         for _ in range(steps):
-            budget = w
+            budget = self.prefill_width
             for r in range(len(rem)):
-                take = min(rem[r], budget if self._packed else w)
+                take = min(rem[r], budget)
                 rem[r] -= take
                 budget -= take
 

@@ -8,6 +8,22 @@ edit to either rebuilds, and loaded with ``ctypes``.  Nothing here runs at
 import time; the CPU tests never build.
 Different kernels may build at once from several threads (one ``nvcc``
 each); a second caller of the same kernel waits for the first.
+
+The kernel layer's launch bookkeeping lives here too, so that a kernel
+added later needs no edit outside its own ``ops/`` module and ``csrc/``
+file:
+
+* ``launches``, the one registry of launch counters: {name: count}.  A
+  name without a space counts every launch of one kernel (``"int4_w4a8"``,
+  ``"flash_fwd"``); ``"<kernel> <split>"`` counts a share of them
+  (``"int4_w4a8 m16"`` by row tile, ``"int4_w4a8 rows 2-16"`` by row band,
+  ``"decode_attn multi_query"`` by mode).  Each kernel module registers
+  its names where it is defined; ``utils/graphs.py`` takes back what a
+  capture counted and adds it at every replay, so the counters go on
+  counting the kernels that ran.
+* ``launch``, the one call of a kernel's entry point: the current stream,
+  the error check under the entry point's name, the counters.
+* ``TicketPool``, the zeroed tickets a split-K merge depends on.
 """
 
 from __future__ import annotations
@@ -21,7 +37,9 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -96,11 +114,54 @@ def load_library(name: str, source: str,
 @functools.lru_cache(maxsize=8)
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``."""
-    import torch
-
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def check(err: int, what: str) -> None:
+# every kernel's launch counters (see the module docstring)
+launches: Dict[str, int] = {}
+
+
+def register(*names: str) -> None:
+    """Add launch counters at zero; a name already there keeps its count."""
+    for name in names:
+        launches.setdefault(name, 0)
+
+
+def launch(lib: ctypes.CDLL, entry: str, device, *args,
+           counts: Sequence[str] = ()) -> None:
+    """Call ``lib``'s ``entry`` with ``args`` and ``device``'s current
+    stream, raise under ``entry``'s name on a nonzero error (counting
+    nothing), then add one to each registered counter of ``counts``."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, entry)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+        raise RuntimeError(f"{entry}: CUDA error {err}")
+    for name in counts:
+        launches[name] += 1
+
+
+class TicketPool:
+    """One split-K kernel's int32 tickets, a buffer a device, left at zero
+    by each launch's merging blocks.  The pool grows and never frees: an
+    outgrown buffer is kept in ``retired``, since a captured graph's
+    launches point at the buffer they were captured with.  Growth under
+    stream capture raises (the zeros would not exist before the first
+    replay); a warm eager launch of the same shape sizes it first."""
+
+    def __init__(self):
+        self.buffers: Dict[torch.device, torch.Tensor] = {}
+        self.retired: List[torch.Tensor] = []
+
+    def get(self, device, n: int) -> torch.Tensor:
+        """The device's buffer, at least ``n`` long."""
+        buf = self.buffers.get(device)
+        if buf is None or buf.numel() < n:
+            if torch.cuda.is_available() and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("ticket buffer would grow under stream "
+                                   "capture: run the call eagerly first")
+            if buf is not None:
+                self.retired.append(buf)
+            buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+            self.buffers[device] = buf
+        return buf

@@ -28,10 +28,11 @@ so there is no such argument.  Its scale operands are lane-padded to 128
 Kernel source and design note: ``seedx_tpu_torch/csrc/decode_attn.cu``.
 ``ragged_decode_attention`` launches it for CUDA tensors and runs
 ``ragged_decode_attention_plain`` for CPU tensors; there is no other
-fallback.  ``ragged_decode_attention.launches`` counts every launch;
-``.mode_launches`` splits the count into "one_query" (3-D q) and
-"multi_query" (4-D q).  ``plan`` is the launch's host-side shape (query
-slots per block, split count); ``split_ranges`` and
+fallback.  The launch counter ``"decode_attn"`` (``ops/_build.py``)
+counts every launch, ``"decode_attn one_query"`` (3-D q) and
+``"decode_attn multi_query"`` (4-D q) split it by mode.  ``plan`` is the
+launch's host-side shape (query slots per block, split count);
+``split_ranges`` and
 ``ragged_decode_attention_split_plain`` are the kernel's window split and
 partial merge in plain torch, for the tests.
 """
@@ -42,7 +43,8 @@ import ctypes
 
 import torch
 
-from seedx_tpu_torch.ops._build import check, load_library, sm_count
+from seedx_tpu_torch.ops._build import (TicketPool, launch, load_library,
+                                     register, sm_count)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,8 +56,10 @@ MAX_ROWS = 64        # query vectors (slots x grouped heads) a block holds
 SPLIT_TILES = 10     # tiles a split walks at most, for fewer than
 SPLIT_ROWS = 8       # SPLIT_ROWS query vectors a block
 MAX_SPLITS = 32      # the kernel's merge holds m, l of each in shared memory
-_tickets = {}        # device -> int32 tickets, zero between launches
-_retired = []        # outgrown ticket buffers, kept for captured graphs
+_tickets = TicketPool()
+# launch counters: every launch, by q's rank (one query a row, the stair)
+_MODE_COUNTS = {3: "decode_attn one_query", 4: "decode_attn multi_query"}
+register("decode_attn", *_MODE_COUNTS.values())
 
 
 def library() -> ctypes.CDLL:
@@ -103,25 +107,6 @@ def split_ranges(start: int, end: int, splits: int):
     return [(start + i * chunk * TILE, min(start + (i + 1) * chunk * TILE,
                                            end))
             for i in range(-(-tiles // chunk))]
-
-
-def _tickets_for(device, n: int) -> torch.Tensor:
-    """The device's ticket buffer, at least ``n`` long.  An outgrown
-    buffer is kept, never freed: a captured graph's launches point at the
-    buffer they were captured with.  Growth under capture raises (the
-    zeros would not exist before the first replay); a warm eager launch
-    of the same shape before the capture sizes it."""
-    buf = _tickets.get(device)
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_available() and \
-                torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("ticket buffer would grow under stream "
-                               "capture: run the call eagerly first")
-        if buf is not None:
-            _retired.append(buf)
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _tickets[device] = buf
-    return buf
 
 
 def _geometry(q, k_cache, block_tables, page):
@@ -331,24 +316,16 @@ def ragged_decode_attention(q, k_cache, v_cache, starts, ends, *,
         # are left at zero by each launch's merging blocks
         part = torch.empty(splits * b * hkv * groups * ql * g * (d + 2),
                            dtype=torch.float32, device=q.device)
-        tickets = _tickets_for(q.device, b * hkv * groups)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = library().decode_attn(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_scale.data_ptr() if int8 else None,
-        v_scale.data_ptr() if int8 else None,
-        starts.data_ptr(), ends.data_ptr(),
-        block_tables.data_ptr() if paged else None, out.data_ptr(),
-        part.data_ptr() if part is not None else None,
-        tickets.data_ptr() if tickets is not None else None,
-        b, w, hq, hkv, d, s, block_tables.shape[1] if paged else 0,
-        page if paged else 0, int(int8), ql, splits, d ** -0.5, stream)
-    check(err, "decode_attn")
-    ragged_decode_attention.launches += 1
-    ragged_decode_attention.mode_launches[
-        "multi_query" if q.dim() == 4 else "one_query"] += 1
+        tickets = _tickets.get(q.device, b * hkv * groups)
+    launch(library(), "decode_attn", q.device,
+           q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+           k_scale.data_ptr() if int8 else None,
+           v_scale.data_ptr() if int8 else None,
+           starts.data_ptr(), ends.data_ptr(),
+           block_tables.data_ptr() if paged else None, out.data_ptr(),
+           part.data_ptr() if part is not None else None,
+           tickets.data_ptr() if tickets is not None else None,
+           b, w, hq, hkv, d, s, block_tables.shape[1] if paged else 0,
+           page if paged else 0, int(int8), ql, splits, d ** -0.5,
+           counts=("decode_attn", _MODE_COUNTS[q.dim()]))
     return out
-
-
-ragged_decode_attention.launches = 0
-ragged_decode_attention.mode_launches = {"one_query": 0, "multi_query": 0}

@@ -22,7 +22,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from seedx_tpu_torch.ops._build import check, load_library, sm_count
+from seedx_tpu_torch.ops._build import (launch, load_library, register,
+                                     sm_count)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"bias_residual": [_P] * 5 + [_I] * 6 + [_P],
@@ -31,6 +32,7 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 EP_THREADS = 256     # threads a block
 EP_FILL = 4          # blocks an SM at most: one resident wave (kMinBlocks)
+register("bias_residual", "bias_geglu")   # launch counters
 
 
 def library() -> ctypes.CDLL:
@@ -120,12 +122,11 @@ def _bias_residual_kernel(y, bias, residual, scale):
     out = torch.empty_like(y)
     rows, nvec = y.numel() // n, n * y.element_size() // 16
     if rows:
-        check(library().bias_residual(
-            y.data_ptr(), bias.data_ptr(), _ptr(scale), _ptr(residual),
-            out.data_ptr(), rows, nvec,
-            *ep_plan(rows, nvec, sm_count(y.device.index or 0)),
-            _DTYPES[y.dtype], torch.cuda.current_stream(y.device).cuda_stream),
-            "bias_residual")
+        launch(library(), "bias_residual", y.device,
+               y.data_ptr(), bias.data_ptr(), _ptr(scale), _ptr(residual),
+               out.data_ptr(), rows, nvec,
+               *ep_plan(rows, nvec, sm_count(y.device.index or 0)),
+               _DTYPES[y.dtype], counts=("bias_residual",))
     return out
 
 
@@ -150,7 +151,6 @@ class _BiasResidual(torch.autograd.Function):
     def forward(ctx, y, bias, residual, scale):
         out = _bias_residual_kernel(y, bias, residual, scale)
         ctx.save_for_backward(None if scale is None else y, scale)
-        bias_residual.launches += 1
         return out
 
     @staticmethod
@@ -171,8 +171,6 @@ def bias_residual(y: torch.Tensor, bias: torch.Tensor,
     return _BiasResidual.apply(y, bias, residual, scale)
 
 
-bias_residual.launches = 0
-
 
 def _bias_geglu_kernel(y, bias, scale):
     n2 = y.shape[-1]
@@ -186,11 +184,10 @@ def _bias_geglu_kernel(y, bias, scale):
     out = y.new_empty(y.shape[:-1] + (n,))
     rows, nvec = y.numel() // n2, n * y.element_size() // 16
     if rows:
-        check(library().bias_geglu(
-            y.data_ptr(), bias.data_ptr(), _ptr(scale), out.data_ptr(), rows,
-            nvec, *ep_plan(rows, nvec, sm_count(y.device.index or 0)),
-            _DTYPES[y.dtype], torch.cuda.current_stream(y.device).cuda_stream),
-            "bias_geglu")
+        launch(library(), "bias_geglu", y.device,
+               y.data_ptr(), bias.data_ptr(), _ptr(scale), out.data_ptr(),
+               rows, nvec, *ep_plan(rows, nvec, sm_count(y.device.index or 0)),
+               _DTYPES[y.dtype], counts=("bias_geglu",))
     return out
 
 
@@ -217,7 +214,6 @@ class _BiasGeglu(torch.autograd.Function):
     def forward(ctx, y, bias, scale):
         out = _bias_geglu_kernel(y, bias, scale)
         ctx.save_for_backward(y, bias, scale)
-        bias_geglu.launches += 1
         return out
 
     @staticmethod
@@ -237,5 +233,3 @@ def bias_geglu(y: torch.Tensor, bias: torch.Tensor,
         return bias_geglu_plain(y, bias, scale)
     return _BiasGeglu.apply(y, bias, scale)
 
-
-bias_geglu.launches = 0

@@ -21,7 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from seedx_tpu_torch.ops._build import check, load_library, sm_count
+from seedx_tpu_torch.ops._build import (launch, load_library, register,
+                                     sm_count)
 from seedx_tpu_torch.ops.attention import NEG_INF
 
 _P = ctypes.c_void_p
@@ -43,6 +44,7 @@ TILES = {128: ((128, 128), (64, 128), (64, 64)), 64: ((64, 128), (64, 64))}
 # a warpgroup) and streams q rows
 BWD_TILES = {128: {"dq": ((64, 64),), "dkv": ((64, 64),)},
              64: {"dq": ((64, 64),), "dkv": ((64, 64),)}}
+register("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")   # launch counters
 
 
 def library() -> ctypes.CDLL:
@@ -151,19 +153,13 @@ def flash_fwd(q, k, v, starts, ends, q_offset: int, causal: bool,
                   b, sq, skv, h, d)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, 1, sq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = library().flash_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(),
-        ends.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, skv, h, d,
-        int(q_offset), int(bool(causal)), float(scale),
-        *tile_shape(b, sq, h, d, causal, sm_count(q.device.index or 0)),
-        stream)
-    check(err, "flash_fwd_bf16")
-    flash_fwd.launches += 1
+    launch(library(), "flash_fwd_bf16", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), starts.data_ptr(),
+           ends.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, skv, h, d,
+           int(q_offset), int(bool(causal)), float(scale),
+           *tile_shape(b, sq, h, d, causal, sm_count(q.device.index or 0)),
+           counts=("flash_fwd",))
     return out, lse
-
-
-flash_fwd.launches = 0
 
 
 def wgmma_tile_debug(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -180,10 +176,8 @@ def wgmma_tile_debug(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
                              "CUDA bf16 [64, D]")
     s = torch.empty((64, 64), dtype=torch.float32, device=q.device)
     o = torch.empty((64, d), dtype=torch.float32, device=q.device)
-    err = library().flash_wgmma_tile_debug(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(),
-        d, torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "flash_wgmma_tile_debug")
+    launch(library(), "flash_wgmma_tile_debug", q.device, q.data_ptr(),
+           k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(), d)
     return s, o
 
 
@@ -232,16 +226,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, starts, ends, q_offset: int,
     ptrs, dims, tiles = _bwd_args("flash_bwd_dq", q, k, v, do, lse, delta,
                                   starts, ends, causal)
     dq = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = bwd_library().flash_bwd_dq_bf16(
-        *ptrs, dq.data_ptr(), *dims, int(q_offset), int(bool(causal)),
-        float(scale), *tiles[0], stream)
-    check(err, "flash_bwd_dq_bf16")
-    flash_bwd_dq.launches += 1
+    launch(bwd_library(), "flash_bwd_dq_bf16", q.device,
+           *ptrs, dq.data_ptr(), *dims, int(q_offset), int(bool(causal)),
+           float(scale), *tiles[0], counts=("flash_bwd_dq",))
     return dq
-
-
-flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, starts, ends, q_offset: int,
@@ -255,16 +243,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, starts, ends, q_offset: int,
     ptrs, dims, tiles = _bwd_args("flash_bwd_dkv", q, k, v, do, lse, delta,
                                   starts, ends, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = bwd_library().flash_bwd_dkv_bf16(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, int(q_offset),
-        int(bool(causal)), float(scale), *tiles[1], stream)
-    check(err, "flash_bwd_dkv_bf16")
-    flash_bwd_dkv.launches += 1
+    launch(bwd_library(), "flash_bwd_dkv_bf16", q.device,
+           *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, int(q_offset),
+           int(bool(causal)), float(scale), *tiles[1],
+           counts=("flash_bwd_dkv",))
     return dk, dv
-
-
-flash_bwd_dkv.launches = 0
 
 
 def flash_bwd(q, k, v, do, lse, delta, starts, ends, q_offset: int,

@@ -29,7 +29,8 @@ from typing import Optional
 
 import torch
 
-from seedx_tpu_torch.ops._build import check, load_library, sm_count
+from seedx_tpu_torch.ops._build import (TicketPool, launch, load_library,
+                                     register, sm_count)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,8 +42,12 @@ ROW_TILES = (16, 32, 64)   # rows a block: the kernel's built m-tile counts
 SPLIT_FILL = 2       # blocks an SM the split count aims for
 SPLIT_GROUPS = 10    # groups a split walks at most on the 16- / 32-row tiles
 MAX_SPLITS = 64      # the kernel's limit
-_tickets = {}        # device -> int32 tickets, zero between launches
-_retired = []        # outgrown ticket buffers, kept for captured graphs
+BANDS = ("1", "2-16", "17-64", "65-2048")   # ``row_band``'s bands
+_tickets = TicketPool()
+# launch counters: every launch, by row tile, by row band
+_TILE_COUNTS = {t: f"int4_w4a8 m{t}" for t in ROW_TILES}
+_BAND_COUNTS = {b: f"int4_w4a8 rows {b}" for b in BANDS}
+register("int4_w4a8", *_TILE_COUNTS.values(), *_BAND_COUNTS.values())
 
 
 def library() -> ctypes.CDLL:
@@ -155,25 +160,6 @@ def workspace_bytes(rows: int, n_in: int, n_out: int, group: int,
     return x8 + -(-rows * 4 // 16) * 16 + part
 
 
-def _tickets_for(device, n: int) -> torch.Tensor:
-    """The device's ticket buffer, at least ``n`` long.  An outgrown
-    buffer is kept, never freed: a captured graph's launches point at the
-    buffer they were captured with.  Growth under capture raises (the
-    zeros would not exist before the first replay); a warm eager launch
-    of the same shape before the capture sizes it."""
-    buf = _tickets.get(device)
-    if buf is None or buf.numel() < n:
-        if torch.cuda.is_available() and \
-                torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("ticket buffer would grow under stream "
-                               "capture: run the call eagerly first")
-        if buf is not None:
-            _retired.append(buf)
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _tickets[device] = buf
-    return buf
-
-
 def row_band(rows: int) -> str:
     """The band of a call's row count in the launch histogram."""
     return ("1" if rows == 1 else "2-16" if rows <= 16 else "17-64"
@@ -220,24 +206,17 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     out = torch.empty((rows, n_out), dtype=x.dtype, device=x.device)
     work = torch.empty(workspace_bytes(rows, n_in, n_out, group, splits),
                        dtype=torch.uint8, device=x.device)
-    tickets = (_tickets_for(x.device, -(-rows // tile) * -(-n_out // BN))
+    tickets = (_tickets.get(x.device, -(-rows // tile) * -(-n_out // BN))
                if splits > 1 else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = library().int4_w4a8_bf16(
-        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        work.data_ptr(), tickets.data_ptr() if tickets is not None else None,
-        rows, n_in, n_out, group, tile // 16, splits,
-        row_amax.data_ptr() if row_amax is not None else None, stream)
-    check(err, "int4_w4a8_bf16")
-    int4_matmul.launches += 1
-    int4_matmul.tile_launches[f"m{tile}"] += 1
-    int4_matmul.band_launches[row_band(rows)] += 1
+    launch(library(), "int4_w4a8_bf16", x.device,
+           x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+           work.data_ptr(),
+           tickets.data_ptr() if tickets is not None else None,
+           rows, n_in, n_out, group, tile // 16, splits,
+           row_amax.data_ptr() if row_amax is not None else None,
+           counts=("int4_w4a8", _TILE_COUNTS[tile],
+                   _BAND_COUNTS[row_band(rows)]))
     return out
-
-
-int4_matmul.launches = 0
-int4_matmul.tile_launches = {f"m{t}": 0 for t in ROW_TILES}
-int4_matmul.band_launches = {b: 0 for b in ("1", "2-16", "17-64", "65-2048")}
 
 
 def b_fragments(tile: torch.Tensor) -> torch.Tensor:
@@ -247,10 +226,8 @@ def b_fragments(tile: torch.Tensor) -> torch.Tensor:
         raise ValueError("b_fragments: a uint8 [64, 128] CUDA tile")
     regs = torch.empty((4, 4, 32, 4, 2), dtype=torch.int32,
                        device=tile.device)
-    check(library().int4_w4a8_fragments_debug(
-        tile.contiguous().data_ptr(), regs.data_ptr(),
-        torch.cuda.current_stream(tile.device).cuda_stream),
-        "int4_w4a8_fragments_debug")
+    launch(library(), "int4_w4a8_fragments_debug", tile.device,
+           tile.contiguous().data_ptr(), regs.data_ptr())
     return regs
 
 

@@ -20,9 +20,9 @@ route to no expert (``keep``).
 
 ``moe_gemm`` launches the kernel for CUDA tensors and runs
 ``moe_gemm_plain`` (a per-expert ``torch.matmul`` loop in fp32, which
-reads the offsets on the host) for CPU tensors.  ``moe_gemm.launches``
-counts the kernel's launches, bumped by replays of a captured step as
-the other kernels' counters are (``utils/graphs.py``).
+reads the offsets on the host) for CPU tensors.  The launch counter
+``"moe_gemm"`` (``ops/_build.py``) counts the kernel's launches, replays
+of a captured step included.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from seedx_tpu_torch.ops._build import check, load_library
+from seedx_tpu_torch.ops._build import launch, load_library, register
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"moe_gemm_bf16": [_P] * 6 + [_I] * 6 + [_P]}
@@ -41,6 +41,7 @@ _SIGNATURES = {"moe_gemm_bf16": [_P] * 6 + [_I] * 6 + [_P]}
 BN = {16: 64, 64: 128, 128: 128}   # the kernel's row tiles: column tiles
 K_STEP = 64                 # K a pipeline stage: K must be a multiple
 MAX_Z = 32                  # row-tile groups an expert, at most
+register("moe_gemm")        # launch counter
 
 
 def library() -> ctypes.CDLL:
@@ -126,18 +127,12 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((r, n), device=x.device,
                       dtype=torch.bfloat16 if w2 is not None
                       else torch.float32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = library().moe_gemm_bf16(
-        x.data_ptr(), w.data_ptr(), w2.data_ptr() if w2 is not None else None,
-        offsets.data_ptr(), out.data_ptr(),
-        active.data_ptr() if active is not None else None,
-        r, k, n, e, tile, z, stream)
-    check(err, "moe_gemm_bf16")
-    moe_gemm.launches += 1
+    launch(library(), "moe_gemm_bf16", x.device, x.data_ptr(), w.data_ptr(),
+           w2.data_ptr() if w2 is not None else None,
+           offsets.data_ptr(), out.data_ptr(),
+           active.data_ptr() if active is not None else None,
+           r, k, n, e, tile, z, counts=("moe_gemm",))
     return out
-
-
-moe_gemm.launches = 0
 
 
 def route(x: torch.Tensor, router: torch.Tensor, top_k: int,

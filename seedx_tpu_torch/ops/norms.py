@@ -22,7 +22,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from seedx_tpu_torch.ops._build import check, load_library, sm_count
+from seedx_tpu_torch.ops._build import (launch, load_library, register,
+                                     sm_count)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"group_norm_stats": [_P] * 3 + [_I] * 10 + [_P],
@@ -36,6 +37,7 @@ GN_SLOTS = (1, 2, 4)  # 16-byte vectors a thread along the channels (built)
 GN_SMEM = 48 * 1024   # the statistics block's shared memory, at most
 MAX_SPLITS = 1024     # GroupNorm blocks a batch row, at most
 LN_LANES = 16         # 16-byte vectors a lane of a LayerNorm row, at most
+register("group_norm", "layer_norm")   # launch counters: one a call each
 
 
 def library() -> ctypes.CDLL:
@@ -225,17 +227,15 @@ def _group_norm_kernel(x: torch.Tensor, scale: torch.Tensor,
     sums = torch.empty((2, b, num_groups), dtype=torch.float32,
                        device=x.device)
     code = _DTYPES[x.dtype]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    check(library().group_norm_stats(x.data_ptr(), part.data_ptr(),
-                                     sums.data_ptr(), *shape, code, stream),
-          "group_norm_stats")
+    launch(library(), "group_norm_stats", x.device, x.data_ptr(),
+           part.data_ptr(), sums.data_ptr(), *shape, code)
     if reduce is not None:
         sums = reduce(sums).contiguous()
     y = torch.empty_like(x)
-    check(library().group_norm_apply(
-        x.data_ptr(), y.data_ptr(), sums.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), *shape, count, eps, int(silu), code, stream),
-        "group_norm_apply")
+    launch(library(), "group_norm_apply", x.device,
+           x.data_ptr(), y.data_ptr(), sums.data_ptr(), scale.data_ptr(),
+           bias.data_ptr(), *shape, count, eps, int(silu), code,
+           counts=("group_norm",))
     return y, x, sums, count
 
 
@@ -248,7 +248,6 @@ class _GroupNorm(torch.autograd.Function):
                                                 eps, reduce, parts, silu)
         ctx.save_for_backward(xc, sums, scale, bias)
         ctx.rest = (count, eps, silu, reduce)
-        group_norm.launches += 1
         return y
 
     @staticmethod
@@ -279,8 +278,6 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                             silu)
 
 
-group_norm.launches = 0
-
 
 def _layer_norm_kernel(x: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, eps: float):
@@ -292,11 +289,10 @@ def _layer_norm_kernel(x: torch.Tensor, scale: torch.Tensor,
                          f"than a warp holds")
     y = torch.empty_like(x)
     if x.numel():
-        check(library().layer_norm_rows(
-            x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            x.numel() // c, c, eps, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream),
-            "layer_norm_rows")
+        launch(library(), "layer_norm_rows", x.device,
+               x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+               x.numel() // c, c, eps, _DTYPES[x.dtype],
+               counts=("layer_norm",))
     return y, x
 
 
@@ -308,7 +304,6 @@ class _LayerNorm(torch.autograd.Function):
         y, xc = _layer_norm_kernel(x, scale, bias, eps)
         ctx.save_for_backward(xc, scale, bias)
         ctx.eps = eps
-        layer_norm.launches += 1
         return y
 
     @staticmethod
@@ -329,5 +324,3 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return layer_norm_fp32_stats(x, scale, bias, eps)
     return _LayerNorm.apply(x, scale, bias, eps)
 
-
-layer_norm.launches = 0

@@ -14,12 +14,13 @@ function on the same buffers, so the eager path stays the reference of
 the captured one.  A capture or a replay that fails raises; nothing falls
 back.
 
-The kernels' launch counters (``int4_matmul.launches`` and the rest) are
+The kernels' launch counters (the registry ``ops/_build.launches``) are
 Python integers, bumped when a wrapper launches.  Under capture the
 wrappers run once without launching anything, so a capture takes back
 what its wrappers counted, keeps it as the graph's launches per replay,
 and every replay adds that much: the counters go on counting the kernels
-that ran.
+that ran.  This module names no kernel: it reads whatever the registry
+holds.
 
 ``Graphs`` is the one switch between the captured path and the eager one
 (a runtime's ``graphs``, shared by its agent and adapter), and the one
@@ -35,6 +36,7 @@ while the graph lives.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 import weakref
@@ -42,52 +44,25 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from seedx_tpu_torch.ops._build import launches
+
 # replays between two host reads of a decode loop's flags
 CHECK_EVERY = 8
 
 
-def _counted():
-    from seedx_tpu_torch.ops.decode_attention import ragged_decode_attention
-    from seedx_tpu_torch.ops.epilogue import bias_geglu, bias_residual
-    from seedx_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
-                                                     flash_bwd_dq, flash_fwd)
-    from seedx_tpu_torch.ops.int4_matmul import int4_matmul
-    from seedx_tpu_torch.ops.moe import moe_gemm
-    from seedx_tpu_torch.ops.norms import group_norm, layer_norm
-
-    return (int4_matmul, ragged_decode_attention, flash_fwd, flash_bwd_dq,
-            flash_bwd_dkv, group_norm, layer_norm, moe_gemm, bias_residual,
-            bias_geglu)
-
-
-def launch_counts() -> Dict[tuple, int]:
-    """Every kernel launch counter: {(wrapper, attribute, key): count};
-    key is None for an int attribute, else the entry of a dict one."""
-    out = {}
-    for fn in _counted():
-        for name, value in vars(fn).items():
-            if isinstance(value, int):
-                out[(fn, name, None)] = value
-            elif isinstance(value, dict):
-                for k, n in value.items():
-                    out[(fn, name, k)] = n
-    return out
-
-
-def _set_count(key: tuple, value: int) -> None:
-    fn, name, k = key
-    if k is None:
-        setattr(fn, name, value)
-    else:
-        getattr(fn, name)[k] = value
-
-
-def _bump(key: tuple, n: int) -> None:
-    fn, name, k = key
-    if k is None:
-        setattr(fn, name, getattr(fn, name) + n)
-    else:
-        getattr(fn, name)[k] += n
+@contextlib.contextmanager
+def _taken_back(into: Dict[str, int]):
+    """Every launch counter set back, at the block's end, to what it held
+    at its start; what each grew by meanwhile goes into ``into``."""
+    before = dict(launches)
+    try:
+        yield
+    finally:
+        for name, n in launches.items():
+            was = before.get(name, 0)
+            if n != was:
+                into[name] = n - was
+                launches[name] = was
 
 
 class Program:
@@ -102,7 +77,8 @@ class Program:
         self.kind = kind
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
-        self.per_replay: Dict[tuple, int] = {}
+        # launch counter -> what a replay adds to it
+        self.per_replay: Dict[str, int] = {}
         self.replays = 0
         self.capture_s = 0.0
         self.pool_bytes = 0
@@ -122,8 +98,8 @@ class Program:
             return self.capture()
         self.graph.replay()
         self.replays += 1
-        for key, n in self.per_replay.items():
-            _bump(key, n)
+        for name, n in self.per_replay.items():
+            launches[name] += n
         return self.outputs
 
     def capture(self) -> Any:
@@ -143,35 +119,31 @@ class Program:
         gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        before = launch_counts()
+        per_replay: Dict[str, int] = {}
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        try:
+        with _taken_back(per_replay):
             with torch.cuda.graph(graph, pool=self.graphs.pool(dev),
                                   capture_error_mode="thread_local"):
                 self.outputs = self.fn()
             self.graphs.holds(self)
-        finally:
-            after = launch_counts()
-            for key, n in before.items():
-                _set_count(key, n)
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.per_replay = {k: after[k] - n for k, n in before.items()
-                           if after[k] != n}
+        self.per_replay = per_replay
         self.graph = graph
         return out
 
     def stats(self) -> Dict[str, Any]:
         """Capture seconds, the bytes the shared pool grew by at this
-        capture, replays and kernel launches a replay."""
+        capture, replays and kernel launches a replay (the counters of
+        whole kernels: names without a space)."""
         return {"captured": self.graph is not None,
                 "capture_s": self.capture_s, "pool_bytes": self.pool_bytes,
                 "replays": self.replays,
                 "launches_per_replay": sum(
-                    n for (fn, name, k), n in self.per_replay.items()
-                    if name == "launches")}
+                    n for name, n in self.per_replay.items()
+                    if " " not in name)}
 
 
 class Graphs:

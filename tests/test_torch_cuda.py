@@ -26,6 +26,7 @@ from seedx_tpu_torch.ops import epilogue as tepi
 from seedx_tpu_torch.ops import flash_attention as tflash
 from seedx_tpu_torch.ops import int4_matmul as tint4
 from seedx_tpu_torch.ops import norms as tnorms
+from seedx_tpu_torch.ops._build import launches
 from seedx_tpu_torch.utils import quantize as tquant
 from seedx_tpu_torch.utils.quantize import quantize_unet_params
 
@@ -108,11 +109,11 @@ def test_flash_kernel_matches_plain(cuda_device, monkeypatch, b, sq, skv, h,
     assert set(tiles) <= set(tflash.TILES[d])
     for tile in tiles:
         monkeypatch.setattr(tflash, "tile_shape", lambda *a, t=tile: t)
-        n1 = tflash.flash_fwd.launches
+        n1 = launches["flash_fwd"]
         out, lse = tflash.flash_fwd(q, k, v, starts, ends, q_offset, causal,
                                     d ** -0.5)
         torch.cuda.synchronize()
-        assert tflash.flash_fwd.launches - n1 == 1
+        assert launches["flash_fwd"] - n1 == 1
         torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                    atol=flash_limit(ref))
         # the same dead rows, lse exactly NEG_INF there (K4 / K5 read it)
@@ -275,11 +276,11 @@ def test_int4_auto_dispatch_on_card(cuda_device, rows, branch):
     packed, scale = tquant.quantize_kernel_int4(w)
     x = torch.randn((rows, 512), generator=g,
                     device=cuda_device).to(torch.bfloat16)
-    n2 = tint4.int4_matmul.launches
+    n2 = launches["int4_w4a8"]
     out = tint4.int4_matmul_auto(x, packed, scale)
     torch.cuda.synchronize()
     assert tint4.int4_branch(rows) == branch
-    assert tint4.int4_matmul.launches - n2 == (branch == "w4a8")
+    assert launches["int4_w4a8"] - n2 == (branch == "w4a8")
     if branch == "w4a16":
         assert torch.equal(out, tint4.int4_matmul_unpack(x, packed, scale))
 
@@ -527,13 +528,13 @@ def test_flash_bwd_kernels_match_plain(cuda_device, b, sq, skv, h, d, causal,
                                        st, en, q_offset):
     args = _flash_bwd_inputs(cuda_device, b, sq, skv, h, d, causal, st, en,
                              q_offset)
-    n4, n5 = tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches
+    n4, n5 = launches["flash_bwd_dq"], launches["flash_bwd_dkv"]
     got = tflash.flash_bwd(*args)
     again = tflash.flash_bwd(*args)
     ref = tflash.flash_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert (tflash.flash_bwd_dq.launches - n4,
-            tflash.flash_bwd_dkv.launches - n5) == (2, 2)
+    assert (launches["flash_bwd_dq"] - n4,
+            launches["flash_bwd_dkv"] - n5) == (2, 2)
     for name, a, a2, r in zip(("dq", "dk", "dv"), got, again, ref):
         assert a.dtype == torch.bfloat16 and a.shape == r.shape, name
         # one writer per tile, no atomics: two runs give the same bits
@@ -659,20 +660,20 @@ def test_unet_k1_matches_plain_attention(cuda_device, monkeypatch, which):
                                       transformer_layers=(2,)), 2, 32
     unet = _unet(cfg, cuda_device)
     args = _unet_args(cfg, b, hw, cuda_device)
-    n1 = tflash.flash_fwd.launches
+    n1 = launches["flash_fwd"]
     with torch.no_grad():
         eps = unet(*args)
     torch.cuda.synchronize()
-    assert tflash.flash_fwd.launches - n1 == tunet.flash_launches_per_eval(
+    assert launches["flash_fwd"] - n1 == tunet.flash_launches_per_eval(
         cfg)
     orig = tunet.dot_product_attention
     monkeypatch.setattr(tunet, "dot_product_attention",
                         lambda *a, **kw: orig(*a, **{**kw, "impl": "plain"}))
-    n2 = tflash.flash_fwd.launches
+    n2 = launches["flash_fwd"]
     with torch.no_grad():
         ref = unet(*args)
     torch.cuda.synchronize()
-    assert tflash.flash_fwd.launches == n2
+    assert launches["flash_fwd"] == n2
     assert eps.shape == (b, hw, hw, 4) and torch.isfinite(eps).all()
     torch.testing.assert_close(eps.float(), ref.float(), rtol=0,
                                atol=UNET_REL * ref.float().abs().max().item())
@@ -757,12 +758,12 @@ def test_group_norm_kernel_matches_plain(cuda_device, shape, groups, eps,
 
     x, scale, bias = _norm_inputs(cuda_device, shape, dtype)
     ref = tnorms.group_norm_fp32_stats(x, scale, bias, groups, eps)
-    n = tnorms.group_norm.launches
+    n = launches["group_norm"]
     out = tnorms.group_norm(x, scale, bias, groups, eps)
     act = tnorms.group_norm(x, scale, bias, groups, eps, silu=True)
     again = tnorms.group_norm(x, scale, bias, groups, eps, silu=True)
     torch.cuda.synchronize()
-    assert tnorms.group_norm.launches - n == 3
+    assert launches["group_norm"] - n == 3
     _norm_close(out, ref)
     torch.testing.assert_close(act.float(), F.silu(out).float(),
                                rtol=2.0 ** -7 if dtype == torch.bfloat16
@@ -806,11 +807,11 @@ def test_layer_norm_kernel_matches_plain(cuda_device, shape, dtype):
     width; one launch a call; the same bits over repeated runs."""
     x, scale, bias = _norm_inputs(cuda_device, shape, dtype)
     ref = tnorms.layer_norm_fp32_stats(x, scale, bias, 1e-5)
-    n = tnorms.layer_norm.launches
+    n = launches["layer_norm"]
     out = tnorms.layer_norm(x, scale, bias, 1e-5)
     again = tnorms.layer_norm(x, scale, bias, 1e-5)
     torch.cuda.synchronize()
-    assert tnorms.layer_norm.launches - n == 2
+    assert launches["layer_norm"] - n == 2
     _norm_close(out, ref)
     assert torch.equal(out, again)
 
@@ -836,26 +837,25 @@ def test_captured_sdxl_eval_counts_its_norms(cuda_device, monkeypatch):
     monkeypatch.setattr(tnorms, "layer_norm_fp32_stats", plain)
     monkeypatch.setattr(tepi, "bias_residual_plain", plain)
     monkeypatch.setattr(tepi, "bias_geglu_plain", plain)
-    counters = (tnorms.group_norm, tnorms.layer_norm, tepi.bias_residual,
-                tepi.bias_geglu)
+    counters = ("group_norm", "layer_norm", "bias_residual", "bias_geglu")
 
     with torch.no_grad():
-        n = [c.launches for c in counters]
+        n = [launches[c] for c in counters]
         eager = unet(*args)
         torch.cuda.synchronize()
-        eager_per = tuple(c.launches - k for c, k in zip(counters, n))
+        eager_per = tuple(launches[c] - k for c, k in zip(counters, n))
         program = graphs.Program(lambda: unet(*args), cuda_device,
                                  graphs.Graphs())
         program()
-        n = [c.launches for c in counters]
+        n = [launches[c] for c in counters]
         out = program()
     torch.cuda.synchronize()
-    per = tuple(c.launches - k for c, k in zip(counters, n))
+    per = tuple(launches[c] - k for c, k in zip(counters, n))
     assert per[:2] == tunet.norm_launches_per_eval(cfg) == (46, 210)
     assert per[2:] == tunet.epilogue_launches_per_eval(cfg) == (253, 70)
     assert per == eager_per
-    assert {k[0].__name__: v for k, v in program.per_replay.items()
-            if k[1] == "launches" and k[0] in counters} == {
+    assert {c: v for c, v in program.per_replay.items()
+            if c in counters} == {
                 "group_norm": 46, "layer_norm": 210, "bias_residual": 253,
                 "bias_geglu": 70}
     assert torch.equal(out, eager)
@@ -907,11 +907,10 @@ def test_norm_kernel_grads_match_plain_autograd(cuda_device, kind, shape,
         (fn(*leaves).float() * dy.float()).sum().backward()
         return [t.grad for t in leaves]
 
-    counter = getattr(tnorms, kind)
-    n = counter.launches
+    n = launches[kind]
     got = grads(kernel)
     torch.cuda.synchronize()
-    assert counter.launches - n == 1
+    assert launches[kind] - n == 1
     bf16 = dtype == torch.bfloat16
     for a, w in zip(got, grads(plain)):
         assert a.dtype == w.dtype and a.shape == w.shape
@@ -940,11 +939,11 @@ def test_unet_under_autograd_runs_the_norm_kernels(cuda_device,
         eps.float().square().sum().backward()
         return eps.detach(), sample.grad, ctx.grad
 
-    n = (tnorms.group_norm.launches, tnorms.layer_norm.launches)
+    n = (launches["group_norm"], launches["layer_norm"])
     got = grads()
     torch.cuda.synchronize()
-    assert (tnorms.group_norm.launches - n[0],
-            tnorms.layer_norm.launches - n[1]) == \
+    assert (launches["group_norm"] - n[0],
+            launches["layer_norm"] - n[1]) == \
         tunet.norm_launches_per_eval(cfg)
 
     def plain_gn(x, scale, bias, groups, eps=1e-5, reduce=None, parts=1,
@@ -1015,8 +1014,7 @@ def test_epilogue_kernel_matches_plain(cuda_device, kind, rows, n, dtype,
     y, bias, resid, scale = _ep_inputs(cuda_device, rows, n, dtype)
     resid = resid if res else None
     scale = scale if scaled else None
-    counter = getattr(tepi, kind)
-    k = counter.launches
+    k = launches[kind]
     if kind == "bias_residual":
         out = tepi.bias_residual(y, bias, resid, scale)
         again = tepi.bias_residual(y, bias, resid, scale)
@@ -1026,7 +1024,7 @@ def test_epilogue_kernel_matches_plain(cuda_device, kind, rows, n, dtype,
         again = tepi.bias_geglu(y, bias, scale)
         ref = tepi.bias_geglu_plain(y, bias, scale)
     torch.cuda.synchronize()
-    assert counter.launches - k == 2
+    assert launches[kind] - k == 2
     assert out.dtype == ref.dtype and out.shape == ref.shape
     if kind == "bias_residual":
         assert torch.equal(out, ref)
@@ -1042,13 +1040,13 @@ def test_epilogue_kernel_refuses_a_ragged_vector(cuda_device, kind):
     card, before any launch; nothing falls back to the plain chain."""
     y, bias, resid, _ = _ep_inputs(cuda_device, 16, 2 * 1284,
                                    torch.bfloat16)
-    k = getattr(tepi, kind).launches
+    k = launches[kind]
     with pytest.raises(ValueError):
         if kind == "bias_residual":
             tepi.bias_residual(y[:, :1284], bias[:1284], resid[:, :1284])
         else:
             tepi.bias_geglu(y, bias)
-    assert getattr(tepi, kind).launches == k
+    assert launches[kind] == k
 
 
 @pytest.mark.cuda
@@ -1088,11 +1086,10 @@ def test_epilogue_kernel_grads_match_plain_autograd(cuda_device, kind, rows,
         (fn(*ts).float() * dy.float()).sum().backward()
         return [t.grad for t in ts]
 
-    counter = getattr(tepi, kind)
-    k = counter.launches
+    k = launches[kind]
     got = grads(call(getattr(tepi, kind)))
     torch.cuda.synchronize()
-    assert counter.launches - k == 1
+    assert launches[kind] - k == 1
     want = grads(call(getattr(tepi, kind + "_plain")))
     bf16 = dtype == torch.bfloat16
     for a, w in zip(got, want):
@@ -1121,11 +1118,11 @@ def test_unet_under_autograd_runs_the_epilogue_kernels(cuda_device,
         eps.float().square().sum().backward()
         return eps.detach(), sample.grad, ctx.grad
 
-    n = (tepi.bias_residual.launches, tepi.bias_geglu.launches)
+    n = (launches["bias_residual"], launches["bias_geglu"])
     got = grads()
     torch.cuda.synchronize()
-    assert (tepi.bias_residual.launches - n[0],
-            tepi.bias_geglu.launches - n[1]) == \
+    assert (launches["bias_residual"] - n[0],
+            launches["bias_geglu"] - n[1]) == \
         tunet.epilogue_launches_per_eval(cfg)
     with monkeypatch.context() as m:
         m.setattr(tunet, "bias_residual", tepi.bias_residual_plain)
@@ -1179,15 +1176,13 @@ def _debug_runtime(dev):
 def _graph_and_eager(rt, fn):
     """``fn()`` with the runtime's programs on (captured, replayed), then
     off (eager): each result with the kernels' launches of its run."""
-    from seedx_tpu_torch.utils import graphs
-
     out = []
     for enabled in (True, False):
         rt.graphs.enabled = enabled
-        before = graphs.launch_counts()
+        before = dict(launches)
         res = fn()
         torch.cuda.synchronize()
-        after = graphs.launch_counts()
+        after = dict(launches)
         out.append((res, {k: after[k] - before[k] for k in after
                           if after[k] != before[k]}))
     rt.graphs.enabled = True
@@ -1234,8 +1229,7 @@ def test_decode_graph_matches_eager_bit_for_bit(cuda_device):
         for key in ("tokens", "hidden", "finished"):
             assert torch.equal(graph[0][key], eager[0][key]), (kw, key)
         assert n_graph == n_eager
-        name = (tdecode.ragged_decode_attention, "launches", None)
-        assert n_graph[name] > 0
+        assert n_graph["decode_attn"] > 0
     progs = tgen.decode_programs(agent).programs()
     assert len(progs) == 2 and all(p.graph is not None for p in progs)
     assert sum(p.replays for p in progs) > 0
@@ -1271,7 +1265,7 @@ def test_sampling_noise_gives_multinomial_tokens(cuda_device):
 @pytest.mark.parametrize("kw", [dict(), dict(paged=True),
                                 dict(fused_prefill=True, prefill_width=4),
                                 dict(fused_prefill=True, prefill_width=4,
-                                     paged=True, packed=False)])
+                                     paged=True)])
 def test_engine_graph_matches_eager(cuda_device, kw):
     """The continuous engine's captured decode / mixed steps against the
     same steps run eagerly: the same results, step counts and launches."""
@@ -1331,14 +1325,14 @@ def test_unet_eval_graph_matches_eager(cuda_device):
         outs = []
         for enabled in (True, False):
             switch = graphs.Graphs(enabled=enabled)
-            n1 = tflash.flash_fwd.launches
+            n1 = launches["flash_fwd"]
             with torch.no_grad():
                 out = tpipe.denoise_edit(
                     unet, tsched.make_schedule(4), lat, img_lat, *cond,
                     tids, guidance_scale=5.0, image_guidance_scale=gi,
                     evals={}, graphs=switch)
             torch.cuda.synchronize()
-            outs.append((out, tflash.flash_fwd.launches - n1))
+            outs.append((out, launches["flash_fwd"] - n1))
         assert torch.equal(outs[0][0], outs[1][0]), gi
         assert outs[0][1] == outs[1][1] == 4 * tunet.flash_launches_per_eval(
             cfg)
@@ -1351,7 +1345,7 @@ def test_ticket_buffer_survives_growth_after_capture(cuda_device):
     captured one stays, and a replay still gives the eager bytes."""
     from seedx_tpu_torch.utils import graphs
 
-    tint4._tickets.pop(cuda_device, None)
+    tint4._tickets.buffers.pop(cuda_device, None)
     x, packed, scale = _int4_inputs(cuda_device, 1, 5120, 5120)
     assert tint4.plan(1, 5120, 5120, 128, tint4.sm_count(0))[1] > 1
     out = torch.empty((1, 5120), dtype=torch.bfloat16, device=cuda_device)
@@ -1359,13 +1353,13 @@ def test_ticket_buffer_survives_growth_after_capture(cuda_device):
         lambda: out.copy_(tint4.int4_matmul(x, packed, scale)), cuda_device)
     prog()                                   # warm run + capture
     want = out.clone()
-    held = tint4._tickets[cuda_device]
+    held = tint4._tickets.buffers[cuda_device]
     xb, pb, sb = _int4_inputs(cuda_device, 2016, 5120, 13824, seed=1)
     tiles = -(-2016 // 32) * -(-13824 // tint4.BN)
     assert tiles > held.numel()
     big = tint4.int4_matmul(xb, pb, sb)
-    assert tint4._tickets[cuda_device] is not held
-    assert any(t is held for t in tint4._retired)
+    assert tint4._tickets.buffers[cuda_device] is not held
+    assert any(t is held for t in tint4._tickets.retired)
     out.zero_()
     prog()                                   # a replay
     torch.cuda.synchronize()
@@ -1539,8 +1533,7 @@ def test_spec_graph_matches_eager(cuda_device, k):
     out, info, counts = _same_runs(*_graph_and_eager(
         rt, lambda: _spec_run(rt, ids, cfg)))
     assert int(out["spec_rounds"]) > 0
-    modes = (tdecode.ragged_decode_attention, "mode_launches", "multi_query")
-    assert counts[modes] > 0
+    assert counts["decode_attn multi_query"] > 0
     (st,) = [s for s in tgen.decode_programs(rt.agent).states.values()
              if s.spec_k == k]
     assert st.spec_program.graph is not None and st.spec_program.replays > 0
@@ -1702,9 +1695,9 @@ def test_adapter_loss_on_card_matches_cpu(cuda_device):
         init_state, _ = ttrain.make_adapter_train_step(
             unet, res, ttrain.AdapterTrainConfig(), tids)
         state = init_state()
-        n = (tflash.flash_fwd.launches, tflash.flash_bwd_dq.launches,
-             tflash.flash_bwd_dkv.launches)
-        norms = (tnorms.group_norm.launches, tnorms.layer_norm.launches)
+        n = (launches["flash_fwd"], launches["flash_bwd_dq"],
+             launches["flash_bwd_dkv"])
+        norms = (launches["group_norm"], launches["layer_norm"])
         loss = ttrain.adapter_loss(
             unet, res, {k: v.to(dev) for k, v in batch.items()}, t.to(dev),
             noise.to(dev), ttrain.make_sigma_tables(), tids)
@@ -1712,11 +1705,11 @@ def test_adapter_loss_on_card_matches_cpu(cuda_device):
         if dev.type == "cuda":
             torch.cuda.synchronize()
             per = tunet.flash_launches_per_eval(ucfg)
-            assert (tflash.flash_fwd.launches - n[0],
-                    tflash.flash_bwd_dq.launches - n[1],
-                    tflash.flash_bwd_dkv.launches - n[2]) == (per,) * 3
-            assert (tnorms.group_norm.launches - norms[0],
-                    tnorms.layer_norm.launches - norms[1]) == \
+            assert (launches["flash_fwd"] - n[0],
+                    launches["flash_bwd_dq"] - n[1],
+                    launches["flash_bwd_dkv"] - n[2]) == (per,) * 3
+            assert (launches["group_norm"] - norms[0],
+                    launches["layer_norm"] - norms[1]) == \
                 tunet.norm_launches_per_eval(ucfg)
         losses[dev.type] = float(loss.detach())
         grads[dev.type] = {k: p.grad.float().cpu()
@@ -1777,9 +1770,9 @@ def test_ia3_through_int4_kernel_and_captured_decode(cuda_device):
                 d.ia3_scale.shape, generator=g, device=cuda_device)
         x = torch.randn((8, n_in), generator=g, device=cuda_device).to(
             torch.bfloat16)
-        before = tint4.int4_matmul.launches
+        before = launches["int4_w4a8"]
         out = d(x)
-        assert tint4.int4_matmul.launches > before
+        assert launches["int4_w4a8"] > before
         xs = x * d.ia3_scale.to(x.dtype) if ia3 == "in" else x
         ref = tint4.int4_matmul_plain(xs, d.kernel_q4, d.kernel_scale)
         if ia3 == "out":
@@ -1859,7 +1852,6 @@ def test_one_rank_nccl_split_denoise_bit_equal(cuda_device):
     import torch.distributed as dist
 
     from seedx_tpu_torch.inference.runtime import SeedXRuntime
-    from seedx_tpu_torch.ops import flash_attention as fa
     from seedx_tpu_torch.parallel import create_mesh
 
     rt = SeedXRuntime.debug(device=cuda_device, with_adapter=True)
@@ -1877,10 +1869,10 @@ def test_one_rank_nccl_split_denoise_bit_equal(cuda_device):
     try:
         ad.shard(create_mesh(1, 1, 1))
         assert ad.graphs.enabled
-        before = fa.flash_fwd.launches, tnorms.group_norm.launches
+        before = launches["flash_fwd"], launches["group_norm"]
         got = run()
-        assert fa.flash_fwd.launches > before[0]
-        assert tnorms.group_norm.launches > before[1]
+        assert launches["flash_fwd"] > before[0]
+        assert launches["group_norm"] > before[1]
         for a, b in zip(got, ref):
             assert (a == b).all()
     finally:
@@ -1897,7 +1889,6 @@ def test_one_rank_nccl_train_step_bit_equal(cuda_device):
     from seedx_tpu_torch.models.agent import AgentConfig, ContinuousLVLM
     from seedx_tpu_torch.models.layers import init_normal_
     from seedx_tpu_torch.models.llama import llama_debug
-    from seedx_tpu_torch.ops import flash_attention as fa
     from seedx_tpu_torch.parallel import create_mesh
     from seedx_tpu_torch.parallel.mesh import place_params
     from seedx_tpu_torch.train.trainer import (TrainConfig,
@@ -1945,9 +1936,9 @@ def test_one_rank_nccl_train_step_bit_equal(cuda_device):
             out.append({k: m[k] for k in ("total_loss", "grad_norm")})
         return out, {n: p.detach().clone() for n, p in st.params.items()}
 
-    before = fa.flash_bwd_dq.launches
+    before = launches["flash_bwd_dq"]
     ref = run()
-    assert fa.flash_bwd_dq.launches > before
+    assert launches["flash_bwd_dq"] > before
     try:
         got = run(create_mesh(1, 1, 1))
     finally:
@@ -1990,11 +1981,11 @@ def test_moe_gemm_kernel_matches_plain(cuda_device, rows, gated):
     w2 = ((torch.randn((e, k_in, n_out), generator=g, device=cuda_device)
            * 0.02).to(torch.bfloat16) if gated else None)
     active = torch.zeros((), dtype=torch.int64, device=cuda_device)
-    before = tmoe.moe_gemm.launches
+    before = launches["moe_gemm"]
     got = tmoe.moe_gemm(x, w, offsets, w2, active)
     again = tmoe.moe_gemm(x, w, offsets, w2)
     torch.cuda.synchronize()
-    assert tmoe.moe_gemm.launches == before + 2
+    assert launches["moe_gemm"] == before + 2
     counts = offsets[1:] - offsets[:-1]
     assert int(counts[[3, 17, 40]].sum()) == 0
     assert int(active) == int((counts > 0).sum())
@@ -2025,7 +2016,6 @@ def test_captured_moe_mla_decode_step_equals_eager(cuda_device):
     from seedx_tpu_torch.inference.continuous import ContinuousEngine
     from seedx_tpu_torch.models.agent import AgentConfig, ContinuousLVLM
     from seedx_tpu_torch.models.llama import LlamaConfig
-    from seedx_tpu_torch.ops import moe as tmoe
     from seedx_tpu_torch.text.tokenizer import load_tokenizer
 
     llm = LlamaConfig(vocab_size=32330, hidden_size=256, intermediate_size=512,
@@ -2055,11 +2045,11 @@ def test_captured_moe_mla_decode_step_equals_eager(cuda_device):
                                prompt_buckets=(32,))
         eng.warmup()
         ids = [eng.submit(r) for r in reqs]
-        k6, act = tmoe.moe_gemm.launches, int(agent.llm.layers.experts_active)
+        k6, act = launches["moe_gemm"], int(agent.llm.layers.experts_active)
         res = eng.run()
         runs.append(([list(res[i]["tokens"]) for i in ids],
                      eng.state["prev_logits"].clone(),
-                     tmoe.moe_gemm.launches - k6,
+                     launches["moe_gemm"] - k6,
                      int(agent.llm.layers.experts_active) - act, eng))
     (tok_c, lg_c, k6_c, act_c, eng_c), (tok_e, lg_e, k6_e, act_e, _) = runs
     assert eng_c.program("decode").graph is not None

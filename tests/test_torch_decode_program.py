@@ -28,6 +28,10 @@ window's (tests/test_torch_serving.py): 0.7% measured, from the first
 decode step on.
 """
 
+import ast
+import ctypes
+import inspect
+import pkgutil
 import types
 
 import numpy as np
@@ -51,7 +55,9 @@ from seedx_tpu_torch.models import generation as tgen
 from seedx_tpu_torch.models.llama import init_kv_cache
 from seedx_tpu_torch.models.sdxl import pipeline as tpipe
 from seedx_tpu_torch.models.sdxl import scheduler as tsched
-from seedx_tpu_torch.ops import decode_attention, int4_matmul
+from seedx_tpu_torch import ops
+from seedx_tpu_torch.ops import _build, decode_attention, int4_matmul
+from seedx_tpu_torch.ops._build import launches
 from seedx_tpu_torch.text import prompts
 from seedx_tpu_torch.text.tokenizer import load_tokenizer
 from seedx_tpu_torch.utils import graphs
@@ -495,7 +501,7 @@ def _steps_seen(monkeypatch, kind):
     return seen
 
 
-@pytest.mark.parametrize("layout", ["decode", "packed", "windowed"])
+@pytest.mark.parametrize("layout", ["decode", "packed"])
 @pytest.mark.parametrize("paged", [False, True])
 def test_engine_chunks_match_jax_and_eager_step_counts(engines, monkeypatch,
                                                        layout, paged):
@@ -503,8 +509,7 @@ def test_engine_chunks_match_jax_and_eager_step_counts(engines, monkeypatch,
     fused = layout != "decode"
     kw = dict(paged=paged)
     if fused:
-        kw.update(fused_prefill=True, prefill_width=4,
-                  packed=layout == "packed")
+        kw.update(fused_prefill=True, prefill_width=4)
     decode = _steps_seen(monkeypatch, "decode_step")
     mixed = _steps_seen(monkeypatch, "mixed_step")
     got, eng = _drain(rt_t, **kw)
@@ -559,7 +564,7 @@ def test_sampled_engine_matches_the_eager_chunk_loop(engines, monkeypatch,
     _, rt_t, want = engines
     kw = dict(do_sample=True, temperature=1.0, top_p=0.95, seed=7)
     if layout == "packed":
-        kw.update(fused_prefill=True, prefill_width=4, packed=True)
+        kw.update(fused_prefill=True, prefill_width=4)
     decode = _steps_seen(monkeypatch, "decode_step")
     got, eng = _drain(rt_t, **kw)
     monkeypatch.undo()
@@ -702,36 +707,160 @@ def test_decode_programs_share_one_kv_storage(agents, monkeypatch):
         vars(agent_t).pop("decode_programs", None)
 
 
-def test_launch_counts_take_back_a_capture_and_add_replays():
+# a kernel entry point's C signature: one int argument, then the stream
+_ENTRY = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
+@pytest.fixture
+def toy_counters(monkeypatch):
+    """The CPU's stand-in for the card's current stream (``cuda_stream``
+    1234), and the counters "toy" and "toy wide" registered for a toy
+    kernel, taken out of the registry after the test."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None:
+                        types.SimpleNamespace(cuda_stream=1234))
+    _build.register("toy", "toy wide")
+    yield
+    for name in ("toy", "toy wide"):
+        launches.pop(name)
+
+
+def _replaying(per_replay, monkeypatch):
+    """A Program standing for a captured one on the CPU: a graph whose
+    replay runs nothing, and the given counts a replay."""
+    monkeypatch.setattr(graphs.Program, "graphed",
+                        property(lambda self: True))
+    prog = graphs.Program(lambda: None, "cpu", None)
+    prog.graph = types.SimpleNamespace(replay=lambda: None)
+    prog.per_replay = per_replay
+    return prog
+
+
+def test_launch_counts_take_back_a_capture_and_add_replays(monkeypatch):
     """What a capture does to the kernels' counters: the wrappers' Python
     increments under capture are taken back and kept per replay; a replay
-    adds them."""
-    fn = int4_matmul.int4_matmul
-    before = graphs.launch_counts()
-    key = (fn, "launches", None)
-    tile = (fn, "tile_launches", "m16")
-    assert key in before and tile in before
-    graphs._bump(key, 3)
-    graphs._bump(tile, 2)
-    after = graphs.launch_counts()
-    assert after[key] == before[key] + 3 and after[tile] == before[tile] + 2
-    for k, n in before.items():
-        graphs._set_count(k, n)
-    assert graphs.launch_counts() == before
+    adds them, and ``stats`` counts the whole kernels' launches."""
+    before = dict(launches)
+    assert {"int4_w4a8", "int4_w4a8 m16", "decode_attn"} <= set(before)
+    per_replay = {}
+    with graphs._taken_back(per_replay):
+        launches["int4_w4a8"] += 3
+        launches["int4_w4a8 m16"] += 2
+        launches["decode_attn"] += 1
+    assert per_replay == {"int4_w4a8": 3, "int4_w4a8 m16": 2,
+                          "decode_attn": 1}
+    assert launches == before
+    try:
+        prog = _replaying(per_replay, monkeypatch)
+        prog()
+        prog()
+        assert launches["int4_w4a8"] == before["int4_w4a8"] + 6
+        assert launches["int4_w4a8 m16"] == before["int4_w4a8 m16"] + 4
+        assert prog.replays == 2
+        assert prog.stats()["launches_per_replay"] == 4
+    finally:
+        launches.update(before)
+
+
+def test_a_wrapper_registered_counter_is_taken_back_and_replayed(
+        monkeypatch, toy_counters):
+    """A kernel added later needs no edit of ``utils/graphs.py``: a wrapper
+    defined here registers its counters and launches through
+    ``_build.launch`` (a fake ctypes entry point); the capture bookkeeping
+    takes its counts back and every replay adds them."""
+    calls = []
+    lib = types.SimpleNamespace(
+        toy_kernel=_ENTRY(lambda n, stream: calls.append((n, stream)) or 0))
+
+    def toy(x):
+        _build.launch(lib, "toy_kernel", x.device, x.numel(),
+                      counts=("toy", "toy wide") if x.numel() > 4
+                      else ("toy",))
+        return x
+
+    per_replay = {}
+    with graphs._taken_back(per_replay):
+        toy(torch.zeros(8))
+        toy(torch.zeros(2))
+    assert calls == [(8, 1234), (2, 1234)]
+    assert per_replay == {"toy": 2, "toy wide": 1}
+    assert launches["toy"] == launches["toy wide"] == 0
+    prog = _replaying(per_replay, monkeypatch)
+    for _ in range(3):
+        prog()
+    assert (launches["toy"], launches["toy wide"]) == (6, 3)
+    assert prog.stats()["launches_per_replay"] == 2
+
+
+def test_launch_raises_under_the_kernel_name_and_counts_nothing(
+        toy_counters):
+    """A nonzero error from the entry point raises with the entry point's
+    name and the code; no counter moves."""
+    calls = []
+    lib = types.SimpleNamespace(
+        toy_kernel=_ENTRY(lambda n, stream: calls.append((n, stream)) or 700))
+    with pytest.raises(RuntimeError, match="^toy_kernel: CUDA error 700$"):
+        _build.launch(lib, "toy_kernel", torch.device("cpu"), 5,
+                      counts=("toy", "toy wide"))
+    assert calls == [(5, 1234)]
+    assert launches["toy"] == launches["toy wide"] == 0
+
+
+def test_graphs_imports_no_kernel_module():
+    """``utils/graphs.py`` reads the registry in ``ops/_build.py`` and
+    imports no kernel wrapper module, so no kernel is named there."""
+    kernels = {f"seedx_tpu_torch.ops.{m.name}"
+               for m in pkgutil.iter_modules(ops.__path__)}
+    kernels.discard("seedx_tpu_torch.ops._build")
+    assert "seedx_tpu_torch.ops.int4_matmul" in kernels
+    imported = set()
+    for node in ast.walk(ast.parse(inspect.getsource(graphs))):
+        if isinstance(node, ast.Import):
+            imported |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0
+            imported.add(node.module)
+            imported |= {f"{node.module}.{a.name}" for a in node.names}
+    assert "seedx_tpu_torch.ops._build" in imported
+    assert not imported & kernels
 
 
 @pytest.mark.parametrize("module", [int4_matmul, decode_attention])
 def test_ticket_buffers_grow_without_freeing(module):
     """A launch that needs more tickets gets a larger buffer; the outgrown
-    one is kept (a captured graph's launches point at it)."""
+    one is kept (a captured graph's launches point at it).  K2 and K3
+    each keep their own pool."""
     dev = torch.device("cpu")
-    module._tickets.pop(dev, None)
-    small = module._tickets_for(dev, 10)
+    pool = module._tickets
+    assert pool is not (int4_matmul._tickets if module is decode_attention
+                        else decode_attention._tickets)
+    pool.buffers.pop(dev, None)
+    small = pool.get(dev, 10)
     ptr = small.data_ptr()
-    assert module._tickets_for(dev, 4096) is small
-    big = module._tickets_for(dev, 5000)
+    assert pool.get(dev, 4096) is small
+    big = pool.get(dev, 5000)
     assert big.numel() >= 5000 and big is not small
-    assert any(b is small for b in module._retired)
+    assert any(b is small for b in pool.retired)
     assert small.data_ptr() == ptr and not small.any()
-    assert module._tickets_for(dev, 20) is big
-    module._tickets.pop(dev, None)
+    assert pool.get(dev, 20) is big
+    pool.buffers.pop(dev, None)
+
+
+@pytest.mark.parametrize("module", [int4_matmul, decode_attention])
+def test_ticket_pool_refuses_to_grow_under_capture(module, monkeypatch):
+    """Under stream capture a pool that would grow raises (its zeros
+    would not exist before the first replay); one large enough is
+    handed out."""
+    dev = torch.device("cpu")
+    pool = module._tickets
+    pool.buffers.pop(dev, None)
+    held = pool.get(dev, 100)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    try:
+        assert pool.get(dev, held.numel()) is held
+        with pytest.raises(RuntimeError, match="under stream capture"):
+            pool.get(dev, held.numel() + 1)
+        assert pool.buffers[dev] is held
+    finally:
+        pool.buffers.pop(dev, None)

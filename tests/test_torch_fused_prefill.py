@@ -2,15 +2,18 @@
 port, against the JAX package's fused engine and against the port's own
 non-fused engine.
 
-Two layouts: *windowed* (a ``[slots, w]`` window per step) on the tiny
-unquantized agent, in float32 on both sides so the comparison is of the
-algorithm; *packed* (slots + w real tokens a step) on the tiny int4 +
-int8-KV agent with the ragged attention forced on, whose stair goes
-through the ragged kernel's multi-query mode (its plain version here; the
-JAX kernel in interpret mode).  The packed engines use a cache of
-``max(prompt_buckets) + max_new_tokens`` = 64 positions, one tile for the
-JAX kernel, so both round the softmax weights against the same maximum
-(see test_torch_continuous.py) and the token streams must be equal.
+The port's mixed step has one layout, *packed* (slots + w real tokens a
+step).  On the tiny unquantized agent, in float32 on both sides, it is
+held to the JAX engine's *windowed* layout (a ``[slots, w]`` window per
+step: the JAX engine packs only its int4 agent): the schedules differ,
+the token streams must not.  On the tiny int4 + int8-KV agent with the
+ragged attention forced on, its stair goes through the ragged kernel's
+multi-query mode (its plain version here; the JAX kernel in interpret
+mode), against the JAX engine's packed layout.  Those engines use a cache
+of ``max(prompt_buckets) + max_new_tokens`` = 64 positions, one tile for
+the JAX kernel, so both round the softmax weights against the same
+maximum (see test_torch_continuous.py) and the token streams must be
+equal.
 """
 
 import types
@@ -80,12 +83,14 @@ def _drain(rt, cls=ContinuousEngine, budgets=BUDGETS + [6], **kw):
 
 
 def test_windowed_matches_jax_fused_engine(runtimes):  # noqa: F811
+    """The port's packed mixed steps on the unquantized agent against the
+    JAX engine's windowed ones: the same streams."""
     rt_j, rt_t = runtimes
     kw = dict(slots=2, max_new_tokens=8, chunk_steps=3,
               prompt_buckets=(56,), fused_prefill=True, prefill_width=4)
-    want, _ = _drain(rt_j, JaxContinuousEngine, **kw)
+    want, eng_j = _drain(rt_j, JaxContinuousEngine, **kw)
+    assert not eng_j._packed
     got, eng = _drain(rt_t, **kw)
-    assert not eng._packed
     assert got == want
     st = eng.stats()
     assert st["mixed_steps"] > 0 and st["decode_steps"] > 0
@@ -109,7 +114,6 @@ def test_packed_matches_jax_fused_engine(int4_agents):
         got, eng = _drain(rt_t, **kw)
     finally:
         tdecode.ragged_decode_attention_plain = plain
-    assert eng._packed
     assert got == want
     # the mixed steps' stair went through the ragged attention's
     # multi-query mode, one call per layer and step
@@ -117,12 +121,16 @@ def test_packed_matches_jax_fused_engine(int4_agents):
     assert sum(stairs) == n_layers * eng.stats()["mixed_steps"] > 0
 
 
+@pytest.mark.parametrize("agent", ["int4", "dense"])
 @pytest.mark.parametrize("width", [1, 64])
-def test_fused_matches_non_fused_with_mid_flight_submit(int4_agents, width):
+def test_fused_matches_non_fused_with_mid_flight_submit(request, agent,
+                                                        width):
     """Widths 1 (a prompt trickles in one token a step) and 64 (a whole
     prompt in one step): the same streams as the bucket-prefill engine,
-    with half the requests submitted while the first half runs."""
-    _, rt_t = int4_agents
+    with half the requests submitted while the first half runs; on the
+    int4 agent and on the unquantized one (the same packed layout)."""
+    _, rt_t = request.getfixturevalue(
+        "int4_agents" if agent == "int4" else "runtimes")
     want, _ = _drain(rt_t, **PACKED)
     eng = ContinuousEngine(rt_t, **PACKED, fused_prefill=True,
                            prefill_width=width)
@@ -146,29 +154,6 @@ def test_fused_paged_equals_fused_dense(int4_agents):
     st = eng.stats()
     assert st["kv_tiles_free"] == st["kv_tiles_total"]   # all pages back
     assert not eng.state["tables"].any()
-
-
-def test_windowed_paged_equals_windowed_dense(int4_agents):
-    """The windowed layout writes its window through the block tables."""
-    _, rt_t = int4_agents
-    kw = dict(PACKED, fused_prefill=True, prefill_width=4, packed=False)
-    dense, _ = _drain(rt_t, **kw)
-    paged, eng = _drain(rt_t, paged=True, **kw)
-    assert not eng._packed
-    assert paged == dense
-    st = eng.stats()
-    assert st["mixed_steps"] > 0
-    assert st["kv_tiles_free"] == st["kv_tiles_total"]
-
-
-def test_windowed_int4_equals_packed(int4_agents):
-    """The windowed layout on the int4 agent gives the packed streams."""
-    _, rt_t = int4_agents
-    kw = dict(PACKED, fused_prefill=True, prefill_width=4)
-    packed, _ = _drain(rt_t, **kw)
-    windowed, eng = _drain(rt_t, packed=False, **kw)
-    assert not eng._packed
-    assert windowed == packed
 
 
 def test_packed_budget_contention(int4_agents):

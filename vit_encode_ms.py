@@ -50,6 +50,7 @@ def one(tree: str) -> dict:
     from seedx_tpu_torch.models.llama import llama2_13b
     from seedx_tpu_torch.models.vit import qwen_vitg_448
     from seedx_tpu_torch.ops import flash_attention as fa
+    from seedx_tpu_torch.ops._build import launches
 
     import seedx_tpu_torch
     assert os.path.dirname(seedx_tpu_torch.__file__).startswith(
@@ -72,13 +73,13 @@ def one(tree: str) -> dict:
     for rnd in range(ROUNDS):
         for img in images:
             torch.cuda.synchronize()
-            n0 = fa.flash_fwd.launches
+            n0 = launches["flash_fwd"]
             t0 = time.perf_counter()
             embeds, _ = rt.encode_image_anyres(img)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             n = int(embeds.shape[0])
-            tiles[n] = fa.flash_fwd.launches - n0
+            tiles[n] = launches["flash_fwd"] - n0
             host.setdefault(n, []).append(ms)
             print(f"{tree} round {rnd} {img.size[0]}x{img.size[1]}: {n} "
                   f"tiles, host {ms:.1f} ms, K1 launches {tiles[n]}",
