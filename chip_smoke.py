@@ -245,6 +245,7 @@ KERNELS = (("flash_fwd", "seedx_tpu_torch/csrc/flash_fwd.cu",
             "seedx_tpu/ops/flash_attention.py:298"),
            ("int4_w4a8", "seedx_tpu_torch/csrc/int4_w4a8.cu",
             "seedx_tpu/ops/int4_matmul.py:49"),
+           ("int4_dequant", "seedx_tpu_torch/csrc/int4_dequant.cu", "none"),
            ("decode_attn", "seedx_tpu_torch/csrc/decode_attn.cu",
             "seedx_tpu/ops/decode_attention.py:115"),
            ("group_norm", "seedx_tpu_torch/csrc/norms.cu", "none"),
@@ -629,6 +630,65 @@ def check_int4(dev, g, flush):
                     f"ms (kernel / cuBLAS {r['ms'] / ms:.3f}; no group "
                     f"scales, not the library time)")
         del w8
+    return rows
+
+
+# the W4A16 branch's dequant at the 7B agent's projections, group 128
+DEQUANT_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
+
+
+def check_int4_dequant(dev, g, flush, shapes=DEQUANT_SHAPES):
+    """The W4A16 dequant kernel against ``dequant_int4_plain`` at
+    ``shapes``, bit for bit, on every byte value and scales over six
+    decades; timed a single launch (L2 flushed) and in a stream of
+    launches over four weights, as a prefill group runs it.  A yardstick
+    line gives the whole W4A16 call at a 3072-row prefill group beside the
+    same dot after the plain chain, and both branches at the 2048 rows
+    where the dispatch passes from K2 to W4A16."""
+    import torch
+
+    from seedx_tpu_torch.ops import int4_matmul as i4
+
+    rows = []
+    for n_in, n_out in shapes:
+        sets = [(torch.randint(0, 256, (n_in // 2, n_out), generator=g,
+                               device=dev, dtype=torch.uint8),
+                 10.0 ** (6 * torch.rand((n_in // 128, n_out), generator=g,
+                                         device=dev) - 5))
+                for _ in range(4)]
+        packed, scale = sets[0]
+        w = i4.dequant_int4(packed, scale)
+        ref = i4.dequant_int4_plain(packed, scale)
+        same = torch.equal(w, ref)
+        err = (w.float() - ref.float()).abs().max().item()
+        del w, ref
+        n_bytes = packed.numel() + 4 * scale.numel() + 2 * n_in * n_out
+        r = row("int4_dequant", f"{n_in}->{n_out} g128", same, err,
+                cuda_ms(lambda: i4.dequant_int4(packed, scale), flush),
+                cuda_ms(lambda: i4.dequant_int4_plain(packed, scale), flush),
+                bound(n_bytes, 0, "bf16"))
+        stream = stream_ms([lambda p=p, s=s: i4.dequant_int4(p, s)
+                            for p, s in sets])
+        del sets
+        log(fmt_row(r, f" bit-equal {same}; kernel / bound "
+                       f"{r['ms'] / r['bound_ms']:.2f}, in a stream "
+                       f"{stream:.4f} ms ({stream / r['bound_ms']:.2f}x)"))
+        rows.append(r)
+        x = torch.randn((3072, n_in), generator=g,
+                        device=dev).to(torch.bfloat16)
+        x2k = x[:i4.MAX_KERNEL_ROWS].contiguous()
+        call = cuda_ms(lambda: i4.int4_matmul_unpack(x, packed, scale),
+                       flush)
+        plain = cuda_ms(lambda: x @ i4.dequant_int4_plain(packed, scale),
+                        flush)
+        k2 = cuda_ms(lambda: i4.int4_matmul(x2k, packed, scale), flush)
+        w4a16 = cuda_ms(lambda: i4.int4_matmul_unpack(x2k, packed, scale),
+                        flush)
+        log(f"yardstick int4_dequant {n_in}->{n_out}: the W4A16 call at "
+            f"3072 rows {call:.4f} ms, with the plain chain {plain:.4f} ms; "
+            f"at {i4.MAX_KERNEL_ROWS} rows K2 {k2:.4f} ms, W4A16 "
+            f"{w4a16:.4f} ms")
+        del x, x2k
     return rows
 
 
@@ -1171,6 +1231,7 @@ def check_kernels(dev):
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     rows = check_flash(dev, g) + check_flash_bwd(dev, g)
     rows += check_int4(dev, g, flush)
+    rows += check_int4_dequant(dev, g, flush)
     rows += check_decode(dev, g, flush)
     rows += check_stair(dev, g, flush)
     rows += check_stair_verify(dev, g, flush)
@@ -6038,7 +6099,8 @@ def build_kernels():
     from seedx_tpu_torch.ops import epilogue, moe, norms
 
     libs = {"flash_fwd": fa.library, "flash_bwd": fa.bwd_library,
-            "int4_w4a8": i4.library, "decode_attn": da.library,
+            "int4_w4a8": i4.library, "int4_dequant": i4.dequant_library,
+            "decode_attn": da.library,
             "norms": norms.library, "moe_gemm": moe.library,
             "epilogue": epilogue.library}
     errors = {}
@@ -6120,6 +6182,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     add_counts(launches, run_moe_serving(dev))
+    # its runtime (~34 GiB) likewise, before the 13B train model's
+    gc.collect()
+    torch.cuda.empty_cache()
     add_counts(launches, run_train(dev))
     add_counts(launches, run_mesh_train(smi))
     add_counts(launches, run_adapter_train(dev, smi))

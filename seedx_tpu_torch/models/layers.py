@@ -392,8 +392,11 @@ def init_normal_(module: nn.Module, generator: torch.Generator,
                 fan_in = buf[0].numel()
             else:                    # JAX-layout [..., in, out]
                 fan_in = buf.shape[-2] if buf.dim() >= 2 else buf.shape[-1]
-            noise = noise * min(std, 1.0 / math.sqrt(fan_in))
+            noise.mul_(min(std, 1.0 / math.sqrt(fan_in)))
         buf.copy_(noise)
+        # freed before the next leaf's draw: a sparse-expert stack is
+        # ~18 GiB in fp32, so two at once do not fit beside the weights
+        del noise
     return module
 
 

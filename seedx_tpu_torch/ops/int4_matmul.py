@@ -11,9 +11,11 @@ scale multiplies the dot, and the row scale multiplies the sum.
 Kernel source and design note: ``seedx_tpu_torch/csrc/int4_w4a8.cu``.
 ``int4_matmul`` launches it for CUDA tensors and runs ``int4_matmul_plain``
 for CPU tensors.  ``int4_matmul_unpack`` ports the JAX package's W4A16
-``int4_matmul_xla`` (unpack to bf16, then a dense dot).  ``int4_matmul_auto``
-dispatches as the reference's does: W4A8 up to ``MAX_KERNEL_ROWS`` rows,
-W4A16 above, on every device.
+``int4_matmul_xla``: ``dequant_int4`` unpacks the weight to bf16 (for CUDA
+tensors one pass of the kernel in ``csrc/int4_dequant.cu``, bit-equal to
+the plain chain ``dequant_int4_plain`` that CPU tensors run), then a dense
+dot.  ``int4_matmul_auto`` dispatches as the reference's does: W4A8 up to
+``MAX_KERNEL_ROWS`` rows, W4A16 above, on every device.
 
 ``row_amax`` (fp32 [rows, 1]) gives the row quantization each row's absmax
 from outside: a rank holding a row-parallel shard ``x[:, in/t]`` of a
@@ -36,6 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"int4_w4a8_bf16": [_P] * 6 + [_I] * 6 + [_P, _P],
                "int4_w4a8_fragments_debug": [_P, _P, _P]}
+_DQ_SIGNATURES = {"int4_dequant_bf16": [_P] * 3 + [_I] * 3 + [_P]}
 
 BN = 128             # output columns a block of the kernel
 ROW_TILES = (16, 32, 64)   # rows a block: the kernel's built m-tile counts
@@ -48,10 +51,15 @@ _tickets = TicketPool()
 _TILE_COUNTS = {t: f"int4_w4a8 m{t}" for t in ROW_TILES}
 _BAND_COUNTS = {b: f"int4_w4a8 rows {b}" for b in BANDS}
 register("int4_w4a8", *_TILE_COUNTS.values(), *_BAND_COUNTS.values())
+register("int4_dequant")
 
 
 def library() -> ctypes.CDLL:
     return load_library("int4_w4a8", "int4_w4a8.cu", _SIGNATURES)
+
+
+def dequant_library() -> ctypes.CDLL:
+    return load_library("int4_dequant", "int4_dequant.cu", _DQ_SIGNATURES)
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -231,16 +239,63 @@ def b_fragments(tile: torch.Tensor) -> torch.Tensor:
     return regs
 
 
-def int4_matmul_unpack(x: torch.Tensor, packed: torch.Tensor,
+def dequant_int4_plain(packed: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
-    """W4A16 reference (``int4_matmul_xla``): unpack to bf16, scale per
-    group in bf16, one dense bf16 dot."""
+    """The W4A16 weight in plain torch, as ``int4_matmul_xla`` unpacks it:
+    the codes to bf16, times the group scale rounded to bf16, the product
+    rounded to bf16.  bf16 [in, out]."""
     n_groups, n_out = scale.shape
     n_in = 2 * packed.shape[0]
     w = unpack_int4(packed).to(torch.bfloat16).reshape(
         n_groups, n_in // n_groups, n_out) * scale[:, None, :].to(
             torch.bfloat16)
-    return x.to(torch.bfloat16) @ w.reshape(n_in, n_out)
+    return w.reshape(n_in, n_out)
+
+
+def dequant_int4(packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """packed uint8 [in//2, out], scale fp32 [in//group, out] -> the bf16
+    weight [in, out] (``dequant_int4_plain``'s bits).  Either may be a
+    view: the layer ``packed[li]`` of a stacked weight, a row slice of
+    ``scale`` (a tensor-parallel rank's groups).  Wrapper: one launch of
+    the kernel for CUDA tensors, the plain chain for CPU tensors."""
+    if packed.dim() != 2 or scale.dim() != 2 or \
+            scale.shape[1] != packed.shape[1] or not scale.shape[0] or \
+            (2 * packed.shape[0]) % scale.shape[0]:
+        raise ValueError(f"dequant_int4: packed {tuple(packed.shape)} scale "
+                         f"{tuple(scale.shape)}")
+    half, n_out = packed.shape
+    group = 2 * half // scale.shape[0]
+    if group % 2:
+        raise ValueError(f"dequant_int4: group {group} is odd (a packed "
+                         f"row's two weights must share a group)")
+    if packed.dtype != torch.uint8 or scale.dtype != torch.float32:
+        raise ValueError(f"dequant_int4: packed must be uint8, scale "
+                         f"float32; got {packed.dtype}, {scale.dtype}")
+    if scale.device != packed.device:
+        raise ValueError(f"dequant_int4: scale on {scale.device}, packed on "
+                         f"{packed.device}")
+    if not packed.is_cuda:
+        return dequant_int4_plain(packed, scale)
+    # the kernel loads 8 bytes of packed and 16 of scale at a time
+    for name, t, align in (("packed", packed, 8), ("scale", scale, 16)):
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"dequant_int4: {name} must be contiguous and "
+                             f"{align}-byte aligned")
+    if n_out % 8:
+        raise ValueError(f"dequant_int4: out {n_out} is not a multiple of 8")
+    w = torch.empty((2 * half, n_out), dtype=torch.bfloat16,
+                    device=packed.device)
+    launch(dequant_library(), "int4_dequant_bf16", packed.device,
+           packed.data_ptr(), scale.data_ptr(), w.data_ptr(), half,
+           n_out // 8, group, counts=("int4_dequant",))
+    return w
+
+
+def int4_matmul_unpack(x: torch.Tensor, packed: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """W4A16 reference (``int4_matmul_xla``): the weight unpacked to bf16
+    (``dequant_int4``), one dense bf16 dot."""
+    return x.to(torch.bfloat16) @ dequant_int4(packed, scale)
 
 
 # rows above which the reference's int4_matmul_auto takes its W4A16 branch

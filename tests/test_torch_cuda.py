@@ -267,22 +267,101 @@ def test_int4_two_launches_a_call(cuda_device, rows):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,branch", [(2048, "w4a8"), (2049, "w4a16"),
+                                         (2560, "w4a16"), (3072, "w4a16"),
                                          (4096, "w4a16")])
 def test_int4_auto_dispatch_on_card(cuda_device, rows, branch):
     """int4_matmul_auto on the card: K2 (W4A8) up to MAX_KERNEL_ROWS rows,
-    the W4A16 unpack-and-dot above, as the reference dispatches."""
+    the W4A16 dequant-and-dot above, as the reference dispatches.  A W4A16
+    call is one dequant launch and no K2 launch, and its output is the
+    plain chain's ``x @ dequant_int4_plain(...)`` bit for bit."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     w = torch.randn((512, 256), generator=g, device=cuda_device) * 0.02
     packed, scale = tquant.quantize_kernel_int4(w)
     x = torch.randn((rows, 512), generator=g,
                     device=cuda_device).to(torch.bfloat16)
-    n2 = launches["int4_w4a8"]
+    n2, nd = launches["int4_w4a8"], launches["int4_dequant"]
     out = tint4.int4_matmul_auto(x, packed, scale)
     torch.cuda.synchronize()
     assert tint4.int4_branch(rows) == branch
     assert launches["int4_w4a8"] - n2 == (branch == "w4a8")
+    assert launches["int4_dequant"] - nd == (branch == "w4a16")
     if branch == "w4a16":
-        assert torch.equal(out, tint4.int4_matmul_unpack(x, packed, scale))
+        assert torch.equal(out, x @ tint4.dequant_int4_plain(packed, scale))
+
+
+def _dequant_inputs(dev, n_in, n_out, group, lead=(), seed=0):
+    """Every byte value (code -8 too) and scales over six decades, most of
+    them no bf16 value: the kernel's decode and both roundings."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    packed = torch.randint(0, 256, (*lead, n_in // 2, n_out), generator=g,
+                           device=dev, dtype=torch.uint8)
+    scale = 10.0 ** (6 * torch.rand((*lead, n_in // group, n_out),
+                                    generator=g, device=dev) - 5)
+    return packed, scale
+
+
+DEQUANT_7B = [(4096, 4096), (4096, 11008), (11008, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,n_out,group", [
+    *[(i, o, 128) for i, o in DEQUANT_7B],
+    (5120, 13824, 128), (13824, 5120, 128),     # the 13B's
+    (384, 48, 96),        # 3 vectors a row (< 32: one narrow strip, 85
+                          # rows deep), so a thread's rows lie in two or
+                          # three groups of 48 packed rows
+    (200, 640, 200),      # group = in; 100 packed rows, a ragged last chunk;
+                          # 40 vectors, a ragged second strip
+    (256, 16, 32), (256, 16, 2),
+    (256, 24, 128)])      # 3 vectors a row: out a multiple of 8, not 16
+def test_int4_dequant_kernel_bit_equal(cuda_device, n_in, n_out, group):
+    """The dequant kernel against the plain chain on the card, bit for bit,
+    one launch a call."""
+    packed, scale = _dequant_inputs(cuda_device, n_in, n_out, group)
+    nd = launches["int4_dequant"]
+    w = tint4.dequant_int4(packed, scale)
+    torch.cuda.synchronize()
+    assert launches["int4_dequant"] - nd == 1
+    assert w.shape == (n_in, n_out) and w.dtype == torch.bfloat16
+    assert torch.equal(w, tint4.dequant_int4_plain(packed, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,n_out", DEQUANT_7B)
+@pytest.mark.parametrize("tensor", [1, 2])
+def test_int4_dequant_kernel_views(cuda_device, n_in, n_out, tensor):
+    """A layer ``packed[li]`` of stacked weights and, at tensor 2, each
+    rank's rows of it with its row slice of the scales (the row-parallel
+    shard of ``models/layers.py``): the whole layer's rows, bit for bit."""
+    packed, scale = _dequant_inputs(cuda_device, n_in, n_out, 128, (2,),
+                                    seed=7)
+    whole = tint4.dequant_int4_plain(packed[1].contiguous(),
+                                     scale[1].contiguous())
+    n = n_in // tensor
+    for rank in range(tensor):
+        p = packed[1][rank * n // 2:(rank + 1) * n // 2]
+        s = scale[1][rank * n // 128:(rank + 1) * n // 128]
+        w = tint4.dequant_int4(p, s)
+        torch.cuda.synchronize()
+        assert torch.equal(w, whole[rank * n:(rank + 1) * n])
+
+
+@pytest.mark.cuda
+def test_int4_dequant_kernel_refuses(cuda_device):
+    """On the card the wrapper raises where the kernel's layout does not
+    hold: columns off the 8-column vector, a view that is not contiguous,
+    a misaligned pointer.  Nothing is launched."""
+    packed, scale = _dequant_inputs(cuda_device, 256, 64, 128)
+    nd = launches["int4_dequant"]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tint4.dequant_int4(packed[:, :20].contiguous(),
+                           scale[:, :20].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        tint4.dequant_int4(packed[:, :32], scale[:, :32].contiguous())
+    flat = torch.zeros(128 * 64 + 1, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        tint4.dequant_int4(flat[1:].view(128, 64), scale)
+    assert launches["int4_dequant"] == nd
 
 
 def _quantize_rows(x):
