@@ -5,7 +5,7 @@ decoding and beam search, image out (the SDXL adapter: text to image,
 reconstruction, editing), SEED-X SFT through the ``train_sft`` entry
 point over the repo's YAMLs and files on disk, de-tokenizer (adapter)
 training at the SDXL width and a runtime loaded from release checkpoint
-files, and check its eight CUDA kernels.
+files, and check its CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
 
 1. environment: torch / CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
-2. build: the six kernel sources of ``seedx_tpu_torch/csrc`` (one nvcc
+2. build: the kernel sources of ``seedx_tpu_torch/csrc`` (one nvcc
    each, started together, sm_90a);
 3. kernels: each against its plain PyTorch version at the shapes of the
    turn, of batched decode, of the fused step's stair (K3's multi-query
@@ -22,7 +22,9 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    the UNet's and VAE's GroupNorm (+ SiLU) and LayerNorm at 1024^2, and
    K6 at DeepSeek-V2-Lite's expert widths (a 32-slot decode step's rows,
    a 2048- and a 4096-token prefill's; ``torch._grouped_mm`` as the
-   library yardstick) (max abs / rel error against a stated tolerance; median of 10 timed
+   library yardstick), its relu2 epilogue and K7 (the Mamba-2 state step)
+   at Nemotron-3-Nano's widths (max abs / rel error against a stated
+   tolerance; median of 10 timed
    runs after warm-up, CUDA events), beside its bound (the larger
    of bytes / 3.35 TB/s and operations / the tensor cores' peak for the
    input type) and, where one exists, the time of the PyTorch call
@@ -61,7 +63,13 @@ Phases (each prints its own lines; any failure ends the run non-zero):
    DeepSeek-V2-Lite as its LLM at its published sizes (bf16, a bf16
    latent KV cache; ``run_moe_serving``), captured and then eager: the
    token streams and hidden states bit-equal, and K6 launched twice a MoE
-   layer for every step run and every prefill group;
+   layer for every step run and every prefill group; then, that runtime
+   freed, 16 text requests likewise on an agent with Nemotron-3-Nano as
+   its LLM at its published sizes (bf16 weights and KV, the fp32 SSM
+   state; ``run_nemotron_serving``): K7 launched once a Mamba block of
+   every step run, K6 twice an expert block (its relu2 share once) of
+   every step run and every prefill group, K3 once an attention block of
+   every step run;
 6. chat: three turns (an image in the first) through a ``ChatSession``
    with the KV prefix cache and one without (the cache must be reused),
    a cached session forced along the uncached replies (its logits held to
@@ -183,8 +191,10 @@ and HTTP, the chat sessions, the warm captured scripted runs, the beams
 and the spec chat, the image-out runs, the split denoise on the one-rank
 mesh, the CLI's, the ``--parallel`` CLI's, the accumulation and the
 two-rank mesh train steps, the adapter steps, the loaded stack's turn, text to image,
-int8 ViT and int8 UNet step), with K3's by mode and K2's by row tile
-(``launches_by_tile``; its calls by row band are logged); the eager
+int8 ViT and int8 UNet step; phase 5's DeepSeek-V2-Lite and
+Nemotron-3-Nano engines captured), with K3's by mode, K2's by row tile
+(``launches_by_tile``; its calls by row band are logged) and K6's by
+epilogue (``launches_by_epilogue``); the eager
 twins of phases 5, 7, 8 and 10, the forced runs, phase 9, the gradient
 check and the profiled train and adapter steps, the UNet's
 K1-against-plain eval and the restored agent's comparison print theirs
@@ -212,7 +222,8 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, 700 W
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}    # dense tensor-core peaks
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12,    # dense tensor-core peaks
+            "fp32": 67e12}                      # fp32 outside them
 SPIN_CYCLES = 20_000_000      # ~10 ms at the H100's 1.98 GHz boost clock
 # the continuous engine of every serving run: 8 slots of 512 + 128
 ENGINE = dict(slots=8, max_new_tokens=128, chunk_steps=16,
@@ -251,6 +262,7 @@ KERNELS = (("flash_fwd", "seedx_tpu_torch/csrc/flash_fwd.cu",
            ("group_norm", "seedx_tpu_torch/csrc/norms.cu", "none"),
            ("layer_norm", "seedx_tpu_torch/csrc/norms.cu", "none"),
            ("moe_gemm", "seedx_tpu_torch/csrc/moe_gemm.cu", "none"),
+           ("ssm_step", "seedx_tpu_torch/csrc/ssm_step.cu", "none"),
            ("bias_residual", "seedx_tpu_torch/csrc/epilogue.cu", "none"),
            ("bias_geglu", "seedx_tpu_torch/csrc/epilogue.cu", "none"))
 
@@ -340,7 +352,7 @@ def counters():
     each kernel module imported so that every kernel's are registered."""
     from seedx_tpu_torch.ops import (decode_attention, epilogue,  # noqa: F401
                                      flash_attention, int4_matmul, moe,
-                                     norms)
+                                     norms, ssm)
     from seedx_tpu_torch.ops._build import launches
 
     return launches
@@ -1223,6 +1235,142 @@ def check_moe(dev, g, flush, shapes=MOE_SHAPES):
     return rows_out
 
 
+MOE_RELU2_SHAPES = (("decode_up_relu2", 384, True),
+                    ("decode_down", 384, False),
+                    ("prefill1024_up_relu2", 6144, True),
+                    ("prefill1024_down", 6144, False))
+
+
+def check_moe_relu2(dev, g, flush, shapes=MOE_RELU2_SHAPES):
+    """K6's relu2 epilogue at Nemotron-H's expert widths (E128, d2688,
+    f1856: the 64- and 128-row tiles end in a 64-column tile) against
+    moe_gemm_plain (TF32 off): within one bf16 ULP of the largest value
+    for the relu2 (bf16) output, 1e-5 of it for the fp32 down; a decode
+    step's rows (64 slots x top-6) and a 1024-token prefill's; timed with
+    the L2 flushed beside its bound, and in a stream over the 23 expert
+    blocks' weights (as a decode step runs them)."""
+    import torch
+
+    from seedx_tpu_torch.ops import moe
+
+    e, d, f, blocks = 128, 2688, 1856, 23
+    rows_out = []
+    for name, rows, up in shapes:
+        k_in, n_out = (d, f) if up else (f, d)
+        act = "relu2" if up else None
+        pick = torch.randint(0, e, (rows,), generator=g, device=dev)
+        counts = torch.bincount(pick, minlength=e)
+        offsets = torch.nn.functional.pad(torch.cumsum(counts, 0),
+                                          (1, 0)).to(torch.int32)
+        x = torch.randn((rows, k_in), generator=g, device=dev).to(
+            torch.bfloat16)
+        w = (torch.randn((e, k_in, n_out), generator=g, device=dev)
+             * 0.02).to(torch.bfloat16)
+
+        def kernel(w=w):
+            return moe.moe_gemm(x, w, offsets, None, None, act)
+
+        out = kernel()
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            ref = moe.moe_gemm_plain(x, w, offsets, None, None, act)
+            plain_ms = cuda_ms(lambda: moe.moe_gemm_plain(
+                x, w, offsets, None, None, act), flush, warmup=1, iters=3)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        mag = ref.float().abs().max().item()
+        ok = err <= (2.0 ** -7 if up else 1e-5) * mag
+        again = torch.equal(kernel(), out)
+        active = int((counts > 0).sum())
+        n_bytes = (active * k_in * n_out * 2
+                   + rows * (k_in * 2 + n_out * (2 if up else 4)))
+        bnd = bound(n_bytes, 2.0 * rows * k_in * n_out, "bf16")
+        ms = cuda_ms(kernel, flush)
+        stream = ""
+        if rows <= 384:
+            ws = [w] + [(torch.randn((e, k_in, n_out), generator=g,
+                                     device=dev) * 0.02).to(torch.bfloat16)
+                        for _ in range(blocks - 1)]
+            s_ms = stream_ms([lambda w=w_: kernel(w) for w_ in ws])
+            stream = (f"; in a stream of {blocks} {s_ms:.4f} ms "
+                      f"({bnd[0] / s_ms * 100:.1f}% of the bound)")
+            del ws
+        r = row("moe_gemm",
+                f"{name} R{rows} [{k_in}->{n_out}] E{e} active {active}",
+                ok and again, err, ms, plain_ms, bnd)
+        log(fmt_row(r, f" bit-equal rerun {again}; kernel / bound "
+                       f"{ms / bnd[0]:.2f}{stream}"))
+        rows_out.append(r)
+    return rows_out
+
+
+def check_ssm_step(dev, g, flush, slots=(1, 64)):
+    """K7 (the Mamba-2 state step) at Nemotron-H's widths (64 heads of
+    64, state 128, 8 groups) against ssm_step_plain: the state within
+    1e-5 of its largest value and y within 1e-5 of its own (fp32 sums in
+    another order, expf / log1pf against torch's), a rerun bit-equal;
+    timed with the L2 flushed beside its bound (the state read and
+    written once, xbc and dt in, y out), and at 64 slots in a stream of
+    23 launches over 23 states (a decode step's Mamba blocks)."""
+    import torch
+
+    from seedx_tpu_torch.ops import ssm
+
+    h, p, gr, n, blocks = 64, 64, 8, 128, 23
+    width = h * p + 2 * gr * n
+    rows_out = []
+    for b in slots:
+        def inputs():
+            state = torch.randn((b, h, p, n), generator=g, device=dev) * 0.5
+            proj = torch.randn((b, width + h), generator=g, device=dev).to(
+                torch.bfloat16)
+            return state, proj[:, :width].contiguous(), proj[:, width:]
+
+        state0, xbc, dt_raw = inputs()
+        dt_bias, a_log, d_skip = (
+            (torch.randn((h,), generator=g, device=dev) * 0.5).to(
+                torch.bfloat16) for _ in range(3))
+        args = (dt_bias, a_log, d_skip, h, p, gr)
+        st = [state0.clone() for _ in range(3)]
+        y = ssm.ssm_step(st[0], xbc, dt_raw, *args)
+        y2 = ssm.ssm_step(st[1], xbc, dt_raw, *args)
+        ref = ssm.ssm_step_plain(st[2], xbc, dt_raw, *args)
+        torch.cuda.synchronize()
+        again = torch.equal(y, y2) and torch.equal(st[0], st[1])
+        err_s = (st[0] - st[2]).abs().max().item()
+        err_y = (y - ref).abs().max().item()
+        ok = (err_s <= 1e-5 * st[2].abs().max().item()
+              and err_y <= 1e-5 * ref.abs().max().item())
+
+        def kernel(state=state0, xbc=xbc, dt_raw=dt_raw):
+            return ssm.ssm_step(state, xbc, dt_raw, *args)
+
+        def plain():
+            return ssm.ssm_step_plain(state0, xbc, dt_raw, *args)
+
+        n_bytes = b * (2 * h * p * n * 4 + width * 2 + h * 2 + h * p * 4)
+        bnd = bound(n_bytes, 5.0 * b * h * p * n, "fp32")
+        ms = cuda_ms(kernel, flush)
+        plain_ms = cuda_ms(plain, flush, warmup=1, iters=3)
+        stream = ""
+        if b == 64:
+            sets = [(state0, xbc, dt_raw)] + [inputs()
+                                              for _ in range(blocks - 1)]
+            s_ms = stream_ms([lambda a=a_: kernel(*a) for a_ in sets])
+            stream = (f"; in a stream of {blocks} {s_ms:.4f} ms "
+                      f"({bnd[0] / s_ms * 100:.1f}% of the bound)")
+            del sets
+        r = row("ssm_step", f"B{b} H{h} P{p} N{n} G{gr}", ok and again,
+                max(err_s, err_y), ms, plain_ms, bnd)
+        log(fmt_row(r, f" bit-equal rerun {again}; kernel / bound "
+                       f"{ms / bnd[0]:.2f}{stream}"))
+        rows_out.append(r)
+    return rows_out
+
+
 def check_kernels(dev):
     """Phase 3: each kernel against its plain version at the path shapes."""
     import torch
@@ -1238,6 +1386,8 @@ def check_kernels(dev):
     rows += check_norms(dev, g, flush)
     rows += check_epilogue(dev, g, flush)
     rows += check_moe(dev, g, flush)
+    rows += check_moe_relu2(dev, g, flush)
+    rows += check_ssm_step(dev, g, flush)
     del flush
     return rows
 
@@ -2034,40 +2184,26 @@ def dsv2_lite_llm():
         yarn_beta_slow=1, yarn_mscale=0.707, yarn_mscale_all_dim=0.707)
 
 
-def run_moe_serving(dev):
-    """Phase 5's 16 requests through ``ContinuousEngine`` on ViT-bigG and
-    an agent with DeepSeek-V2-Lite as its LLM (random weights from seed
-    0), captured (the main path) and then eager: token streams and hidden
-    states bit-equal, and K6 launched twice in each MoE layer of every
-    step run (replays and warm runs) and of every prefill group.  Returns
-    the captured run's launches."""
+def serve_captured_and_eager(rt, label, requests, budgets, want):
+    """``requests`` through ``ContinuousEngine`` (``ENGINE``) on ``rt``,
+    captured (the main path) and then eager: token streams and hidden
+    states bit-equal, and each kernel's launches as ``want(steps, groups)``
+    gives them ({counter: launches}) for the steps run (replays and warm
+    runs) and the prefill groups.  Returns the captured run's launches."""
     import torch
 
     from seedx_tpu_torch.inference import continuous
-    from seedx_tpu_torch.inference.runtime import SeedXRuntime
-    from seedx_tpu_torch.models.agent import AgentConfig
-    from seedx_tpu_torch.models.vit import qwen_vitg_448
 
-    t0 = time.perf_counter()
-    llm = dsv2_lite_llm()
-    rt = SeedXRuntime.random(
-        qwen_vitg_448(), AgentConfig(llm=llm, vit_dim=4096,
-                                     resampler_heads=32, num_img_in_tokens=64,
-                                     num_img_out_tokens=64),
-        seed=0, device=dev)
-    torch.cuda.synchronize()
-    log(f"built ViT-bigG/14-448 + DeepSeek-V2-Lite agent (bf16) on the "
-        f"card in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    llm = rt.agent_cfg.llm
     # the tokenizer has no entry for the LLM's rows past its multimodal
     # vocabulary: a result's text leaves those ids out
     tok = rt.tokenizer
     decode, limit = tok.decode, tok.vocab.vocab_size
     tok.decode = lambda ids, skip_special_tokens=False: decode(
         [int(t) for t in ids if int(t) < limit], skip_special_tokens)
-    requests, budgets = serving_inputs(rt)[3:]
-    per_pass = 2 * (llm.num_layers - llm.dense_layers)
     active = rt.agent.llm.layers.experts_active
+    blocks = llm.num_layers - llm.dense_layers - llm.block_pattern.count(
+        "M") - llm.block_pattern.count("*")
     steps = [0]
     base_chunk = continuous.run_chunk
 
@@ -2079,7 +2215,7 @@ def run_moe_serving(dev):
     continuous.run_chunk = counted_chunk
     try:
         for mode in ("graphs", "eager"):
-            name = f"serving continuous DeepSeek-V2-Lite ({mode})"
+            name = f"serving continuous {label} ({mode})"
             rt.graphs.enabled = mode == "graphs"
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2102,14 +2238,15 @@ def run_moe_serving(dev):
             res = eng.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
-            counts = path_counts(name, ("moe_gemm",))
+            expected = want(steps[0], groups[0])
+            counts = path_counts(name, tuple(expected))
             add_counts(totals if mode == "graphs" else CHECKS, counts)
-            want = per_pass * (steps[0] + groups[0])
-            if counts["moe_gemm"] != want:
-                raise AssertionError(
-                    f"{name}: K6 launched {counts['moe_gemm']} times, want "
-                    f"{per_pass} x ({steps[0]} steps + {groups[0]} prefill "
-                    f"groups) = {want}")
+            for k, n in expected.items():
+                if counts[k] != n:
+                    raise AssertionError(
+                        f"{name}: {k} launched {counts[k]} times, want {n} "
+                        f"for {steps[0]} steps and {groups[0]} prefill "
+                        f"groups")
             got = [list(res[i]["tokens"]) for i in ids]
             for s_, b in zip(got, budgets):
                 check_tokens(s_, llm.vocab_size, b)
@@ -2119,10 +2256,10 @@ def run_moe_serving(dev):
             log(f"{name}: {len(ids)} requests, {sum(map(len, got))} tokens "
                 f"in {wall:.2f} s, {steps[0]} steps run in "
                 f"{eng.stats()['chunks']} chunks, {groups[0]} prefill "
-                f"groups; K6 {counts['moe_gemm']} launches ({per_pass} a "
-                f"pass); {n_act} (layer, pass) expert activations, "
-                f"{n_act / (per_pass // 2 * (steps[0] + groups[0])):.1f} "
-                f"experts a MoE layer a pass; peak memory "
+                f"groups; launches as expected: {json.dumps(expected)}; "
+                f"{n_act} (block, pass) expert activations, "
+                f"{n_act / (blocks * (steps[0] + groups[0])):.1f} experts "
+                f"an expert block a pass; peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
             if mode == "graphs":
                 log_programs(name, eng._programs.values())
@@ -2134,12 +2271,112 @@ def run_moe_serving(dev):
             all(torch.equal(a, b) for a, b in zip(hidden["graphs"],
                                                    hidden["eager"])))
     if not all(same):
-        raise AssertionError(f"serving continuous DeepSeek-V2-Lite: the "
-                             f"captured run differs from the eager one "
-                             f"(streams, hidden equal: {same})")
-    log(f"serving continuous DeepSeek-V2-Lite: captured and eager token "
-        f"streams and hidden states bit-equal for all {len(requests)} "
-        f"requests")
+        raise AssertionError(f"serving continuous {label}: the captured run "
+                             f"differs from the eager one (streams, hidden "
+                             f"equal: {same})")
+    log(f"serving continuous {label}: captured and eager token streams and "
+        f"hidden states bit-equal for all {len(requests)} requests")
+    return totals
+
+
+def run_moe_serving(dev):
+    """Phase 5's 16 requests through ``ContinuousEngine`` on ViT-bigG and
+    an agent with DeepSeek-V2-Lite as its LLM (random weights from seed
+    0), captured (the main path) and then eager: token streams and hidden
+    states bit-equal, and K6 launched twice in each MoE layer of every
+    step run (replays and warm runs) and of every prefill group.  Returns
+    the captured run's launches."""
+    import torch
+
+    from seedx_tpu_torch.inference.runtime import SeedXRuntime
+    from seedx_tpu_torch.models.agent import AgentConfig
+    from seedx_tpu_torch.models.vit import qwen_vitg_448
+
+    t0 = time.perf_counter()
+    llm = dsv2_lite_llm()
+    rt = SeedXRuntime.random(
+        qwen_vitg_448(), AgentConfig(llm=llm, vit_dim=4096,
+                                     resampler_heads=32, num_img_in_tokens=64,
+                                     num_img_out_tokens=64),
+        seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"built ViT-bigG/14-448 + DeepSeek-V2-Lite agent (bf16) on the "
+        f"card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    requests, budgets = serving_inputs(rt)[3:]
+    per_pass = 2 * (llm.num_layers - llm.dense_layers)
+    totals = serve_captured_and_eager(
+        rt, "DeepSeek-V2-Lite", requests, budgets,
+        lambda steps, groups: {"moe_gemm": per_pass * (steps + groups)})
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def nemotron_nano_llm():
+    """NVIDIA Nemotron-3-Nano-30B-A3B's LLM at its published sizes
+    (nvidia/NVIDIA-Nemotron-3-Nano-30B-A3B-BF16 config.json), bf16: 23
+    Mamba-2 mixers, 23 relu2 expert blocks (128 experts top-6, sigmoid
+    router) and 6 NoPE GQA blocks."""
+    from seedx_tpu_torch.models.llama import LlamaConfig
+
+    pattern = "MEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEMEM*EMEMEMEME"
+    return LlamaConfig(
+        vocab_size=131072, hidden_size=2688, intermediate_size=1856,
+        num_layers=len(pattern), num_heads=32, num_kv_heads=2,
+        attn_head_dim=128, rope=False, rms_eps=1e-5,
+        max_position_embeddings=262144, block_pattern=pattern,
+        mamba_heads=64, mamba_head_dim=64, ssm_state_size=128,
+        mamba_groups=8, conv_kernel=4, ssm_chunk=128, n_routed_experts=128,
+        num_experts_per_tok=6, moe_intermediate_size=1856,
+        n_shared_experts=1, shared_intermediate_size=3712,
+        routed_scaling_factor=2.5, expert_act="relu2",
+        router_scoring="sigmoid")
+
+
+def run_nemotron_serving(dev):
+    """Text requests through ``ContinuousEngine`` on ViT-bigG and an agent
+    with Nemotron-3-Nano as its LLM (random weights from seed 0, ~67 GB),
+    captured (the main path) and then eager: token streams and hidden
+    states bit-equal; K7 launched once a Mamba block of every step run,
+    K6 twice an expert block (both relu2's up and the down) of every step
+    run and every prefill group.  16 requests over 8 slots (slots
+    reused), prompts in the 128 and 512 buckets.  Returns the captured
+    run's launches."""
+    import torch
+
+    from seedx_tpu_torch.inference.runtime import SeedXRuntime
+    from seedx_tpu_torch.models.agent import AgentConfig
+    from seedx_tpu_torch.models.vit import qwen_vitg_448
+
+    t0 = time.perf_counter()
+    llm = nemotron_nano_llm()
+    rt = SeedXRuntime.random(
+        qwen_vitg_448(), AgentConfig(llm=llm, vit_dim=4096,
+                                     resampler_heads=32, num_img_in_tokens=64,
+                                     num_img_out_tokens=64),
+        seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"built ViT-bigG/14-448 + Nemotron-3-Nano agent (bf16) on the card "
+        f"in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    tok = rt.tokenizer
+    texts = ["Write a short poem about the sea.",
+             "What is the capital of France?", "List three colors.",
+             "Summarize: " + " ".join(["the tide rises and falls"] * 12)]
+    requests = [{"input_ids": [tok.bos_token_id]
+                 + tok.encode(f"[INST] {t} [/INST]\n")} for t in texts] * 4
+    budgets = [8 + (56 * i) // 15 for i in range(16)]
+    mamba = llm.block_pattern.count("M")
+    experts = llm.block_pattern.count("E")
+    totals = serve_captured_and_eager(
+        rt, "Nemotron-3-Nano", requests, budgets,
+        lambda steps, groups: {
+            "ssm_step": mamba * steps,
+            "moe_gemm": 2 * experts * (steps + groups),
+            "moe_gemm relu2": experts * (steps + groups),
+            "decode_attn": llm.block_pattern.count("*") * steps})
     del rt
     gc.collect()
     torch.cuda.empty_cache()
@@ -6096,13 +6333,13 @@ def build_kernels():
     from seedx_tpu_torch.ops import decode_attention as da
     from seedx_tpu_torch.ops import flash_attention as fa
     from seedx_tpu_torch.ops import int4_matmul as i4
-    from seedx_tpu_torch.ops import epilogue, moe, norms
+    from seedx_tpu_torch.ops import epilogue, moe, norms, ssm
 
     libs = {"flash_fwd": fa.library, "flash_bwd": fa.bwd_library,
             "int4_w4a8": i4.library, "int4_dequant": i4.dequant_library,
             "decode_attn": da.library,
             "norms": norms.library, "moe_gemm": moe.library,
-            "epilogue": epilogue.library}
+            "epilogue": epilogue.library, "ssm_step": ssm.library}
     errors = {}
 
     def build(name):
@@ -6182,7 +6419,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     add_counts(launches, run_moe_serving(dev))
-    # its runtime (~34 GiB) likewise, before the 13B train model's
+    # its runtime (~34 GiB) likewise, before the next
+    gc.collect()
+    torch.cuda.empty_cache()
+    add_counts(launches, run_nemotron_serving(dev))
     gc.collect()
     torch.cuda.empty_cache()
     add_counts(launches, run_train(dev))
@@ -6220,6 +6460,10 @@ def main() -> int:
             **({"launches_by_tile": {
                 f"m{t}": launches[f"{name} m{t}"] for t in i4.ROW_TILES}}
                if name == "int4_w4a8" else {}),
+            **({"launches_by_epilogue": {
+                "relu2": launches[f"{name} relu2"],
+                "swiglu or plain": launches[name] - launches[f"{name} relu2"]}}
+               if name == "moe_gemm" else {}),
             "max_abs_err": max(r["err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),

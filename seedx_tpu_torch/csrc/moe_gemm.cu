@@ -9,9 +9,12 @@
 // computes, for every row r of expert e,
 //   plain:  y[r, :] = x[r, :] @ W[e]                    (fp32 out, [R, N])
 //   gated:  y[r, :] = silu(x[r, :] @ G[e]) * (x[r, :] @ U[e])   (bf16 out)
+//   relu2:  y[r, :] = relu(x[r, :] @ W[e])^2                    (bf16 out)
 // with W, G, U [E, K, N] in the repo's [in, out] layout (N contiguous).
 // The gated form is the experts' gate and up projections with the SwiGLU
-// product as the epilogue, so the [R, 2N] pair never reaches memory.
+// product as the epilogue, so the [R, 2N] pair never reaches memory; the
+// relu2 form is the ungated up projection of Nemotron-H's experts with the
+// squared ReLU as the epilogue.
 //
 // What bounds it: in decode, bytes.  At 32 slots a step routes 192 rows
 // over ~61 of 64 experts, 1-8 rows each, so every active expert's weights
@@ -22,8 +25,10 @@
 //     streams one expert's [K, 64] weight slice once for up to 16 rows;
 //   * medium / large (prefill): 64 or 128 rows x 128 columns, 8 warps
 //     (2 x 4), 3 stages.
-// Grid: (N / BN column tiles, E experts, Z row-tile groups); block (n, e, z)
-// takes its expert's row tiles z, z + Z, ...  A block whose expert has no
+// Grid: (ceil(N / BN) column tiles, E experts, Z row-tile groups); block
+// (n, e, z) takes its expert's row tiles z, z + Z, ...  N is a multiple of
+// 64, not always of BN (Nemotron-H's 1856 = 14.5 x 128): the last column
+// tile's missing columns are zero-filled and never stored.  A block whose expert has no
 // rows returns before it reads any weight: an expert that no token chose
 // costs one read of two offsets a block.  Rows past offsets[E] (a padded
 // batch's pad tokens, which the caller routes to no expert) are neither
@@ -49,11 +54,14 @@ namespace {
 
 constexpr int kBK = 64;   // K a pipeline stage
 
-template <int BM_, int BN_, int WM_, int WN_, int STAGES_, bool GATED_>
+enum Epilogue { kPlain = 0, kGated = 1, kRelu2 = 2 };
+
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_, int EPI_>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
   static constexpr int STAGES = STAGES_;
-  static constexpr bool GATED = GATED_;
+  static constexpr int EPI = EPI_;
+  static constexpr bool GATED = EPI == kGated;
   static constexpr int THREADS = WM * WN * 32;
   static constexpr int TM = BM / WM, TN = BN / WN;   // a warp's rows, cols
   static constexpr int MI = TM / 16, NI = TN / 8;    // its mma tiles
@@ -141,10 +149,12 @@ __device__ __forceinline__ void load_stage(
   for (int i = 0; i < kBK * CPR / T::THREADS; ++i) {
     const int ch = tid + i * T::THREADS;
     const int k = ch / CPR, c = ch % CPR;
-    const size_t g = (size_t)(k0 + k) * N + n0 + c * 8;
-    cp16(stage + T::A_BYTES + b_off<T::BN>(k, c), w + g, 16);
+    const bool in = n0 + c * 8 < N;    // the ragged last column tile
+    const size_t g = (size_t)(k0 + k) * N + (in ? n0 + c * 8 : 0);
+    cp16(stage + T::A_BYTES + b_off<T::BN>(k, c), w + g, in ? 16 : 0);
     if (T::GATED)
-      cp16(stage + T::A_BYTES + T::B_BYTES + b_off<T::BN>(k, c), w2 + g, 16);
+      cp16(stage + T::A_BYTES + T::B_BYTES + b_off<T::BN>(k, c), w2 + g,
+           in ? 16 : 0);
   }
 }
 
@@ -243,8 +253,14 @@ __global__ void __launch_bounds__(T::THREADS)
 #pragma unroll
         for (int j = 0; j < T::NI; ++j) {
           const int col = n0 + wn * T::TN + j * 8 + (lane & 3) * 2;
+          if (col >= N) continue;
           const float v0 = acc[0][i][j][h * 2], v1 = acc[0][i][j][h * 2 + 1];
-          if (T::GATED) {
+          if (T::EPI == kRelu2) {
+            const float r0 = fmaxf(v0, 0.f), r1 = fmaxf(v1, 0.f);
+            *reinterpret_cast<__nv_bfloat162*>(
+                static_cast<__nv_bfloat16*>(out) + orow + col) =
+                __floats2bfloat162_rn(r0 * r0, r1 * r1);
+          } else if (T::GATED) {
             const float u0 = acc[T::NB - 1][i][j][h * 2];
             const float u1 = acc[T::NB - 1][i][j][h * 2 + 1];
             const float s0 = v0 / (1.f + __expf(-v0));
@@ -266,7 +282,7 @@ template <class T>
 int launch(const void* x, const void* w, const void* w2, const void* offsets,
            void* out, void* active, int K, int N, int E, int zsplit,
            cudaStream_t st) {
-  if (N % T::BN || K % kBK) return static_cast<int>(cudaErrorInvalidValue);
+  if (N % 64 || K % kBK) return static_cast<int>(cudaErrorInvalidValue);
   static bool attr = false;
   if (!attr) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -275,7 +291,7 @@ int launch(const void* x, const void* w, const void* w2, const void* offsets,
     if (err != cudaSuccess) return static_cast<int>(err);
     attr = true;
   }
-  dim3 grid(N / T::BN, E, zsplit);
+  dim3 grid((N + T::BN - 1) / T::BN, E, zsplit);
   moe_gemm_kernel<T><<<grid, T::THREADS, T::SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w),
@@ -285,7 +301,7 @@ int launch(const void* x, const void* w, const void* w2, const void* offsets,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool G>
+template <int G>
 int dispatch(int tile, const void* x, const void* w, const void* w2,
              const void* offsets, void* out, void* active, int K, int N,
              int E, int zsplit, cudaStream_t st) {
@@ -306,20 +322,28 @@ int dispatch(int tile, const void* x, const void* w, const void* w2,
 }  // namespace
 
 // x bf16 [R][K] (rows sorted by expert), w (and, gated, w2) bf16 [E][K][N],
-// offsets int32 [E + 1]; out bf16 [R][N] (gated: silu(x w) * (x w2)) or
-// fp32 [R][N] (plain); active: an int64 count or null.  tile: the row tile
-// (16, 64 or 128); zsplit: row-tile groups an expert.  Every pointer
-// 16-byte aligned.
+// offsets int32 [E + 1]; epi: the epilogue (0 plain: fp32 out [R][N]; 1
+// gated: bf16 silu(x w) * (x w2), w2 given; 2 relu2: bf16 relu(x w)^2);
+// active: an int64 count or null.  tile: the row tile (16, 64 or 128);
+// zsplit: row-tile groups an expert.  Every pointer 16-byte aligned.
 extern "C" int moe_gemm_bf16(const void* x, const void* w, const void* w2,
                              const void* offsets, void* out, void* active,
-                             int R, int K, int N, int E, int tile, int zsplit,
-                             void* stream) {
+                             int R, int K, int N, int E, int epi, int tile,
+                             int zsplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R <= 0 || E <= 0 || zsplit <= 0 || zsplit > 65535)
+  if (R <= 0 || E <= 0 || zsplit <= 0 || zsplit > 65535 ||
+      (epi == kGated) != (w2 != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return w2 != nullptr
-             ? dispatch<true>(tile, x, w, w2, offsets, out, active, K, N, E,
-                              zsplit, st)
-             : dispatch<false>(tile, x, w, w2, offsets, out, active, K, N, E,
-                               zsplit, st);
+  switch (epi) {
+    case kPlain:
+      return dispatch<kPlain>(tile, x, w, w2, offsets, out, active, K, N, E,
+                              zsplit, st);
+    case kGated:
+      return dispatch<kGated>(tile, x, w, w2, offsets, out, active, K, N, E,
+                              zsplit, st);
+    case kRelu2:
+      return dispatch<kRelu2>(tile, x, w, w2, offsets, out, active, K, N, E,
+                              zsplit, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -96,10 +96,10 @@ def _arm(state, row: int, p_len: int, last_logits, last_hidden,
 def _admit(state, row, mini_cache, src_row, p_len, last_logits, last_hidden,
            last_token, budget) -> None:
     """Copy row ``src_row`` of a prefill mini-cache into slot ``row``
-    (positions [0, bucket)) and arm the slot."""
-    bucket = mini_cache[0].shape[2]
+    (positions [0, bucket); a recurrent state whole, overwriting the slot's
+    last request's) and arm the slot."""
     for big, mini in zip(state["cache"], mini_cache):
-        big[:, row, :bucket] = mini[:, src_row]
+        big[:, row, :mini.shape[2]] = mini[:, src_row]
     _arm(state, row, p_len, last_logits[src_row], last_hidden[src_row],
          last_token, budget)
 
@@ -369,9 +369,10 @@ class ContinuousEngine:
         instead of a bucket prefill on admission; off by default, as in the
         JAX package.  It composes with ``paged``."""
         llm = rt.agent.cfg.llm
-        if (llm.mla or llm.moe) and (paged or fused_prefill):
-            raise ValueError("latent attention / sparse experts: no paged "
-                             "KV and no fused prefill")
+        if paged:
+            llm.refuse("paged KV")
+        if fused_prefill:
+            llm.refuse("fused prefill")
         self.rt = rt
         self.model = rt.agent
         self.vocab = rt.tokenizer.vocab
@@ -587,12 +588,17 @@ class ContinuousEngine:
     def _prefill_group(self, requests, bucket):
         """One prefill for every request of a prompt bucket; prompts are
         right-padded (every slot row starts its cache at 0).  An
-        ``engine.prefill_group`` span: ``b``, ``bucket``, ``p_lens`` and
-        ``images`` (image embeddings spliced)."""
+        ``engine.prefill_group`` span: ``b``, ``bucket``, ``p_lens``,
+        ``images`` (image embeddings spliced) and, for a hybrid stack,
+        ``ssm_tokens`` (the real prompt tokens, each through every Mamba
+        block: its ``llm.ssm_scan`` children)."""
         with profiling.annotate("engine.prefill_group") as span:
             if span:
                 span["b"], span["bucket"] = len(requests), bucket
-                span["p_lens"] = [len(r["input_ids"]) for r in requests]
+                p_lens = [len(r["input_ids"]) for r in requests]
+                span["p_lens"] = p_lens
+                if self.model.cfg.llm.hybrid:
+                    span["ssm_tokens"] = sum(p_lens)
                 span["images"] = sum(int(r["image_embeds"].shape[0])
                                      for r in requests
                                      if r.get("image_embeds") is not None)

@@ -395,9 +395,8 @@ class DecodeState:
         if (spec_k or scripted) and b != 1:
             raise ValueError("speculation and script forcing are B=1 "
                              "features")
-        if spec_k and (cfg.mla or cfg.moe):
-            raise ValueError("latent attention / sparse experts: no "
-                             "speculative decoding")
+        if spec_k:
+            cfg.refuse("speculative decoding")
         self.cache, self.gen_cfg, self.spec_k = cache, gen_cfg, spec_k
         self.n = torch.zeros((), **i64)
         self.forwards = torch.zeros((), **i64)
@@ -904,9 +903,7 @@ class BeamState:
                  gen_cfg: GenerationConfig, vocab: MultimodalVocab,
                  graphs: Optional[Graphs]):
         cfg = model.cfg.llm
-        if cfg.mla or cfg.moe:
-            raise ValueError("latent attention / sparse experts: no beam "
-                             "search")
+        cfg.refuse("beam search")
         dev = cache[0].device
         k, t = gen_cfg.num_beams, gen_cfg.max_new_tokens
         bk = b * k

@@ -55,8 +55,26 @@ token to ``num_experts_per_tok`` of ``n_routed_experts`` experts
 (``ops/moe.py``, K6) and add the shared experts' SwiGLU (stack
 ``shared_*``); in a step that is not per-row, the tokens whose own cells
 ``kv_valid`` leaves out (a right-padded prefill's pads) route to no
-expert.  Refused for either: quantized weights or KV, LoRA / IA3,
-paged KV, the fused step, training and a mesh (each with a ValueError).
+expert.
+
+Nemotron-H (``LlamaConfig.block_pattern``; reference: NVIDIA's
+``modeling_nemotron_h.py``) is the same loop over a hybrid stack: block i
+is ``x + mixer_i(RMSNorm_i(x))`` with one mixer of the kind the pattern
+names, "M" a Mamba-2 mixer (``models/mamba.py``: its conv and SSM state
+live in the cache beside the attention blocks' KV), "E" sparse experts
+(relu2 experts, a sigmoid router with a score-correction bias:
+``expert_act`` / ``router_scoring``) and "*" GQA attention without
+rotary embedding (``rope=False``).  Each kind's weights are stacked over
+its own blocks and indexed by the block's ordinal within its kind
+(``LlamaConfig.kind_index``); the routed experts are one leaf a block
+(``experts.<m>.up_proj``), so no leaf outgrows a card's spare memory
+when it is drawn.  A multi-row step of more than ``HYBRID_ROWS_TOKENS``
+tokens runs its rows in groups (``LlamaForCausalLM.forward``).
+
+What latent attention, sparse experts and the hybrid stack refuse (each
+with a ValueError) is named in one place, ``LlamaConfig.refuse``:
+quantized weights or KV, LoRA / IA3, paged KV, the fused step and fused
+prefill, speculative decoding, beam search, a mesh and training.
 
 Training (``LlamaForCausalLM.forward_train``, ``causal_lm_loss``) runs the
 cache-less forward with per-layer recomputation (``remat``, the JAX
@@ -93,6 +111,7 @@ from torch.utils.checkpoint import checkpoint
 
 from seedx_tpu_torch.models.layers import (LoRADense, PDense, RMSNorm, leaf,
                                            tensor_size)
+from seedx_tpu_torch.models.mamba import Mamba2Mixers
 from seedx_tpu_torch.ops.attention import dot_product_attention
 from seedx_tpu_torch.ops.attention import NEG_INF
 from seedx_tpu_torch.ops.decode_attention import ragged_decode_attention
@@ -102,6 +121,15 @@ from seedx_tpu_torch.ops.rope import (apply_rope, deinterleave, rope_cos_sin,
 
 KVCache = Tuple[torch.Tensor, ...]
 IGNORE_INDEX = -100   # label value excluded from the LM loss (HF convention)
+# a hybrid stack's multi-row step runs its rows in groups of about this
+# many tokens (the experts' sorted rows and fp32 sums, the scan's chunk
+# matrices: ~4 GB at full width)
+HYBRID_ROWS_TOKENS = 16384
+# what the special kinds (latent attention, sparse experts, the hybrid
+# stack) do not support: LlamaConfig.refuse
+UNSUPPORTED = ("quantized weights or KV", "LoRA or IA3 adapters",
+               "paged KV", "fused step", "fused prefill",
+               "speculative decoding", "beam search", "mesh", "training")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,19 +189,34 @@ class LlamaConfig:
     yarn_beta_slow: float = 1.0
     yarn_mscale: float = 1.0
     yarn_mscale_all_dim: float = 0.0
+    # Nemotron-H's hybrid stack ("": every layer attention + MLP): one
+    # character a block, "M" Mamba-2, "E" sparse experts, "*" attention
+    block_pattern: str = ""
+    attn_head_dim: int = 0          # 0: hidden_size // num_heads
+    rope: bool = True               # False: attention without RoPE
+    # Mamba-2 (mamba_heads 0: none): H heads of P, state N, G groups of B
+    # and C, a causal conv of conv_kernel taps, the prefill scan's chunk
+    mamba_heads: int = 0
+    mamba_head_dim: int = 64
+    ssm_state_size: int = 128
+    mamba_groups: int = 8
+    conv_kernel: int = 4
+    ssm_chunk: int = 128
+    # sparse experts: "swiglu" (gate, up, down) or "relu2" (up, down);
+    # "softmax" routing (DeepSeek-V2) or "sigmoid" (a score-correction
+    # bias picks, the chosen scores renormalised); the shared experts'
+    # width (0: moe_intermediate_size * n_shared_experts)
+    expert_act: str = "swiglu"
+    router_scoring: str = "softmax"
+    shared_intermediate_size: int = 0
 
     def __post_init__(self):
-        if not (self.mla or self.moe):
+        if not self.kinds():
             return
-        kinds = " / ".join(k for k, on in (("latent attention", self.mla),
-                                           ("sparse experts", self.moe))
-                           if on)
         if self.quantization != "none" or self.kv_quantization != "none":
-            raise ValueError(f"{kinds}: bf16 / fp32 weights and KV only "
-                             f"(quantization={self.quantization!r}, "
-                             f"kv_quantization={self.kv_quantization!r})")
+            self.refuse("quantized weights or KV")
         if self.lora_rank or self.ia3:
-            raise ValueError(f"{kinds}: no LoRA or IA3 adapters")
+            self.refuse("LoRA or IA3 adapters")
         if self.moe and not (0 < self.num_experts_per_tok
                              <= self.n_routed_experts
                              and self.moe_intermediate_size > 0
@@ -182,10 +225,66 @@ class LlamaConfig:
             raise ValueError("sparse experts: need 0 < num_experts_per_tok "
                              "<= n_routed_experts, moe_intermediate_size and "
                              "first_k_dense_replace <= num_layers")
+        if self.expert_act not in ("swiglu", "relu2") or \
+                self.router_scoring not in ("softmax", "sigmoid"):
+            raise ValueError(f"sparse experts: expert_act swiglu | relu2, "
+                             f"router_scoring softmax | sigmoid, got "
+                             f"{self.expert_act!r}, {self.router_scoring!r}")
+        if self.hybrid:
+            counts = {k: self.block_pattern.count(k) for k in "ME*"}
+            if (len(self.block_pattern) != self.num_layers
+                    or sum(counts.values()) != self.num_layers
+                    or (counts["M"] and not self.mamba_heads)
+                    or (counts["E"] and not self.moe) or self.mla
+                    or self.mamba_heads % max(self.mamba_groups, 1)):
+                raise ValueError(
+                    f"block_pattern {self.block_pattern!r}: one of M / E / "
+                    f"* a layer ({self.num_layers}), mamba_heads for M "
+                    f"(a multiple of mamba_groups), sparse experts for E, "
+                    f"no latent attention")
+
+    def kinds(self) -> list:
+        """The special kinds this configuration holds."""
+        return [k for k, on in (("latent attention", self.mla),
+                                ("sparse experts", self.moe),
+                                ("state-space mixers", self.hybrid)) if on]
+
+    def refuse(self, feature: str) -> None:
+        """The one place that names what latent attention, sparse experts
+        and the hybrid stack do not support (``UNSUPPORTED``): a
+        ValueError naming ``feature`` if this configuration holds any of
+        them, else nothing."""
+        if feature not in UNSUPPORTED:
+            raise KeyError(f"not a refusable feature: {feature!r}")
+        kinds = self.kinds()
+        if kinds:
+            raise ValueError(f"{' / '.join(kinds)}: no {feature}")
+
+    @property
+    def hybrid(self) -> bool:
+        return bool(self.block_pattern)
+
+    def kind_index(self, li: int) -> int:
+        """Block ``li``'s ordinal among the blocks of its kind."""
+        return self.block_pattern[:li].count(self.block_pattern[li])
+
+    @property
+    def mamba_inner(self) -> int:
+        return self.mamba_heads * self.mamba_head_dim
+
+    @property
+    def conv_dim(self) -> int:
+        """Width of the Mamba conv: x, B and C."""
+        return self.mamba_inner + 2 * self.mamba_groups * self.ssm_state_size
+
+    @property
+    def shared_width(self) -> int:
+        return (self.shared_intermediate_size
+                or self.moe_intermediate_size * self.n_shared_experts)
 
     @property
     def head_dim(self) -> int:
-        return self.hidden_size // self.num_heads
+        return self.attn_head_dim or self.hidden_size // self.num_heads
 
     @property
     def mla(self) -> bool:
@@ -198,7 +297,9 @@ class LlamaConfig:
     @property
     def dense_layers(self) -> int:
         """Layers with the dense MLP (the first; every layer without
-        experts)."""
+        experts; none in a hybrid stack)."""
+        if self.hybrid:
+            return 0
         return self.first_k_dense_replace if self.moe else self.num_layers
 
     @property
@@ -258,8 +359,22 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
     attention one tensor, the latent [L, B, S, kv_lora_rank + rope].  The JAX
     package pads the scale lanes to 128 for TPU DMA; here they stay
     compact.  ``kv_heads``: the heads a rank holds (``LlamaForCausalLM.
-    kv_heads``; default all)."""
+    kv_heads``; default all).  A hybrid stack: (k, v) [A, B, S, Hkv*D] of
+    its A attention blocks, the conv state [M, B, K - 1, conv_dim] in
+    ``dtype`` and the SSM state [M, B, H, P, N] in fp32 of its M Mamba
+    blocks, each block at its ordinal within its kind."""
     dtype = dtype or cfg.dtype
+    if cfg.hybrid:
+        na, nm = (cfg.block_pattern.count(k) for k in "*M")
+        flat = (na, batch, max_len, (kv_heads or cfg.num_kv_heads)
+                * cfg.head_dim)
+        return (torch.zeros(flat, dtype=dtype, device=device),
+                torch.zeros(flat, dtype=dtype, device=device),
+                torch.zeros((nm, batch, cfg.conv_kernel - 1, cfg.conv_dim),
+                            dtype=dtype, device=device),
+                torch.zeros((nm, batch, cfg.mamba_heads, cfg.mamba_head_dim,
+                             cfg.ssm_state_size), dtype=torch.float32,
+                            device=device))
     if cfg.mla:
         # the latent [c | k_pe] of every position, one tensor
         return (torch.zeros((cfg.num_layers, batch, max_len, cfg.latent_dim),
@@ -282,8 +397,7 @@ def init_paged_kv_pool(cfg: LlamaConfig, pool_tokens: int, dtype=None,
     per-slot batch axis, [L, pool_tokens, Hkv*D] (+ scales [L, pool_tokens,
     Hkv]).  Rows are handed out in fixed-size pages through block tables
     (inference/continuous.py paged mode)."""
-    if cfg.mla:
-        raise ValueError("latent attention has no paged KV pool")
+    cfg.refuse("paged KV")
     dtype = dtype or cfg.dtype
     hkv = kv_heads or cfg.num_kv_heads
     flat = (cfg.num_layers, pool_tokens, hkv * cfg.head_dim)
@@ -335,6 +449,9 @@ class LlamaLayers(nn.Module):
                              dtype=dt, layers=layers, device=device)
 
         self.input_layernorm = RMSNorm(d, cfg.rms_eps, dt, L, device)
+        if cfg.hybrid:
+            self._init_hybrid(dense, device)
+            return
         if cfg.mla:
             h, r = cfg.num_heads, cfg.kv_lora_rank
             self.q_proj = dense("q_proj", d, h * (cfg.qk_nope_head_dim
@@ -357,24 +474,57 @@ class LlamaLayers(nn.Module):
             self.up_proj = dense("up_proj", d, f, nd)
             self.down_proj = dense("down_proj", f, d, nd)
         if cfg.moe:
-            nm, e, f = (L - nd, cfg.n_routed_experts,
-                        cfg.moe_intermediate_size)
-            self.router = PDense(d, e, use_bias=False, dtype=dt, layers=nm,
-                                 device=device)
-            self.experts = Experts(nm, e, d, f, dt, device)
-            fs = f * cfg.n_shared_experts
-            if fs:
+            self._init_moe(L - nd, Experts(L - nd, cfg.n_routed_experts, d,
+                                           cfg.moe_intermediate_size, dt,
+                                           device), device)
+
+    def _init_moe(self, nm: int, experts: nn.Module, device) -> None:
+        """The router, the routed ``experts``, the shared experts and the
+        activation counter of ``nm`` sparse-expert layers."""
+        cfg = self.cfg
+        d, dt, e, fs = (cfg.hidden_size, cfg.dtype, cfg.n_routed_experts,
+                        cfg.shared_width)
+        self.router = PDense(d, e, use_bias=False, dtype=dt, layers=nm,
+                             device=device)
+        self.experts = experts
+        if cfg.router_scoring == "sigmoid":
+            # the score-correction bias: it picks the experts, fp32
+            self.register_buffer("e_score_correction_bias", torch.zeros(
+                (nm, e), dtype=torch.float32, device=device))
+        if fs:
+            if cfg.expert_act == "swiglu":
                 self.shared_gate_proj = PDense(d, fs, use_bias=False,
                                                dtype=dt, layers=nm,
                                                device=device)
-                self.shared_up_proj = PDense(d, fs, use_bias=False, dtype=dt,
-                                             layers=nm, device=device)
-                self.shared_down_proj = PDense(fs, d, use_bias=False,
-                                               dtype=dt, layers=nm,
-                                               device=device)
-            # (layer, step) expert activations with rows: K6 adds to it
-            self.register_buffer("experts_active", torch.zeros(
-                (), dtype=torch.int64, device=device), persistent=False)
+            self.shared_up_proj = PDense(d, fs, use_bias=False, dtype=dt,
+                                         layers=nm, device=device)
+            self.shared_down_proj = PDense(fs, d, use_bias=False, dtype=dt,
+                                           layers=nm, device=device)
+        # (layer, step) expert activations with rows: K6 adds to it
+        self.register_buffer("experts_active", torch.zeros(
+            (), dtype=torch.int64, device=device), persistent=False)
+
+    def _init_hybrid(self, dense, device) -> None:
+        """A hybrid stack's mixers, each kind stacked over its own blocks:
+        the attention's q / k / v / o, the Mamba mixers, the sparse
+        experts (a leaf a block)."""
+        cfg = self.cfg
+        d, dt = cfg.hidden_size, cfg.dtype
+        na, nm, ne = (cfg.block_pattern.count(k) for k in "*ME")
+        hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        if na:
+            self.q_proj = dense("q_proj", d, hq, na)
+            self.k_proj = dense("k_proj", d, hkv, na)
+            self.v_proj = dense("v_proj", d, hkv, na)
+            self.o_proj = dense("o_proj", hq, d, na)
+        if nm:
+            self.mamba = Mamba2Mixers(cfg, nm, device)
+        if ne:
+            self._init_moe(ne, nn.ModuleList(
+                Experts(None, cfg.n_routed_experts, d,
+                        cfg.moe_intermediate_size, dt, device,
+                        gated=cfg.expert_act == "swiglu")
+                for _ in range(ne)), device)
 
     def tp_plan(self, tensor: int) -> dict:
         """Roles over ``tensor`` (see the module docstring)."""
@@ -397,16 +547,22 @@ class LlamaLayers(nn.Module):
     def block(self, li: int, x, cache: Optional[KVCache], cos, sin,
               kv_valid, cache_index, step: Optional["_Step"] = None,
               drop: Optional[torch.Generator] = None,
-              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+              keep: Optional[torch.Tensor] = None,
+              write_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One decoder layer (reference LlamaBlock, llama.py:180-309):
         x [B, S, hidden] (the packed fused step: [1, P, hidden]); with a
         cache, ``step`` says where layer ``li``'s new k/v rows go and how
         the queries attend (see ``_Step``).  ``drop`` (training) draws the
         LoRA dropout masks of the seven projections in order.  ``keep``
-        [B, S] bool (sparse experts): the real tokens, the rest routed to
-        no expert."""
+        [B, S] bool (sparse experts, Mamba mixers): the real tokens, the
+        rest routed to no expert and left out of the recurrent state.
+        ``write_mask`` [B] (a hybrid stack's one-token step): the rows
+        whose recurrent state the step may change."""
         b, s, _ = x.shape
         h = self.input_layernorm(x, li)
+        if self.cfg.hybrid:
+            return x + self._mixer(li, h, cache, kv_valid, cache_index, step,
+                                   keep, write_mask)
         if self.cfg.mla:
             attn = self._latent_attention(li, h, cache, cos, sin, kv_valid,
                                           cache_index, step)
@@ -435,8 +591,9 @@ class LlamaLayers(nn.Module):
         q = self.q_proj(h, li, drop).reshape(b, s, nq, hd)
         k = self.k_proj(h, li, drop).reshape(b, s, nh, hd)
         v = self.v_proj(h, li, drop).reshape(b, s, nh, hd)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if cfg.rope:
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
 
         if cache is None:
             attn = dot_product_attention(q, k, v, kv_valid=kv_valid,
@@ -552,23 +709,50 @@ class LlamaLayers(nn.Module):
         out = torch.bmm(o_lat.transpose(0, 1), w_uv.permute(1, 0, 2))
         return out.transpose(0, 1)[:, None]
 
+    def _mixer(self, li: int, h, cache: Optional[KVCache], kv_valid,
+               cache_index, step: Optional["_Step"], keep, write_mask
+               ) -> torch.Tensor:
+        """Block ``li`` of a hybrid stack: its one mixer over the normed
+        h [B, S, hidden], by the pattern's kind, at the block's ordinal
+        within its kind."""
+        kind, j = self.cfg.block_pattern[li], self.cfg.kind_index(li)
+        if kind == "M":
+            state = None if cache is None else (cache[2][j], cache[3][j])
+            return self.mamba(j, h, state, cache_index, keep, write_mask)
+        if kind == "E":
+            return self._experts(j, h, keep)
+        b, s, _ = h.shape
+        attn = self._attention(j, h, None if cache is None else cache[:2],
+                               None, None, kv_valid, cache_index, step, None)
+        return self.o_proj(attn.reshape(b, s, -1), j)
+
     def _experts(self, m: int, h: torch.Tensor,
                  keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Sparse-expert MLP of MoE layer ``m``: the routed experts (fp32
         sum; tokens outside ``keep`` get none) plus the shared experts'
-        SwiGLU, rounded once."""
+        SwiGLU (relu2 for relu2 experts), rounded once."""
         cfg = self.cfg
         b, s, d = h.shape
         x = h.reshape(-1, d)
-        ex = self.experts
-        y = moe_experts(x, leaf(self.router, "kernel", m),
-                        ex.gate_proj[m], ex.up_proj[m], ex.down_proj[m],
+        if cfg.hybrid:
+            bank = self.experts[m]
+            gate, up, down = (getattr(bank, "gate_proj", None), bank.up_proj,
+                              bank.down_proj)
+        else:
+            ex = self.experts
+            gate, up, down = ex.gate_proj[m], ex.up_proj[m], ex.down_proj[m]
+        corr = (self.e_score_correction_bias[m]
+                if cfg.router_scoring == "sigmoid" else None)
+        y = moe_experts(x, leaf(self.router, "kernel", m), gate, up, down,
                         cfg.num_experts_per_tok, cfg.routed_scaling_factor,
                         self.experts_active,
-                        None if keep is None else keep.reshape(-1))
-        if cfg.n_shared_experts:
-            act = F.silu(self.shared_gate_proj(x, m)) \
-                * self.shared_up_proj(x, m)
+                        None if keep is None else keep.reshape(-1), corr)
+        if cfg.shared_width:
+            if cfg.expert_act == "relu2":
+                act = F.relu(self.shared_up_proj(x, m)).square()
+            else:
+                act = F.silu(self.shared_gate_proj(x, m)) \
+                    * self.shared_up_proj(x, m)
             y = y + self.shared_down_proj(act, m).float()
         return y.to(h.dtype).reshape(b, s, d)
 
@@ -576,15 +760,18 @@ class LlamaLayers(nn.Module):
 class Experts(nn.Module):
     """The routed experts of every MoE layer: ``gate_proj`` / ``up_proj``
     [L, E, hidden, f] and ``down_proj`` [L, E, f, hidden], each expert's
-    kernel in the [in, out] layout."""
+    kernel in the [in, out] layout; ``layers`` None: one layer's, [E,
+    ...]; ``gated`` False: no ``gate_proj`` (relu2 experts)."""
 
-    def __init__(self, layers: int, experts: int, d: int, f: int, dtype,
-                 device=None):
+    def __init__(self, layers: Optional[int], experts: int, d: int, f: int,
+                 dtype, device=None, gated: bool = True):
         super().__init__()
+        lead = (experts,) if layers is None else (layers, experts)
         for name, shape in (("gate_proj", (d, f)), ("up_proj", (d, f)),
                             ("down_proj", (f, d))):
-            self.register_buffer(name, torch.zeros(
-                (layers, experts) + shape, dtype=dtype, device=device))
+            if name != "gate_proj" or gated:
+                self.register_buffer(name, torch.zeros(
+                    lead + shape, dtype=dtype, device=device))
 
 
 @dataclasses.dataclass
@@ -777,9 +964,13 @@ class LlamaForCausalLM(nn.Module):
                              "per-row cache_index")
         if not per_row:
             cache_index = int(cache_index)
-        if cfg.mla and (fused or block_tables is not None):
-            raise ValueError("latent attention: no fused step and no paged "
-                             "KV")
+        if fused:
+            cfg.refuse("fused step")
+        if block_tables is not None:
+            cfg.refuse("paged KV")
+        if cfg.hybrid and s > 1 and b > 1 and b * s > HYBRID_ROWS_TOKENS:
+            return self._row_groups(inputs_embeds, positions, kv_valid, cache,
+                                    cache_index, last)
         page = 0
         if block_tables is not None:
             if (cfg.quantization != "int4" or cfg.decode_attention == "never"
@@ -796,16 +987,17 @@ class LlamaForCausalLM(nn.Module):
                               packed_window, b, s, inputs_embeds.is_cuda,
                               write_mask)
         keep = None
-        if cfg.moe and kv_valid is not None and not per_row:
+        if (cfg.moe or cfg.hybrid) and kv_valid is not None and not per_row:
             # a padded batch's real tokens: the cells they write (all of
             # kv_valid without a cache)
             keep = (kv_valid if cache is None
                     else kv_valid[:, cache_index:cache_index + s])
         x = inputs_embeds.to(cfg.dtype)
-        cos, sin = cfg.rope_tables(positions)
+        cos, sin = cfg.rope_tables(positions) if cfg.rope else (None, None)
         for li in range(cfg.num_layers):
             x = self.layers.block(li, x, cache, cos, sin, kv_valid,
-                                  cache_index, step, keep=keep)
+                                  cache_index, step, keep=keep,
+                                  write_mask=write_mask)
         if last is not None:
             x = x[torch.arange(b, device=x.device), last.long()][:, None]
         hidden = self.norm(x)
@@ -813,6 +1005,24 @@ class LlamaForCausalLM(nn.Module):
         if packed:
             return logits[0], hidden[0], cache
         return logits, hidden, cache
+
+    def _row_groups(self, embeds, positions, kv_valid, cache, cache_index,
+                    last):
+        """A hybrid stack's multi-row step in groups of rows of about
+        ``HYBRID_ROWS_TOKENS`` tokens, each through every layer, writing
+        its rows' views of the cache."""
+        b, s = embeds.shape[:2]
+        per = max(1, HYBRID_ROWS_TOKENS // s)
+        outs = []
+        for r in range(0, b, per):
+            rows = slice(r, r + per)
+            outs.append(self(
+                embeds[rows], positions[rows],
+                None if kv_valid is None else kv_valid[rows],
+                None if cache is None else tuple(c[:, rows] for c in cache),
+                cache_index, last=None if last is None else last[rows])[:2])
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]), cache)
 
     def forward_train(self, inputs_embeds: torch.Tensor,
                       positions: torch.Tensor,
@@ -829,9 +1039,7 @@ class LlamaForCausalLM(nn.Module):
         projections have no backward (neither has the JAX package's int4
         kernel)."""
         cfg = self.cfg
-        if cfg.mla or cfg.moe:
-            raise ValueError("latent attention / sparse experts: no "
-                             "training")
+        cfg.refuse("training")
         if cfg.quantization != "none":
             raise ValueError(f"training needs quantization='none' (a bf16 "
                              f"or fp32 base), got {cfg.quantization!r}")

@@ -50,7 +50,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"decode_attn": [_P] * 11 + [_I] * 11 + [ctypes.c_float, _P]}
 HEAD_DIMS = (32, 64, 128)
-MAX_GROUPS = 8
+MAX_GROUPS = 16      # q heads a kv head (Nemotron-H's GQA: 32 over 2)
 TILE = 64            # window positions per ring stage of the kernel
 MAX_ROWS = 64        # query vectors (slots x grouped heads) a block holds
 SPLIT_TILES = 10     # tiles a split walks at most, for fewer than

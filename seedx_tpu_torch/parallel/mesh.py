@@ -366,10 +366,10 @@ def place_params(module: nn.Module, mesh,
     ``local_part``) and ``tp`` (its role, see ``tensor_plan``)."""
     from seedx_tpu_torch.parallel.distributed import MeshGroups
 
-    if any(getattr(getattr(m, "cfg", None), "mla", False)
-           or getattr(getattr(m, "cfg", None), "moe", False)
-           for m in module.modules()):
-        raise ValueError("latent attention / sparse experts: no mesh")
+    for m in module.modules():
+        refuse = getattr(getattr(m, "cfg", None), "refuse", None)
+        if refuse is not None:
+            refuse("mesh")
     groups = MeshGroups(mesh)
     shards = _local_shards(module, mesh, rules)
     for name, (local, gathers, role, splits) in shards.items():

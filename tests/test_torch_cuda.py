@@ -383,6 +383,10 @@ def _quantize_rows(x):
     (4, 1280, 40, 40, 128, True, True, [(0, 1280), (9, 10), (0, 0),
                                        (300, 1001)]),
     (3, 512, 40, 8, 128, False, False, [(0, 512), (17, 300), (2, 2)]),
+    # Nemotron-H's GQA, G 16, over a 64-slot engine's windows
+    (8, 1536, 32, 2, 128, False, False,
+     [(0, 1536), (0, 1), (0, 700), (0, 129), (0, 64), (0, 1000), (0, 257),
+      (0, 1535)]),
     (3, 200, 8, 2, 64, True, True, [(0, 200), (33, 34), (5, 150)]),
     (2, 96, 4, 4, 32, True, False, [(0, 96), (10, 55)]),
     (2, 96, 4, 4, 32, False, True, [(4, 90), (0, 0)])])
@@ -2136,3 +2140,163 @@ def test_captured_moe_mla_decode_step_equals_eager(cuda_device):
     torch.testing.assert_close(lg_c, lg_e, rtol=0, atol=1e-4)
     # the same steps ran: the same launches and activations counted
     assert k6_c == k6_e > 0 and act_c == act_e > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [384, 6144, 24576])
+def test_moe_gemm_relu2_kernel_matches_plain(cuda_device, rows):
+    """K6's relu2 epilogue at Nemotron-H's expert widths (E128, d2688,
+    f1856: 14.5 column tiles of 128, so the 64- and 128-row tiles end in a
+    64-column tile) at a decode step's rows (64 slots x top-6: the 16-row
+    tile), a 1024-token prefill's (the 64-row tile) and a 4096-token
+    one's (the 128-row tile), two experts given no rows, then the down
+    projection over its output: against moe_gemm_plain (fp32 matmuls,
+    TF32 off), reruns bit-equal, launches counted under "moe_gemm
+    relu2"."""
+    from seedx_tpu_torch.ops import moe as tmoe
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(rows)
+    e, d, f = 128, 2688, 1856
+    offsets = _expert_rows(rows, e, {5, 77}, g, cuda_device)
+    x = torch.randn((rows, d), generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    up = (torch.randn((e, d, f), generator=g, device=cuda_device)
+          * 0.02).to(torch.bfloat16)
+    down = (torch.randn((e, f, d), generator=g, device=cuda_device)
+            * 0.02).to(torch.bfloat16)
+    active = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    before = dict(launches)
+    act = tmoe.moe_gemm(x, up, offsets, None, active, "relu2")
+    again = tmoe.moe_gemm(x, up, offsets, None, None, "relu2")
+    out = tmoe.moe_gemm(act, down, offsets)
+    torch.cuda.synchronize()
+    assert launches["moe_gemm relu2"] == before["moe_gemm relu2"] + 2
+    assert launches["moe_gemm"] == before["moe_gemm"] + 3
+    assert int(active) == int(((offsets[1:] - offsets[:-1]) > 0).sum())
+    assert torch.equal(act, again) and act.dtype == torch.bfloat16
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = tmoe.moe_gemm_plain(x, up, offsets, None, None, "relu2")
+        want_out = tmoe.moe_gemm_plain(act, down, offsets)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    # fp32 sums in another order; the relu2 output rounds once to bf16,
+    # which that may flip by one ULP (2^-7 of the largest value); the
+    # fp32 down over the same rows to 1e-5 of its largest value
+    err = (act.float() - want.float()).abs().max().item()
+    assert err <= 2 ** -7 * want.float().abs().max().item(), err
+    err = (out - want_out).abs().max().item()
+    assert err <= 1e-5 * want_out.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_softmax_route_is_deepseek_v2s_formula(cuda_device):
+    """DeepSeek-V2's router beside the sigmoid one: the fp32 softmax's
+    top k times the scaling, written out, bit for bit."""
+    from seedx_tpu_torch.ops import moe as tmoe
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(3)
+    x = torch.randn((192, 2048), generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    w = (torch.randn((2048, 64), generator=g, device=cuda_device)
+         * 0.02).to(torch.bfloat16)
+    weights, ids = tmoe.route(x, w, 6, 1.0)
+    want_w, want_ids = torch.topk(torch.softmax(x.float() @ w.float(), -1),
+                                  6, dim=-1)
+    assert torch.equal(ids, want_ids) and torch.equal(weights, want_w * 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 64])
+def test_ssm_step_kernel_matches_plain(cuda_device, slots):
+    """K7 at Nemotron-H's widths (64 heads of 64, state 128, 8 groups):
+    dt a strided view of the in-projection's row as the Mamba block hands
+    it, against ssm_step_plain; state and y within 1e-5 of their largest
+    values (fp32 sums in another order, expf / log1pf against torch's),
+    a rerun bit-equal (no atomics), one launch counted a call."""
+    from seedx_tpu_torch.ops import ssm as tssm
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(slots)
+    h, p, gr, n = 64, 64, 8, 128
+    width = h * p + 2 * gr * n
+    state0 = torch.randn((slots, h, p, n), generator=g,
+                         device=cuda_device) * 0.5
+    proj = torch.randn((slots, width + h + 8), generator=g,
+                       device=cuda_device).to(torch.bfloat16)
+    xbc, dt_raw = proj[:, :width].contiguous(), proj[:, width:width + h]
+    params = [(torch.randn((h,), generator=g, device=cuda_device)
+               * 0.5).to(torch.bfloat16) for _ in range(3)]
+    states = [state0.clone() for _ in range(3)]
+    before = launches["ssm_step"]
+    ys = [tssm.ssm_step(s, xbc, dt_raw, *params, h, p, gr)
+          for s in states[:2]]
+    want = tssm.ssm_step_plain(states[2], xbc, dt_raw, *params, h, p, gr)
+    torch.cuda.synchronize()
+    assert launches["ssm_step"] == before + 2
+    assert torch.equal(ys[0], ys[1]) and torch.equal(states[0], states[1])
+    assert (states[0] - states[2]).abs().max() <= \
+        1e-5 * states[2].abs().max()
+    assert (ys[0] - want).abs().max() <= 1e-5 * want.abs().max()
+    with pytest.raises(ValueError, match="ssm_step"):
+        tssm.ssm_step(states[0][..., :64].contiguous(), xbc, dt_raw,
+                      *params, h, p, gr)
+
+
+@pytest.mark.cuda
+def test_captured_hybrid_decode_step_equals_eager(cuda_device):
+    """A small Nemotron-H agent (pattern ME*EM at K7's state 128 and head
+    dim 64, relu2 experts at K6-sized widths, NoPE GQA) served by
+    ContinuousEngine over 2 slots, so slots are reused: the captured
+    decode chunks give the eager run's tokens and logits, and replays
+    count K7's and K6's launches as the eager steps do."""
+    import types
+
+    from seedx_tpu_torch.inference.continuous import ContinuousEngine
+    from seedx_tpu_torch.models.agent import AgentConfig, ContinuousLVLM
+    from seedx_tpu_torch.models.llama import LlamaConfig
+    from seedx_tpu_torch.text.tokenizer import load_tokenizer
+
+    llm = LlamaConfig(vocab_size=32330, hidden_size=256, intermediate_size=128,
+                      num_layers=5, num_heads=4, num_kv_heads=2,
+                      attn_head_dim=64, rope=False, block_pattern="ME*EM",
+                      mamba_heads=8, mamba_head_dim=64, ssm_state_size=128,
+                      mamba_groups=2, ssm_chunk=16, n_routed_experts=8,
+                      num_experts_per_tok=2, moe_intermediate_size=128,
+                      n_shared_experts=1, shared_intermediate_size=192,
+                      routed_scaling_factor=2.5, expert_act="relu2",
+                      router_scoring="sigmoid")
+    cfg = AgentConfig(llm=llm, num_img_in_tokens=4, num_img_out_tokens=4,
+                      vit_dim=64, resampler_heads=4, vit_down=False)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(9)
+    agent = init_normal_(ContinuousLVLM(cfg, cuda_device).eval(), g)
+    with torch.no_grad():
+        agent.llm.layers.router.kernel.normal_(0.0, 0.5, generator=g)
+    rt = types.SimpleNamespace(agent=agent, agent_cfg=cfg,
+                               tokenizer=load_tokenizer())
+    tok = rt.tokenizer
+    reqs = [{"input_ids": [tok.bos_token_id] + tok.encode(t)}
+            for t in ("hello world", "a b c d e f g", "the cat",
+                      "one more request")]
+    runs = []
+    for enabled in (True, False):
+        agent.graphs.enabled = enabled
+        eng = ContinuousEngine(rt, slots=2, max_new_tokens=10, chunk_steps=4,
+                               prompt_buckets=(32,))
+        eng.warmup()
+        ids = [eng.submit(r) for r in reqs]
+        k7, k6 = launches["ssm_step"], launches["moe_gemm relu2"]
+        res = eng.run()
+        runs.append(([list(res[i]["tokens"]) for i in ids],
+                     eng.state["prev_logits"].clone(),
+                     launches["ssm_step"] - k7,
+                     launches["moe_gemm relu2"] - k6, eng))
+    (tok_c, lg_c, k7_c, k6_c, eng_c), (tok_e, lg_e, k7_e, k6_e, _) = runs
+    assert eng_c.program("decode").graph is not None
+    assert tok_c == tok_e
+    torch.testing.assert_close(lg_c, lg_e, rtol=0, atol=1e-4)
+    assert k7_c == k7_e > 0 and k6_c == k6_e > 0

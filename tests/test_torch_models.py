@@ -205,22 +205,28 @@ def test_quantize_llama_params_matches_jax(mode):
 
 def test_llama_config_fields_mirror_jax():
     # every field the port keeps has the JAX package's default; the
-    # DeepSeek-V2 fields (latent attention, sparse experts, YaRN) have no
-    # JAX counterpart, and their defaults leave the config a LLaMA
+    # DeepSeek-V2 fields (latent attention, sparse experts, YaRN) and the
+    # Nemotron-H ones (the hybrid stack, Mamba-2, relu2 experts, the
+    # sigmoid router, attention without RoPE) have no JAX counterpart,
+    # and their defaults leave the config a LLaMA
     port_only = {"kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
                  "v_head_dim", "n_routed_experts", "num_experts_per_tok",
                  "moe_intermediate_size", "n_shared_experts",
                  "first_k_dense_replace", "routed_scaling_factor",
                  "yarn_factor", "yarn_original_max_position",
                  "yarn_beta_fast", "yarn_beta_slow", "yarn_mscale",
-                 "yarn_mscale_all_dim"}
+                 "yarn_mscale_all_dim", "block_pattern", "attn_head_dim",
+                 "rope", "mamba_heads", "mamba_head_dim", "ssm_state_size",
+                 "mamba_groups", "conv_kernel", "ssm_chunk", "expert_act",
+                 "router_scoring", "shared_intermediate_size"}
     jf = {f.name: f.default for f in dataclasses.fields(jllama.LlamaConfig)}
     for f in dataclasses.fields(tllama.LlamaConfig):
         if f.name not in {"dtype", "attention_impl"} | port_only:
             assert jf[f.name] == f.default, f.name
     assert not port_only & set(jf)
     plain = tllama.LlamaConfig()
-    assert not (plain.mla or plain.moe or plain.yarn_factor)
+    assert not (plain.mla or plain.moe or plain.yarn_factor
+                or plain.hybrid)
 
 
 def test_agent_splice_helpers_match_jax():
